@@ -1,0 +1,205 @@
+"""PyTorch port ops against the JAX reference on the CPU: RoPE, attention,
+and the plain versions of the fused glue kernels; plus the port's
+packaging guards (no jax import, no CPU fallback in chip_smoke.py, no
+library attention or torch.compile).
+
+Inputs are numpy arrays from a seed, fp32. Tolerances (1e-5 max-abs) cover
+the different order of float32 sums in XLA:CPU and ATen; the RoPE tables
+are host numpy on both sides and must match exactly.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_close
+from yume_tpu.ops import attention as jattn
+from yume_tpu.ops import fused_adaln as jfused
+from yume_tpu.ops import rope as jrope
+from yume_tpu_torch.ops import attention as tattn
+from yume_tpu_torch.ops import fused_adaln as tfused
+from yume_tpu_torch.ops import rope as trope
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TOL = 1e-5  # fp32 sum order differs between XLA:CPU and ATen
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grid,offset", [((3, 4, 5), 0), ((2, 3, 3), 7)])
+def test_grid_rope_tables_equal(grid, offset):
+    want = jrope.grid_rope(*grid, 128, f_offset=offset)
+    got = trope.grid_rope(*grid, 128, f_offset=offset)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_framepack_rope_tables_equal():
+    grids = [(1, 2, 3), (4, 1, 2), (2, 4, 6)]
+    for g, w in zip(trope.framepack_rope(grids, 48), jrope.framepack_rope(grids, 48)):
+        np.testing.assert_array_equal(g, w)
+    assert trope.axis_dims(128) == jrope.axis_dims(128)
+
+
+@pytest.mark.parametrize("batched_tables", [False, True])
+def test_apply_rope_matches_jax(rng_np, batched_tables):
+    x = rng_np.standard_normal((2, 12, 3, 16)).astype(np.float32)
+    cos, sin = trope.grid_rope(2, 2, 3, 16)
+    if batched_tables:
+        cos = np.stack([cos, cos[::-1]])
+        sin = np.stack([sin, sin[::-1]])
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin))
+    got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(cos)),
+                           torch.from_numpy(np.ascontiguousarray(sin)))
+    assert_close(got, want, TOL)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_len", [None, (5, 9)])
+def test_plain_attention_matches_xla(rng_np, kv_len):
+    q = rng_np.standard_normal((2, 7, 3, 16)).astype(np.float32)
+    k = rng_np.standard_normal((2, 9, 3, 16)).astype(np.float32)
+    v = rng_np.standard_normal((2, 9, 3, 16)).astype(np.float32)
+    jl = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    tl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    want = jattn.xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=jl)
+    got = tattn.attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), kv_len=tl)
+    assert_close(got, want, TOL)
+
+
+def test_plain_attention_lse(rng_np):
+    q = torch.from_numpy(rng_np.standard_normal((1, 5, 2, 8)).astype(np.float32))
+    k = torch.from_numpy(rng_np.standard_normal((1, 6, 2, 8)).astype(np.float32))
+    out, lse = tattn.plain_attention(q, k, k, kv_len=torch.tensor([4]), return_lse=True)
+    s = torch.einsum("bqnd,bknd->bnqk", q, k)[..., :4] * 8 ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=TOL, rtol=0)
+    assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# fused glue (plain versions on CPU)
+# ---------------------------------------------------------------------------
+
+
+def _glue_inputs(rng_np, b=2, l=10, d=64, k=2):
+    x = rng_np.standard_normal((b, l, d)).astype(np.float32) * 2 + 0.5
+    y = rng_np.standard_normal((b, l, d)).astype(np.float32)
+    s = rng_np.standard_normal((b, k, d)).astype(np.float32) * 0.1
+    t = rng_np.standard_normal((b, k, d)).astype(np.float32) * 0.1
+    idx = rng_np.integers(0, k, (b, l)).astype(np.int32)
+    return x, y, s, t, idx
+
+
+@pytest.mark.parametrize("mode", ["adaln", "affine", "fp32_out"])
+def test_adaln_norm_matches_jax(rng_np, mode):
+    x, _, s, t, idx = _glue_inputs(rng_np)
+    tx = torch.from_numpy(x).to(torch.bfloat16) if mode == "fp32_out" else torch.from_numpy(x)
+    jx = jnp.asarray(x, jnp.bfloat16) if mode == "fp32_out" else jnp.asarray(x)
+    if mode == "affine":  # norm3: gate 0, no idx, K = 1
+        s1, t1 = s[:1, :1] + 1.0, t[:1, :1]
+        want = jfused.adaln_norm(jx, jnp.asarray(s1), jnp.asarray(t1), None, gate=0.0)
+        got = tfused.adaln_norm(tx, torch.from_numpy(s1), torch.from_numpy(t1), None,
+                                gate=0.0)
+    else:
+        od = jnp.float32 if mode == "fp32_out" else None
+        tod = torch.float32 if mode == "fp32_out" else None
+        want = jfused.adaln_norm(jx, jnp.asarray(s), jnp.asarray(t), jnp.asarray(idx),
+                                 out_dtype=od)
+        got = tfused.adaln_norm(tx, torch.from_numpy(s), torch.from_numpy(t),
+                                torch.from_numpy(idx), out_dtype=tod)
+    assert got.dtype == torch.float32
+    assert_close(got, want, TOL)
+
+
+def test_adaln_residual_matches_jax(rng_np):
+    x, y, s, _, idx = _glue_inputs(rng_np)
+    want = jfused.adaln_residual(jnp.asarray(x), jnp.asarray(y), jnp.asarray(s),
+                                 jnp.asarray(idx))
+    got = tfused.adaln_residual(torch.from_numpy(x), torch.from_numpy(y),
+                                torch.from_numpy(s), torch.from_numpy(idx))
+    assert_close(got, want, TOL)
+
+
+def test_rms_norm_matches_jax(rng_np):
+    x, _, s, _, _ = _glue_inputs(rng_np)
+    w = 1.0 + s[0, 0]
+    want = jfused.rms_norm(jnp.asarray(x), jnp.asarray(w), eps=1e-6)
+    got = tfused.rms_norm(torch.from_numpy(x), torch.from_numpy(w), eps=1e-6)
+    assert_close(got, want, TOL)
+
+
+def test_qk_norm_rope_matches_jax(rng_np):
+    x, y, s, t, _ = _glue_inputs(rng_np, l=12)
+    wq, wk = 1.0 + s[0, 0], 1.0 + t[0, 0]
+    cos, sin = trope.grid_rope(2, 2, 3, 16)
+    want = jfused.qk_norm_rope(jnp.asarray(x), jnp.asarray(y), jnp.asarray(wq),
+                               jnp.asarray(wk), jnp.asarray(cos), jnp.asarray(sin), 4,
+                               eps=1e-6)
+    got = tfused.qk_norm_rope(torch.from_numpy(x), torch.from_numpy(y),
+                              torch.from_numpy(wq), torch.from_numpy(wk),
+                              torch.from_numpy(cos), torch.from_numpy(sin), 4, eps=1e-6)
+    for g, w in zip(got, want):
+        assert_close(g, w, TOL)
+
+
+def test_cpu_path_launches_no_kernel(rng_np):
+    x, y, s, _, idx = _glue_inputs(rng_np)
+    before = tfused.adaln_residual.launches
+    tfused.adaln_residual(torch.from_numpy(x), torch.from_numpy(y),
+                          torch.from_numpy(s), torch.from_numpy(idx))
+    assert tfused.adaln_residual.launches == before
+
+
+# ---------------------------------------------------------------------------
+# packaging guards
+# ---------------------------------------------------------------------------
+
+
+def _port_modules():
+    pkg = REPO / "yume_tpu_torch"
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py"))
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert "yume_tpu_torch.pipelines.ti2v" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_has_no_cpu_fallback(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_port_uses_no_library_attention_or_compile():
+    banned = ("scaled_dot_product_attention", "torch.compile")
+    for path in (REPO / "yume_tpu_torch").rglob("*"):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            text = path.read_text()
+            for word in banned:
+                assert word not in text, f"{path} names {word}"

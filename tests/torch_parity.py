@@ -1,0 +1,37 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package (tests/test_torch_*.py)."""
+
+import numpy as np
+import torch
+
+_NORM_LEAVES = ("weight", "gamma", "scale")
+
+
+def perturb(tree, seed: int):
+    """Replace every leaf of a JAX parameter tree (arrays, or shapes from
+    ``jax.eval_shape``) with seeded noise: norm
+    weights 1 + 0.1·N(0, 1), everything else 0.1·N(0, 1). Zero-initialised
+    layers (the DiT head, the VAE attention projection) would otherwise make
+    a parity test pass on biases alone."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, path):
+        if isinstance(node, dict) or hasattr(node, "items"):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        shape = tuple(node.shape)
+        noise = 0.1 * rng.standard_normal(shape).astype(np.float32)
+        is_norm = path[-1] in _NORM_LEAVES and any("norm" in p for p in path)
+        return noise + 1.0 if is_norm else noise
+
+    return walk(tree, ())
+
+
+def to_np(x):
+    """torch tensor or JAX array → float32 numpy."""
+    if torch.is_tensor(x):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def assert_close(got, want, tol):
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=tol, rtol=0)

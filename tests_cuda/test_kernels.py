@@ -1,0 +1,138 @@
+"""The port's hand-written kernels against their plain PyTorch versions on
+the card, at the edge cases the main path does not reach: ragged q and kv
+lengths, per-batch kv_len (including 0), strided views, head dim 64, batch
+> 1 with per-batch modulation tables, and the wrappers' input checks.
+
+Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
+the fp32 plain version; the glue kernels one bf16 ulp of the output
+magnitude (2^-7 × max |plain|), since both sides compute in fp32 and round
+once.
+"""
+
+import pytest
+import torch
+
+from yume_tpu_torch.ops import fused_adaln as fa
+from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
+
+pytestmark = pytest.mark.cuda
+
+K1_TOL = 2e-2
+GLUE_REL_TOL = 2.0 ** -7
+
+
+def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+@pytest.fixture
+def gen(cuda):
+    return torch.Generator(device=cuda).manual_seed(0)
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,kv_len", [
+    (1, 1, 1, 1, 128, None),
+    (2, 65, 130, 3, 64, (77, 130)),
+    (1, 200, 64, 2, 128, (64,)),
+    (2, 127, 513, 4, 128, (1, 500)),
+    (3, 64, 100, 2, 128, (0, 100, 37)),
+])
+def test_flash_attention_edges(gen, b, lq, lk, n, d, kv_len):
+    q = _randn(gen, b, lq, n, d)
+    k = _randn(gen, b, lk, n, d)
+    v = _randn(gen, b, lk, n, d)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = flash_attention(q, k, v, kv_len=kl, return_lse=True)
+    want, want_lse = plain_attention(q, k, v, kv_len=kl, return_lse=True)
+    live = [i for i in range(b) if kv_len is None or kv_len[i] > 0]
+    err = (out[live].float() - want[live].float()).abs().max().item()
+    assert err <= K1_TOL, err
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=1e-3)
+    for i in set(range(b)) - set(live):  # every key masked: output 0
+        assert out[i].abs().max().item() == 0.0
+
+
+def test_flash_attention_strided_views(gen):
+    # q/k/v as views into one packed [B, L, 3, N, D] projection
+    qkv = _randn(gen, 2, 97, 3, 4, 128)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    err = (flash_attention(q, k, v).float() - plain_attention(q, k, v).float()).abs().max()
+    assert err.item() <= K1_TOL
+
+
+def test_flash_attention_rejects_unsupported(gen):
+    q = _randn(gen, 1, 8, 2, 128)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        flash_attention(q[..., ::2], q[..., ::2], q[..., ::2])  # D = 64, not unit stride
+    with pytest.raises(ValueError):
+        x = _randn(gen, 1, 8, 2, 96)
+        flash_attention(x, x, x)
+
+
+def test_flash_attention_counts_launches(gen):
+    q = _randn(gen, 1, 8, 2, 128)
+    before = flash_attention.launches
+    flash_attention(q, q, q)
+    assert flash_attention.launches == before + 1
+
+
+def _glue_check(got, want):
+    tol = GLUE_REL_TOL * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("d", [64, 96, 3072])
+@pytest.mark.parametrize("mode", ["adaln", "affine", "fp32_out"])
+def test_adaln_norm_edges(gen, d, mode):
+    b, l, k = 2, 37, 3
+    x = _randn(gen, b, l, d, scale=3.0)
+    s = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    t = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+    if mode == "affine":
+        w, bias = s[:1, :1] + 1.0, t[:1, :1]
+        got = fa.adaln_norm(x, w, bias, None, gate=0.0)
+        want = fa._adaln_norm_ref(x, w, bias, None, 1e-6, 0.0, x.dtype)
+    else:
+        od = torch.float32 if mode == "fp32_out" else torch.bfloat16
+        got = fa.adaln_norm(x, s, t, idx, out_dtype=od)
+        want = fa._adaln_norm_ref(x, s, t, idx, 1e-6, 1.0, od)
+    assert got.dtype == want.dtype
+    _glue_check(got, want)
+
+
+def test_adaln_residual_batched_tables(gen):
+    b, l, d, k = 2, 50, 3072, 2
+    x, y = _randn(gen, b, l, d), _randn(gen, b, l, d)
+    s = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+    _glue_check(fa.adaln_residual(x, y, s, idx), fa._adaln_residual_ref(x, y, s, idx))
+    _glue_check(fa.adaln_residual(x, y, s[:1], None), fa._adaln_residual_ref(x, y, s[:1], None))
+
+
+@pytest.mark.parametrize("heads,head_dim", [(24, 128), (4, 64)])
+def test_qk_norm_rope_and_rms_norm_batched(gen, heads, head_dim):
+    b, l = 2, 45
+    d = heads * head_dim
+    q, k = _randn(gen, b, l, d), _randn(gen, b, l, d)
+    wq = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    wk = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    ang = torch.rand((l, head_dim // 2), generator=gen, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    got = fa.qk_norm_rope(q, k, wq, wk, cos, sin, heads, eps=1e-6)
+    want = fa._qk_norm_rope_ref(q, k, wq, wk, cos, sin, heads, 1e-6)
+    for g, w in zip(got, want):
+        _glue_check(g, w)
+    _glue_check(fa.rms_norm(q, wq, eps=1e-6), fa._rms_ref(q, wq, 1e-6))
+
+
+def test_glue_rejects_non_contiguous(gen):
+    x = _randn(gen, 2, 8, 128).transpose(0, 1)
+    s = _randn(gen, 1, 1, 128, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        fa.adaln_residual(x, x, s, None)

@@ -1,0 +1,461 @@
+"""Wan DiT backbone (5B ti2v, FramePack-packed forward) in PyTorch
+(counterpart of yume_tpu/models/dit.py).
+
+Module and parameter names follow the reference torch ``WanModel``
+(``blocks.{i}.self_attn.q``, ``time_projection.1``, ``head.head`` ...), so a
+released state dict loads as it is; :mod:`..utils.convert` maps JAX
+parameter trees onto the same names.
+
+Numerics mirror the reference:
+
+* compact AdaLN modulation: tables for the K distinct timesteps
+  ([B, K, 6, dim], fp32) plus a per-token index [B, L]; the row select
+  happens inside the fused glue kernels (:mod:`..ops.fused_adaln`);
+* fp32 islands: time embedding, modulation arithmetic, norms and the head
+  run in fp32 whatever the compute dtype; projections run in the compute
+  dtype (bf16 on the card);
+* the residual stream stays in the compute dtype (``adaln_residual`` writes
+  x.dtype; the cross-attention residual is a plain add);
+* GELU is the tanh approximation;
+* the text padding is not masked in cross-attention (as in the reference).
+
+Parameters may be stored in any dtype: every layer casts its weights to the
+dtype its computation runs in, as flax's ``promote_dtype`` does.
+
+Ported: the FramePack-packed forward (``_forward_packed``). Not ported yet:
+``_forward_unpacked``, MVDT, TeaCache hooks, W8A8 and the 14B branch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yume_tpu.configs import DiTConfig
+
+from ..ops import fused_adaln, rope as rope_lib
+from ..ops.attention import attention
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (inputs and params cast to it)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# small layers
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    """fp32 RMS norm with learned scale (reference WanRMSNorm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
+        return (n * self.weight.float()).to(x.dtype)
+
+
+def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
+    """[cos | sin] sinusoidal embedding in fp32."""
+    half = dim // 2
+    pos = position.float()
+    inv = torch.pow(10000.0, -torch.arange(half, dtype=torch.float32,
+                                           device=pos.device) / half)
+    ang = pos[..., None] * inv
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+@dataclasses.dataclass
+class Modulation:
+    """Compact AdaLN modulation: distinct-value tables + per-token index.
+
+    e:   [B, K, dim]     time embedding, fp32
+    e0:  [B, K, 6, dim]  projected 6-way modulation, fp32
+    idx: [B, L] int32 or None (None ⇒ K == 1)
+    """
+
+    e: torch.Tensor
+    e0: torch.Tensor
+    idx: Optional[torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# attention blocks
+# ---------------------------------------------------------------------------
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.q = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.k = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.v = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.o = nn.Linear(cfg.dim, cfg.dim, **kw)
+        if cfg.qk_norm:
+            self.norm_q = RMSNorm(cfg.dim, cfg.eps, **kw)
+            self.norm_k = RMSNorm(cfg.dim, cfg.eps, **kw)
+
+    def forward(self, x, rope_cos, rope_sin):
+        c = self.cfg
+        b, l, _ = x.shape
+        n, d = c.num_heads, c.head_dim
+        q = _dense(x, self.q, x.dtype)
+        k = _dense(x, self.k, x.dtype)
+        v = _dense(x, self.v, x.dtype)
+        if c.qk_norm:
+            # RMSNorm(q)·w, RMSNorm(k)·w and RoPE of both in one pass (K4)
+            q, k = fused_adaln.qk_norm_rope(q, k, self.norm_q.weight,
+                                            self.norm_k.weight, rope_cos,
+                                            rope_sin, n, eps=c.eps)
+            q = q.reshape(b, l, n, d)
+            k = k.reshape(b, l, n, d)
+        else:
+            q = rope_lib.apply_rope(q.reshape(b, l, n, d), rope_cos, rope_sin)
+            k = rope_lib.apply_rope(k.reshape(b, l, n, d), rope_cos, rope_sin)
+        o = attention(q, k, v.reshape(b, l, n, d))
+        return _dense(o.reshape(b, l, c.dim), self.o, x.dtype)
+
+
+class CrossAttention(nn.Module):
+    """Text cross-attention (reference WanCrossAttention)."""
+
+    def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.q = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.k = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.v = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.o = nn.Linear(cfg.dim, cfg.dim, **kw)
+        if cfg.qk_norm:
+            self.norm_q = RMSNorm(cfg.dim, cfg.eps, **kw)
+            self.norm_k = RMSNorm(cfg.dim, cfg.eps, **kw)
+
+    def forward(self, x, context):
+        c = self.cfg
+        b, l, _ = x.shape
+        n, d = c.num_heads, c.head_dim
+        q = _dense(x, self.q, x.dtype)
+        k = _dense(context, self.k, x.dtype)
+        v = _dense(context, self.v, x.dtype)
+        if c.qk_norm:
+            # q is token-length sized: one fused pass (K5); k is 512 rows
+            q = fused_adaln.rms_norm(q, self.norm_q.weight, eps=c.eps)
+            k = self.norm_k(k)
+        o = attention(q.reshape(b, l, n, d), k.reshape(b, -1, n, d),
+                      v.reshape(b, -1, n, d))
+        return _dense(o.reshape(b, l, c.dim), self.o, x.dtype)
+
+
+class DiTBlock(nn.Module):
+    """AdaLN-modulated self-attn + cross-attn + FFN block (reference
+    WanAttentionBlock)."""
+
+    def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.modulation = nn.Parameter(torch.zeros(1, 6, cfg.dim, **kw))
+        self.self_attn = SelfAttention(cfg, **kw)
+        self.cross_attn = CrossAttention(cfg, **kw)
+        if cfg.cross_attn_norm:
+            self.norm3 = nn.LayerNorm(cfg.dim, eps=cfg.eps, **kw)
+        self.ffn = nn.Sequential(nn.Linear(cfg.dim, cfg.ffn_dim, **kw),
+                                 nn.GELU(approximate="tanh"),
+                                 nn.Linear(cfg.ffn_dim, cfg.dim, **kw))
+
+    def forward(self, x, mod: Modulation, context, rope_cos, rope_sin):
+        c = self.cfg
+        m = self.modulation.float()
+
+        def etab(j):
+            # fp32 (modulation_j + e0_j) as a compact [B, K, dim] table
+            return m[:, j][:, None, :] + mod.e0[:, :, j, :]
+
+        h = fused_adaln.adaln_norm(x, etab(1), etab(0), mod.idx, eps=c.eps)
+        y = self.self_attn(h, rope_cos, rope_sin)
+        x = fused_adaln.adaln_residual(x, y, etab(2), mod.idx)
+
+        if c.cross_attn_norm:
+            # affine LayerNorm as the gate=0 form of the fused norm
+            h = fused_adaln.adaln_norm(
+                x, self.norm3.weight[None, None, :], self.norm3.bias[None, None, :],
+                None, eps=c.eps, gate=0.0)
+        else:
+            h = x
+        x = x + self.cross_attn(h, context)
+
+        h = fused_adaln.adaln_norm(x, etab(4), etab(3), mod.idx, eps=c.eps)
+        h = _gelu(_dense(h, self.ffn[0], x.dtype))
+        y = _dense(h, self.ffn[2], x.dtype)
+        return fused_adaln.adaln_residual(x, y, etab(5), mod.idx)
+
+
+class Head(nn.Module):
+    """Final modulated projection to patch outputs, in fp32."""
+
+    def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        out = math.prod(cfg.patch_size) * cfg.out_dim
+        self.modulation = nn.Parameter(torch.zeros(1, 2, cfg.dim, device=device,
+                                                   dtype=dtype))
+        self.head = nn.Linear(cfg.dim, out, device=device, dtype=dtype)
+
+    def forward(self, x, mod: Modulation):
+        m = self.modulation.float()
+        e0_tab = m[:, 0][:, None, :] + mod.e   # [B, K, dim]
+        e1_tab = m[:, 1][:, None, :] + mod.e
+        h = fused_adaln.adaln_norm(x, e1_tab, e0_tab, mod.idx, eps=self.cfg.eps,
+                                   out_dtype=torch.float32)
+        return _dense(h, self.head, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# FramePack planning (host-side, static per history length)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PackChunk:
+    start: int       # history frame range [start, stop)
+    stop: int
+    scale: int       # spatial compression (1,2,4,8,16 → conv stride 2s)
+    double_f: bool = False  # bucket-6 extra 2x_f pre-conv
+
+
+def framepack_plan(f_hist: int) -> List[PackChunk]:
+    """Static chunk schedule for a history of ``f_hist`` latent frames: the
+    6 bucket regimes of progressively coarser patching for older frames."""
+    assert f_hist >= 1
+    if f_hist <= 2 + 4:
+        if f_hist <= 2:
+            mid = [PackChunk(f_hist - 1, f_hist, 2)]
+        else:
+            mid = [PackChunk(1, f_hist - 1, 2)]
+        return [PackChunk(0, 1, 1), *mid, PackChunk(f_hist - 1, f_hist, 1)]
+    if f_hist <= 2 + 4 + 16:
+        if f_hist <= 6:
+            far = [PackChunk(f_hist - 5, f_hist - 4, 4)]
+        else:
+            far = [PackChunk(1, f_hist - 5, 4)]
+        return [
+            PackChunk(0, 1, 1), *far,
+            PackChunk(f_hist - 5, f_hist - 3, 2),
+            PackChunk(f_hist - 3, f_hist, 1),
+        ]
+    if f_hist <= 2 + 4 + 16 + 64:
+        if f_hist <= 22:
+            far = [PackChunk(f_hist - 21, f_hist - 20, 8)]
+        else:
+            far = [PackChunk(1, f_hist - 21, 8)]
+        return [
+            PackChunk(0, 1, 1), *far,
+            PackChunk(f_hist - 21, f_hist - 5, 4),
+            PackChunk(f_hist - 5, f_hist - 3, 2),
+            PackChunk(f_hist - 3, f_hist, 1),
+        ]
+    if f_hist <= 2 + 4 + 16 + 64 + 256:
+        if f_hist <= 86:
+            far = [PackChunk(f_hist - 85, f_hist - 84, 16)]
+        else:
+            far = [PackChunk(1, f_hist - 85, 16)]
+        return [
+            PackChunk(0, 1, 2), *far,
+            PackChunk(f_hist - 85, f_hist - 21, 8),
+            PackChunk(f_hist - 21, f_hist - 5, 4),
+            PackChunk(f_hist - 5, f_hist - 3, 2),
+            PackChunk(f_hist - 3, f_hist, 1),
+        ]
+    assert f_hist <= 2 + 4 + 16 + 64 + 256 + 1024, "history exceeds FramePack budget"
+    if f_hist <= 342:
+        far = [PackChunk(f_hist - 341, f_hist - 340, 16, double_f=True)]
+    else:
+        far = [PackChunk(1, f_hist - 341, 16, double_f=True)]
+    return [
+        PackChunk(0, 1, 2), *far,
+        PackChunk(f_hist - 341, f_hist - 85, 16),
+        PackChunk(f_hist - 85, f_hist - 21, 8),
+        PackChunk(f_hist - 21, f_hist - 5, 4),
+        PackChunk(f_hist - 5, f_hist - 3, 2),
+        PackChunk(f_hist - 3, f_hist, 1),
+    ]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def packed_grids(
+    plan: Sequence[PackChunk], h_lat: int, w_lat: int, patch: Tuple[int, int, int]
+) -> List[Tuple[int, int, int]]:
+    """Per-chunk (F, H, W) token grids (post conv) for a FramePack plan."""
+    grids = []
+    for ch in plan:
+        stride = patch[1] * ch.scale * (4 if ch.double_f else 1)
+        grids.append((ch.stop - ch.start, _ceil_div(h_lat, stride), _ceil_div(w_lat, stride)))
+    return grids
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+class WanDiT(nn.Module):
+    """Wan diffusion transformer, FramePack-packed call mode.
+
+    ``dtype`` is the compute dtype of the matmul paths (bf16 on the card);
+    ``param_dtype`` the storage dtype of the parameters.
+    """
+
+    def __init__(self, cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16, *,
+                 device=None, param_dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(device=device, dtype=param_dtype)
+        p = cfg.patch_size
+
+        def conv(cin, cout, spatial):
+            return nn.Conv3d(cin, cout, kernel_size=(p[0], spatial, spatial),
+                             stride=(p[0], spatial, spatial), **kw)
+
+        self.patch_embedding = conv(cfg.in_dim, cfg.dim, p[1])
+        if cfg.framepack:
+            self.patch_embedding_2x = conv(cfg.in_dim, cfg.dim, 2 * p[1])
+            self.patch_embedding_4x = conv(cfg.in_dim, cfg.dim, 4 * p[1])
+            self.patch_embedding_8x = conv(cfg.in_dim, cfg.dim, 8 * p[1])
+            self.patch_embedding_16x = conv(cfg.in_dim, cfg.dim, 16 * p[1])
+            self.patch_embedding_2x_f = conv(cfg.in_dim, cfg.in_dim, 2 * p[1])
+        self.text_embedding = nn.Sequential(
+            nn.Linear(cfg.text_dim, cfg.dim, **kw), nn.GELU(approximate="tanh"),
+            nn.Linear(cfg.dim, cfg.dim, **kw))
+        self.time_embedding = nn.Sequential(
+            nn.Linear(cfg.freq_dim, cfg.dim, **kw), nn.SiLU(),
+            nn.Linear(cfg.dim, cfg.dim, **kw))
+        self.time_projection = nn.Sequential(
+            nn.SiLU(), nn.Linear(cfg.dim, 6 * cfg.dim, **kw))
+        self.blocks = nn.ModuleList(DiTBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.head = Head(cfg, **kw)
+
+    def _embed_chunk(self, x, scale: int, double_f: bool):
+        """Patch-embed a channels-last chunk [B, F, H, W, C] at a spatial
+        compression scale; H and W are zero-padded to the stride. Returns
+        tokens [B, F·H'·W', dim] and the token grid."""
+        c = self.cfg
+        p = c.patch_size[1]
+        x = x.permute(0, 4, 1, 2, 3)  # [B, C, F, H, W] for Conv3d
+
+        def run(conv, x, stride):
+            x = F.pad(x, (0, (-x.shape[4]) % stride, 0, (-x.shape[3]) % stride))
+            return F.conv3d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                            stride=conv.stride)
+
+        if double_f:
+            x = run(self.patch_embedding_2x_f, x, 4)
+        convs = {1: self.patch_embedding}
+        if c.framepack:
+            convs.update({2: self.patch_embedding_2x, 4: self.patch_embedding_4x,
+                          8: self.patch_embedding_8x, 16: self.patch_embedding_16x})
+        x = run(convs[scale], x, p * scale)
+        b, d, f, h, w = x.shape
+        return x.flatten(2).transpose(1, 2), (f, h, w)
+
+    def _time_mod(self, t_values: torch.Tensor, idx: Optional[torch.Tensor]) -> Modulation:
+        """Compact modulation tables from distinct timestep values [B, K]."""
+        c = self.cfg
+        f32 = torch.float32
+        emb = sinusoidal_embedding_1d(c.freq_dim, t_values)
+        e = F.silu(_dense(emb, self.time_embedding[0], f32))
+        e = _dense(e, self.time_embedding[2], f32)
+        e0 = _dense(F.silu(e), self.time_projection[1], f32)
+        b, k = t_values.shape
+        return Modulation(e=e, e0=e0.reshape(b, k, 6, c.dim), idx=idx)
+
+    def _text_embed(self, context: torch.Tensor) -> torch.Tensor:
+        h = _gelu(_dense(context, self.text_embedding[0], self.dtype))
+        return _dense(h, self.text_embedding[2], self.dtype)
+
+    def _context(self, context: torch.Tensor) -> torch.Tensor:
+        return self._text_embed(context)
+
+    def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin):
+        for block in self.blocks:
+            x = block(x, mod, context, rope_cos, rope_sin)
+        return x
+
+    def forward(self, x: torch.Tensor, t_frame: torch.Tensor, context: torch.Tensor,
+                *, packed: bool = True, latent_frame_zero: int = 8) -> torch.Tensor:
+        """Velocity for the trailing ``latent_frame_zero`` frames.
+
+        x: [B, F, H, W, C_in] channels-last latents; t_frame: [B, F]
+        per-frame timesteps (0..1000); context: [B, text_len, text_dim].
+        Returns [B, latent_frame_zero, H, W, C_out] in fp32."""
+        if not packed:
+            raise NotImplementedError("the unpacked forward is not ported yet")
+        return self._forward_packed(x, t_frame, context, latent_frame_zero)
+
+    def _forward_packed(self, x, t_frame, context, latent_frame_zero):
+        c = self.cfg
+        b, f, h_lat, w_lat, _ = x.shape
+        f_hist = f - latent_frame_zero
+        assert f_hist >= 1, "packed mode requires at least one history frame"
+        plan = framepack_plan(f_hist)
+        xc = x.to(self.dtype)
+
+        tok_parts, grids = [], []
+        for ch in plan:
+            toks, grid = self._embed_chunk(xc[:, ch.start:ch.stop], ch.scale, ch.double_f)
+            tok_parts.append(toks)
+            grids.append(grid)
+        tail_toks, tail_grid = self._embed_chunk(xc[:, f_hist:], 1, False)
+        tok_parts.append(tail_toks)
+        grids.append(tail_grid)
+        tokens = torch.cat(tok_parts, dim=1)
+        l_hist = tokens.shape[1] - tail_toks.shape[1]
+        l = tokens.shape[1]
+
+        # multi-resolution RoPE with cumulative compressed-frame offsets
+        cos, sin = rope_lib.framepack_rope(grids, c.head_dim, max_len=c.rope_max_len,
+                                           theta=c.rope_theta)
+        cos = torch.from_numpy(cos).to(x.device)
+        sin = torch.from_numpy(sin).to(x.device)
+
+        # two distinct timesteps: history (first frame's) and tail (last frame's)
+        t_vals = torch.stack([t_frame[:, 0], t_frame[:, -1]], dim=1).float()
+        idx = (torch.arange(l, device=x.device) >= l_hist).to(torch.int32)
+        idx = idx[None, :].expand(b, l).contiguous()
+        mod = self._time_mod(t_vals, idx)
+
+        ctx = self._context(context)
+        out = self.head(self._trunk(tokens, mod, ctx, cos, sin), mod)
+        return self._unpatchify(out[:, l_hist:], tail_grid)
+
+    def _unpatchify(self, x, grid):
+        """Tokens [B, F·H·W, p·C] → video [B, F·pt, H·ph, W·pw, C]."""
+        c = self.cfg
+        f, h, w = grid
+        pt, ph, pw = c.patch_size
+        b = x.shape[0]
+        x = x.reshape(b, f, h, w, pt, ph, pw, c.out_dim)
+        x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)  # b f pt h ph w pw c
+        return x.reshape(b, f * pt, h * ph, w * pw, c.out_dim)

@@ -1,0 +1,372 @@
+"""Fused elementwise "glue" of the DiT block: Triton kernels K2-K5 and their
+plain PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
+
+* :func:`adaln_norm`     — ``LN(x)·(gate + scale_tab[idx]) + shift_tab[idx]``
+  (replaces ``_adaln_norm_kernel``).
+* :func:`adaln_residual` — ``x + y·scale_tab[idx]`` in fp32, out in x.dtype
+  (replaces ``_adaln_residual_kernel``).
+* :func:`qk_norm_rope`   — RMSNorm(q)·w_q and RMSNorm(k)·w_k over the full
+  model dim, an x.dtype round-trip, then the interleaved-pair RoPE of both
+  (replaces ``_qk_norm_rope_kernel``).
+* :func:`rms_norm`       — fp32 RMSNorm·w (replaces ``_rms_kernel``); the
+  same Triton kernel as :func:`qk_norm_rope` with its ``ROPE`` flag off.
+
+What bounds them on the H100: each is one pass of row reductions plus a few
+FLOPs per element over [B, L, D] bf16 activations (D = 3072), i.e. HBM
+bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. Design: one
+Triton program per token row with the whole row (BLOCK = next power of two
+of D, masked) in registers, so every input byte is read once and every
+output byte written once. The per-token modulation row is loaded directly
+from the compact [B, K, D] fp32 table by ``idx`` (the TPU kernel's one-hot
+dot was a Mosaic workaround). For RoPE the even and odd lanes load as two
+strided vectors; the RMS sum of squares covers both. Any batch size works.
+
+Each wrapper runs its plain version on CPU tensors and launches its kernel
+(or raises) on CUDA tensors. The plain versions keep the reference's
+rounding points: fp32 math, one cast at the end, and the x.dtype round-trip
+between the norm and the rotation in :func:`qk_norm_rope`.
+
+``triton`` is imported when a kernel is first launched, never at import.
+"""
+
+from __future__ import annotations
+
+import functools
+import types
+
+import torch
+
+from . import rope as rope_lib
+
+# bound to the triton modules on first launch (see _kernels)
+triton = None
+tl = None
+
+_MAX_D = 16384
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path and on-card oracle)
+# ---------------------------------------------------------------------------
+
+
+def _table_rows(tab, idx):
+    """[B|1, K, D] table → per-token rows [B, L, D] (or [B|1, 1, D] when
+    idx is None: row 0 everywhere)."""
+    if idx is None:
+        return tab[:, :1]
+    tab = tab.expand(idx.shape[0], -1, -1)
+    index = idx.long()[:, :, None].expand(-1, -1, tab.shape[-1])
+    return torch.gather(tab, 1, index)
+
+
+def _adaln_norm_ref(x, scale_tab, shift_tab, idx, eps, gate, out_dtype):
+    s = _table_rows(scale_tab, idx)
+    t = _table_rows(shift_tab, idx)
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * (gate + s) + t).to(out_dtype)
+
+
+def _adaln_residual_ref(x, y, scale_tab, idx):
+    s = _table_rows(scale_tab, idx)
+    return (x.float() + y.float() * s).to(x.dtype)
+
+
+def _rms_ref(x, w, eps):
+    xf = x.float()
+    n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (n * w.float()).to(x.dtype)
+
+
+def _qk_norm_rope_ref(q, k, w_q, w_k, cos, sin, num_heads, eps):
+    b, l, dim = q.shape
+    d_ = dim // num_heads
+    q4 = _rms_ref(q, w_q, eps).reshape(b, l, num_heads, d_)
+    k4 = _rms_ref(k, w_k, eps).reshape(b, l, num_heads, d_)
+    return (rope_lib.apply_rope(q4, cos, sin).reshape(b, l, dim),
+            rope_lib.apply_rope(k4, cos, sin).reshape(b, l, dim))
+
+
+# ---------------------------------------------------------------------------
+# Triton kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _kernels():
+    global triton, tl
+    import triton as _triton
+    import triton.language as _tl
+
+    triton, tl = _triton, _tl
+
+    @triton.jit
+    def adaln_norm_kernel(x_ptr, idx_ptr, s_ptr, t_ptr, o_ptr, L, D,
+                          tab_bstride, eps, gate,
+                          HAS_IDX: tl.constexpr, BLOCK_D: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        b = row // L
+        cols = tl.arange(0, BLOCK_D)
+        mask = cols < D
+        x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
+        mu = tl.sum(x, axis=0) / D
+        diff = tl.where(mask, x - mu, 0.0)
+        var = tl.sum(diff * diff, axis=0) / D
+        n = diff * tl.rsqrt(var + eps)
+        if HAS_IDX:
+            k = tl.load(idx_ptr + row).to(tl.int64)
+        else:
+            k = 0
+        tab = b * tab_bstride + k * D + cols
+        s = tl.load(s_ptr + tab, mask=mask, other=0.0)
+        t = tl.load(t_ptr + tab, mask=mask, other=0.0)
+        y = n * (gate + s) + t
+        tl.store(o_ptr + row * D + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
+
+    @triton.jit
+    def adaln_residual_kernel(x_ptr, y_ptr, idx_ptr, s_ptr, o_ptr, L, D,
+                              tab_bstride,
+                              HAS_IDX: tl.constexpr, BLOCK_D: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        b = row // L
+        cols = tl.arange(0, BLOCK_D)
+        mask = cols < D
+        x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
+        y = tl.load(y_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
+        if HAS_IDX:
+            k = tl.load(idx_ptr + row).to(tl.int64)
+        else:
+            k = 0
+        s = tl.load(s_ptr + b * tab_bstride + k * D + cols, mask=mask, other=0.0)
+        tl.store(o_ptr + row * D + cols, (x + y * s).to(o_ptr.dtype.element_ty),
+                 mask=mask)
+
+    @triton.jit
+    def rms_rope_kernel(q_ptr, wq_ptr, oq_ptr, k_ptr, wk_ptr, ok_ptr,
+                        cos_ptr, sin_ptr, L, D, HALF, eps,
+                        ROPE: tl.constexpr, NUM: tl.constexpr,
+                        BLOCK_H: tl.constexpr):
+        # NUM = 2: the row of q, then the row of k; NUM = 1: q only
+        row = tl.program_id(0).to(tl.int64)
+        pos = row % L
+        # even lanes x[2j] and odd lanes x[2j+1] as two strided vectors
+        j = tl.arange(0, BLOCK_H)
+        mask = j < D // 2
+        base = row * D + 2 * j
+        for which in tl.static_range(NUM):
+            if which == 0:
+                x_ptr = q_ptr
+                w_ptr = wq_ptr
+                o_ptr = oq_ptr
+            else:
+                x_ptr = k_ptr
+                w_ptr = wk_ptr
+                o_ptr = ok_ptr
+            xe = tl.load(x_ptr + base, mask=mask, other=0.0).to(tl.float32)
+            xo = tl.load(x_ptr + base + 1, mask=mask, other=0.0).to(tl.float32)
+            ms = (tl.sum(xe * xe, axis=0) + tl.sum(xo * xo, axis=0)) / D
+            r = tl.rsqrt(ms + eps)
+            we = tl.load(w_ptr + 2 * j, mask=mask, other=0.0)
+            wo = tl.load(w_ptr + 2 * j + 1, mask=mask, other=0.0)
+            ne = xe * r * we
+            no = xo * r * wo
+            if ROPE:
+                # the norm's output is rounded to x.dtype before the rotation
+                ne = ne.to(o_ptr.dtype.element_ty).to(tl.float32)
+                no = no.to(o_ptr.dtype.element_ty).to(tl.float32)
+                p = pos * HALF + j % HALF
+                c = tl.load(cos_ptr + p, mask=mask, other=0.0)
+                s = tl.load(sin_ptr + p, mask=mask, other=0.0)
+                re = ne * c - no * s
+                im = ne * s + no * c
+                ne = re
+                no = im
+            tl.store(o_ptr + base, ne.to(o_ptr.dtype.element_ty), mask=mask)
+            tl.store(o_ptr + base + 1, no.to(o_ptr.dtype.element_ty), mask=mask)
+
+    return types.SimpleNamespace(
+        adaln_norm=adaln_norm_kernel, adaln_residual=adaln_residual_kernel,
+        rms_rope=rms_rope_kernel)
+
+
+def _block(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _warps(block: int) -> int:
+    return max(1, min(16, block // 256))
+
+
+# ---------------------------------------------------------------------------
+# launch-side checks
+# ---------------------------------------------------------------------------
+
+
+_ACT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _check_act(name, t, like=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype not in _ACT_DTYPES:
+        raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+    if t.dim() != 3 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous [B, L, D] tensor")
+    if t.shape[-1] > _MAX_D:
+        raise ValueError(f"{name}: D = {t.shape[-1]} exceeds {_MAX_D}")
+    if like is not None and (t.shape != like.shape or t.device != like.device):
+        raise ValueError(f"{name}: shape/device {tuple(t.shape)} on {t.device} "
+                         f"differs from {tuple(like.shape)} on {like.device}")
+
+
+def _table(name, tab, x):
+    """fp32 contiguous [B|1, K, D] table on x's device, and its batch stride."""
+    b, _, d = x.shape
+    tab = tab.to(device=x.device, dtype=torch.float32).contiguous()
+    if tab.dim() != 3 or tab.shape[0] not in (1, b) or tab.shape[-1] != d:
+        raise ValueError(f"{name}: table must be [1 or {b}, K, {d}], "
+                         f"got {tuple(tab.shape)}")
+    return tab, (tab.shape[1] * d if tab.shape[0] == b and b > 1 else 0)
+
+
+def _index(idx, x):
+    if idx is None:
+        return None
+    if tuple(idx.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"idx must be [B, L] = {tuple(x.shape[:2])}, "
+                         f"got {tuple(idx.shape)}")
+    return idx.to(device=x.device, dtype=torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# public ops
+# ---------------------------------------------------------------------------
+
+
+def adaln_norm(x, scale_tab, shift_tab, idx, *, eps=1e-6, gate=1.0,
+               out_dtype=None):
+    """``LayerNorm(x) * (gate + scale_tab[idx]) + shift_tab[idx]`` (K2).
+
+    x: [B, L, D]; scale_tab/shift_tab: [B or 1, K, D] (computed in fp32);
+    idx: [B, L] int or None (None ⇒ row 0 everywhere). gate=1 is the AdaLN
+    "(1 + scale)" form; gate=0 with a weight/bias table is an affine
+    LayerNorm. ``out_dtype`` overrides the output dtype (the Head keeps
+    fp32)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if not x.is_cuda:
+        return _adaln_norm_ref(x, scale_tab.float(), shift_tab.float(), idx,
+                               eps, gate, out_dtype)
+    _check_act("adaln_norm x", x)
+    s_tab, bstride = _table("adaln_norm scale_tab", scale_tab, x)
+    t_tab, bstride_t = _table("adaln_norm shift_tab", shift_tab, x)
+    if s_tab.shape != t_tab.shape:
+        raise ValueError("adaln_norm: scale and shift tables differ in shape")
+    idx = _index(idx, x)
+    b, l, d = x.shape
+    out = torch.empty((b, l, d), dtype=out_dtype, device=x.device)
+    if b * l == 0:
+        return out
+    block = _block(d)
+    with torch.cuda.device(x.device):
+        _kernels().adaln_norm[(b * l,)](
+            x, idx if idx is not None else x, s_tab, t_tab, out, l, d,
+            bstride, float(eps), float(gate),
+            HAS_IDX=idx is not None, BLOCK_D=block, num_warps=_warps(block))
+    adaln_norm.launches += 1
+    return out
+
+
+def adaln_residual(x, y, scale_tab, idx):
+    """``x + y * scale_tab[idx]`` in fp32 → x.dtype (K3, the AdaLN gated
+    residual). Shapes as in :func:`adaln_norm`."""
+    if not x.is_cuda:
+        return _adaln_residual_ref(x, y, scale_tab.float(), idx)
+    _check_act("adaln_residual x", x)
+    _check_act("adaln_residual y", y, like=x)
+    s_tab, bstride = _table("adaln_residual scale_tab", scale_tab, x)
+    idx = _index(idx, x)
+    b, l, d = x.shape
+    out = torch.empty_like(x)
+    if b * l == 0:
+        return out
+    block = _block(d)
+    with torch.cuda.device(x.device):
+        _kernels().adaln_residual[(b * l,)](
+            x, y, idx if idx is not None else x, s_tab, out, l, d, bstride,
+            HAS_IDX=idx is not None, BLOCK_D=block, num_warps=_warps(block))
+    adaln_residual.launches += 1
+    return out
+
+
+def _weight(name, w, x):
+    w = w.to(device=x.device, dtype=torch.float32).contiguous()
+    if w.shape != (x.shape[-1],):
+        raise ValueError(f"{name} must be [{x.shape[-1]}], got {tuple(w.shape)}")
+    return w
+
+
+def rms_norm(x, w, *, eps=1e-5):
+    """fp32 RMSNorm with learned scale over the last axis (K5: the Triton
+    kernel of :func:`qk_norm_rope` with ``ROPE`` off)."""
+    if not x.is_cuda:
+        return _rms_ref(x, w, eps)
+    _check_act("rms_norm x", x)
+    w = _weight("rms_norm w", w, x)
+    b, l, d = x.shape
+    if d % 2:
+        raise ValueError("rms_norm: the kernel needs an even D")
+    out = torch.empty_like(x)
+    if b * l == 0:
+        return out
+    block = _block(d // 2)
+    with torch.cuda.device(x.device):
+        _kernels().rms_rope[(b * l,)](
+            x, w, out, x, w, out, w, w, l, d, 1, float(eps),
+            ROPE=False, NUM=1, BLOCK_H=block, num_warps=_warps(block))
+    rms_norm.launches += 1
+    return out
+
+
+def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
+    """RMSNorm over the full model dim + RoPE for q and k in one pass (K4).
+
+    q/k: [B, L, D] flat (heads packed); w_q/w_k: [D]; cos/sin:
+    [L, head_dim//2] fp32. Returns rotated flat (q, k) in the input dtype.
+    Math equals RMSNorm → x.dtype → apply_rope."""
+    if not q.is_cuda:
+        return _qk_norm_rope_ref(q, k, w_q, w_k, cos, sin, num_heads, eps)
+    _check_act("qk_norm_rope q", q)
+    _check_act("qk_norm_rope k", k, like=q)
+    if k.dtype != q.dtype:
+        raise TypeError("qk_norm_rope: q and k dtypes differ")
+    b, l, d = q.shape
+    if d % num_heads or (d // num_heads) % 2:
+        raise ValueError(f"qk_norm_rope: D = {d} does not split into "
+                         f"{num_heads} heads of even size")
+    half = d // num_heads // 2
+    w_q = _weight("qk_norm_rope w_q", w_q, q)
+    w_k = _weight("qk_norm_rope w_k", w_k, q)
+    cos = cos.to(device=q.device, dtype=torch.float32).contiguous()
+    sin = sin.to(device=q.device, dtype=torch.float32).contiguous()
+    if cos.shape != (l, half) or sin.shape != (l, half):
+        raise ValueError(f"qk_norm_rope: cos/sin must be [{l}, {half}]")
+    oq = torch.empty_like(q)
+    ok = torch.empty_like(k)
+    if b * l == 0:
+        return oq, ok
+    block = _block(d // 2)
+    with torch.cuda.device(q.device):
+        _kernels().rms_rope[(b * l,)](
+            q, w_q, oq, k, w_k, ok, cos, sin, l, d, half, float(eps),
+            ROPE=True, NUM=2, BLOCK_H=block, num_warps=_warps(block))
+    qk_norm_rope.launches += 1
+    return oq, ok
+
+
+adaln_norm.launches = 0
+adaln_residual.launches = 0
+rms_norm.launches = 0
+qk_norm_rope.launches = 0
