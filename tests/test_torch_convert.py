@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import perturb
+from torch_parity import perturb, port_config
 from yume_tpu.configs import DiTConfig, T5Config, VAEConfig
 from yume_tpu.models import dit as jdit
 from yume_tpu.models import t5 as jt5
@@ -59,7 +59,7 @@ def _tree(model, seed, *args, **kw):
 def test_dit_roundtrip_exact():
     tree = _tree(jdit.WanDiT(DIT, dtype=jnp.float32), 5, jnp.zeros((1, 3, 8, 8, 8)),
                  jnp.zeros((1, 3)), jnp.zeros((1, 16, 16)), packed=False)
-    model = tdit.WanDiT(DIT, torch.float32, device="meta").to_empty(device="cpu")
+    model = tdit.WanDiT(port_config(DIT), torch.float32, device="meta").to_empty(device="cpu")
     convert.load_state_dict(model, convert.dit_state_dict(tree, DIT.num_layers))
     _assert_trees_equal(convert_dit_state_dict(_port_sd(model), DIT.num_layers), tree)
 
@@ -67,7 +67,7 @@ def test_dit_roundtrip_exact():
 def test_t5_roundtrip_exact():
     ids = jnp.zeros((1, 16), jnp.int32)
     tree = _tree(jt5.T5Encoder(T5, dtype=jnp.float32), 6, ids, jnp.ones_like(ids))
-    model = tt5.T5Encoder(T5, torch.float32, device="meta").to_empty(device="cpu")
+    model = tt5.T5Encoder(port_config(T5), torch.float32, device="meta").to_empty(device="cpu")
     convert.load_state_dict(model, convert.t5_state_dict(tree, T5.num_layers))
     _assert_trees_equal(convert_t5_state_dict(_port_sd(model), T5.num_layers), tree)
 
@@ -85,7 +85,7 @@ def test_vae22_roundtrip_exact(cfg, dec_dim):
     full = convert.vae22_state_dict(tree, cfg.num_res_blocks)
     _assert_trees_equal(convert_vae22_state_dict(full, cfg.num_res_blocks), tree)
     # the port holds the decoder half; its state dict is a subset of the full one
-    model = tvae.WanVAE(cfg, dec_dim, device="meta").to_empty(device="cpu")
+    model = tvae.WanVAE(port_config(cfg), dec_dim, device="meta").to_empty(device="cpu")
     convert.load_state_dict(model, full, allow_unused=True)
     port = _port_sd(model)
     assert port and all(k.startswith(("decoder.", "conv2.")) for k in port)

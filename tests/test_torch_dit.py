@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, perturb
+from torch_parity import assert_close, perturb, port_config
 from yume_tpu.configs import DiTConfig
 from yume_tpu.models import dit as jdit
 from yume_tpu_torch.models import dit as tdit
@@ -38,7 +38,7 @@ def models():
                                 packed=False),
         jax.random.PRNGKey(0))
     params = {"params": perturb(shapes["params"], seed=1)}
-    tmodel = tdit.WanDiT(TINY, torch.float32, device="meta").to_empty(device="cpu")
+    tmodel = tdit.WanDiT(port_config(TINY), torch.float32, device="meta").to_empty(device="cpu")
     load_state_dict(tmodel, dit_state_dict(params, TINY.num_layers))
     return jmodel, params, tmodel
 

@@ -1,13 +1,15 @@
 """PyTorch port ops against the JAX reference on the CPU: RoPE, attention,
 and the plain versions of the fused glue kernels; plus the port's
-packaging guards (no jax import, no CPU fallback in chip_smoke.py, no
-library attention or torch.compile).
+packaging guards (neither the port nor chip_smoke.py imports jax or the
+JAX package, no CPU fallback in chip_smoke.py, no library attention or
+torch.compile).
 
 Inputs are numpy arrays from a seed, fp32. Tolerances (1e-5 max-abs) cover
 the different order of float32 sums in XLA:CPU and ATen; the RoPE tables
 are host numpy on both sides and must match exactly.
 """
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -176,12 +178,27 @@ def _port_modules():
         for p in pkg.rglob("*.py"))
 
 
+def _chip_smoke_imports():
+    """Every import statement of chip_smoke.py, at module level or in a
+    phase, as source."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    return sorted({ast.unparse(node) for node in ast.walk(tree)
+                   if isinstance(node, (ast.Import, ast.ImportFrom))
+                   and getattr(node, "module", None) != "__future__"})
+
+
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert "yume_tpu_torch.pipelines.ti2v" in mods
+    smoke = _chip_smoke_imports()
+    assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n")
+            "import chip_smoke\n"
+            + "".join(f"{stmt}\n" for stmt in smoke) +
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.startswith('jax') or k.split('.')[0] == 'yume_tpu')\n"
+            "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

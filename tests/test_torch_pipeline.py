@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, perturb
+from torch_parity import assert_close, perturb, port_config
 from yume_tpu.configs import DiTConfig, PipelineConfig, T5Config, VAEConfig
 from yume_tpu.models.dit import WanDiT
 from yume_tpu.models.t5 import T5Encoder
@@ -58,7 +58,7 @@ def pipelines():
     t5_p = _params(t5, 13, ids, jnp.ones_like(ids))
     jpipe = JaxPipeline(c, dit, dit_p, vae, vae_p, t5, t5_p)
     tpipe = TI2VPipeline.from_state_dicts(
-        c, convert.dit_state_dict(dit_p, c.dit.num_layers),
+        port_config(c), convert.dit_state_dict(dit_p, c.dit.num_layers),
         convert.vae22_state_dict(vae_p, c.vae.num_res_blocks),
         convert.t5_state_dict(t5_p, c.t5.num_layers), device="cpu", dtype=torch.float32)
     return jpipe, tpipe

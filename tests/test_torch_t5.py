@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, perturb
+from torch_parity import assert_close, perturb, port_config
 from yume_tpu.configs import T5Config
 from yume_tpu.models import t5 as jt5
 from yume_tpu_torch.models import t5 as tt5
@@ -29,7 +29,7 @@ def models():
     shapes = jax.eval_shape(lambda k: jmodel.init(k, ids, jnp.ones_like(ids)),
                             jax.random.PRNGKey(0))
     params = {"params": perturb(shapes["params"], seed=2)}
-    tmodel = tt5.T5Encoder(TINY, torch.float32, device="meta").to_empty(device="cpu")
+    tmodel = tt5.T5Encoder(port_config(TINY), torch.float32, device="meta").to_empty(device="cpu")
     load_state_dict(tmodel, t5_state_dict(params, TINY.num_layers))
     return jmodel, params, tmodel
 

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, perturb
+from torch_parity import assert_close, perturb, port_config
 from yume_tpu.configs import VAEConfig
 from yume_tpu.models import vae as jvae
 from yume_tpu_torch.models import vae as tvae
@@ -34,7 +34,7 @@ def decoded():
     video = jnp.zeros((1, 9, 64, 64, 3))
     shapes = jax.eval_shape(lambda k: jmodel.init(k, video), jax.random.PRNGKey(0))
     params = {"params": perturb(shapes["params"], seed=3)}
-    tmodel = tvae.WanVAE(TINY, DEC_DIM, device="meta").to_empty(device="cpu")
+    tmodel = tvae.WanVAE(port_config(TINY), DEC_DIM, device="meta").to_empty(device="cpu")
     load_state_dict(tmodel, vae22_state_dict(params), allow_unused=True)
     z = np.random.default_rng(4).standard_normal((1, 3, 4, 4, TINY.z_dim)).astype(np.float32)
     want = jmodel.apply(params, jnp.asarray(z), method=jmodel.decode)

@@ -1,8 +1,12 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package (tests/test_torch_*.py)."""
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from yume_tpu_torch import configs as port_configs
 
 _NORM_LEAVES = ("weight", "gamma", "scale")
 
@@ -35,3 +39,14 @@ def to_np(x):
 
 def assert_close(got, want, tol):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=tol, rtol=0)
+
+
+def port_config(cfg):
+    """The port's copy of a JAX config dataclass (``yume_tpu.configs``),
+    field for field, nested configs included; tuples stay tuples."""
+    cls = getattr(port_configs, type(cfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        kw[f.name] = port_config(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)

@@ -6,20 +6,25 @@ tensors keep the reference layouts (videos and latents channels-last
 ``[B, F, H, W, C]``, tokens ``[B, L, D]``, attention ``[B, L, N, Dh]``).
 
 Every Pallas kernel on the ported path has a hand-written Hopper kernel
-here (CUDA C++ under ``csrc/``, built by :mod:`._build`; Triton for the
-memory-bound glue passes in :mod:`.ops.fused_adaln`). Each kernel wrapper
-runs its plain PyTorch version on CPU tensors and launches the kernel (or
-raises) on CUDA tensors.
+here (CUDA C++ under ``csrc/``, built by :mod:`._build`: flash attention and
+the W8A8 int8 matmul; Triton for the memory-bound glue passes in
+:mod:`.ops.fused_adaln`). Each kernel wrapper runs its plain PyTorch version
+on CPU tensors and launches the kernel (or raises) on CUDA tensors.
 
-This package never imports ``jax``. From the reference it reuses only the
-jax-free modules ``yume_tpu.configs``, ``yume_tpu.diffusion.schedule`` and
-``yume_tpu.data.tokenizer``.
+This package imports neither ``jax`` nor anything of the JAX package
+``yume_tpu``: it keeps its own copies of the configs, the sigma schedule and
+the tokenizer (pinned equal to the reference's by the tests).
 
 Layout:
-    ops/        RoPE, attention dispatch, flash attention (CUDA), fused glue (Triton)
-    models/     WanDiT (5B, FramePack-packed), umT5 encoder, Wan2.2 VAE decoder
-    diffusion/  Euler segment sampler
+    configs.py  model and pipeline config dataclasses
+    ops/        RoPE, attention dispatch, flash attention (CUDA), W8A8 int8
+                matmul (CUDA), fused glue (Triton)
+    models/     WanDiT (5B, FramePack-packed, W8A8, TeaCache hooks), umT5
+                encoder, Wan2.2 VAE decoder
+    diffusion/  Euler and TeaCache (interval, adaptive) segment samplers,
+                sigma schedules
     pipelines/  TI2VPipeline (text encode, segment sampling, decode)
+    data/       offline tokenizer
     utils/      JAX parameter tree → state-dict conversion
 """
 

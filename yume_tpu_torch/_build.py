@@ -1,7 +1,8 @@
 """Build and load the port's CUDA C++ kernels.
 
 ``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
-interface, which :func:`library` loads with ``ctypes``. No PyTorch header is
+interface, which :func:`library` loads with ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link. No PyTorch header is
 included, so a build takes seconds rather than the minutes
 ``torch.utils.cpp_extension`` needs. The library lands under
 ``<checkout>/build/yume_tpu_torch/``, named by a hash of the sources and
@@ -27,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "yume_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -40,6 +41,8 @@ _SIGNATURES = {
     # q strides (b, l, n), k strides, v strides, out strides, scale, stream
     "yume_flash_attention_fwd": [_VOID] * 6 + [_INT] * 5 + [_I64] * 12
                                 + [_FLOAT, _VOID],
+    # x, qw, w_scale, a_scale, out, M, N, K, x row stride, stream
+    "yume_q8_matmul": [_VOID] * 5 + [_INT] * 3 + [_I64, _VOID],
 }
 
 
@@ -67,19 +70,49 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the output of the first that
+    failed. Returns the compiler output of all of them."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(f"{' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{logs[-1]}"
+    if failed:
+        raise RuntimeError(failed)
+    return "\n".join(logs)
+
+
 def build() -> str:
     """Compile csrc/ if no library for the current sources exists; returns
-    the library's path."""
-    out = os.path.join(BUILD_DIR, f"libyume_kernels_{_digest()}.so")
+    the library's path. The compiler's output (``-Xptxas -v``: registers,
+    shared memory and spills of each kernel) is kept beside the library as
+    ``<library>.log``."""
+    digest = _digest()
+    out = os.path.join(BUILD_DIR, f"libyume_kernels_{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    log = _run(procs)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", tmp, *objs]
+    log += "\n" + _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        os.remove(obj)
+    with open(f"{out}.log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

@@ -22,8 +22,23 @@ Numerics mirror the reference:
 Parameters may be stored in any dtype: every layer casts its weights to the
 dtype its computation runs in, as flax's ``promote_dtype`` does.
 
+W8A8 (``cfg.w8a8``): the block projections that the reference routes
+through ``int8_dot_general`` (``QDense``/``fused_sibling_dense`` with
+``w8a8``) run through :func:`..ops.quant_matmul.q8_dot`, kernel K6 on the
+card: self-attention q, k and v as one ``[3·dim, dim]`` product (per column
+the same as three), self-attention o, cross-attention q and o, ``ffn.0``
+and ``ffn.2``. Cross-attention k and v (512 text rows), the head and the
+embeddings stay exact. The bias is added after the cast, in the compute
+dtype. Each weight is quantized once, from the weight cast to the compute
+dtype, and kept until the weight changes: the same int8 bits and scales
+the reference derives on every call.
+
+TeaCache hooks (``cache_list``/``return_cache``/``block_cache``): the listed
+blocks either store their residual ``x_out − x_in`` in bf16 or are skipped
+with the stored residual added back.
+
 Ported: the FramePack-packed forward (``_forward_packed``). Not ported yet:
-``_forward_unpacked``, MVDT, TeaCache hooks, W8A8 and the 14B branch.
+``_forward_unpacked``, MVDT and the 14B branch.
 """
 
 from __future__ import annotations
@@ -36,9 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yume_tpu.configs import DiTConfig
-
-from ..ops import fused_adaln, rope as rope_lib
+from ..configs import DiTConfig
+from ..ops import fused_adaln, quant_matmul, rope as rope_lib
 from ..ops.attention import attention
 
 
@@ -50,6 +64,23 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+def _w8a8_dense(x: torch.Tensor, owner: nn.Module, name: str,
+                layers: Sequence[nn.Linear]) -> torch.Tensor:
+    """W8A8 ``x @ cat(W).T + cat(b)`` for sibling ``layers`` of one input
+    (the reference's ``fused_sibling_dense``/``QDense`` with ``w8a8``), in
+    x.dtype. The int8 weight of ``cat(W)`` cast to x.dtype is kept on
+    ``owner`` under ``name``, keyed by the weights' storage and version."""
+    dtype = x.dtype
+    key = (dtype, tuple((l.weight.data_ptr(), l.weight._version) for l in layers))
+    cache = owner.__dict__.setdefault("_q8_cache", {})
+    if name not in cache or cache[name][0] != key:
+        cache.pop(name, None)
+        w = torch.cat([l.weight.to(dtype) for l in layers])
+        cache[name] = (key, quant_matmul.quantize_weight(w))
+    y = quant_matmul.q8_dot(x, cache[name][1], dtype)
+    return y + torch.cat([l.bias for l in layers]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +148,14 @@ class SelfAttention(nn.Module):
         c = self.cfg
         b, l, _ = x.shape
         n, d = c.num_heads, c.head_dim
-        q = _dense(x, self.q, x.dtype)
-        k = _dense(x, self.k, x.dtype)
-        v = _dense(x, self.v, x.dtype)
+        if c.w8a8:
+            # one K6 launch over the concatenated [3·dim, dim] weight
+            q, k, v = _w8a8_dense(x, self, "qkv", (self.q, self.k, self.v)).split(c.dim, -1)
+            q, k = q.contiguous(), k.contiguous()  # K4 takes whole rows
+        else:
+            q = _dense(x, self.q, x.dtype)
+            k = _dense(x, self.k, x.dtype)
+            v = _dense(x, self.v, x.dtype)
         if c.qk_norm:
             # RMSNorm(q)·w, RMSNorm(k)·w and RoPE of both in one pass (K4)
             q, k = fused_adaln.qk_norm_rope(q, k, self.norm_q.weight,
@@ -130,8 +166,10 @@ class SelfAttention(nn.Module):
         else:
             q = rope_lib.apply_rope(q.reshape(b, l, n, d), rope_cos, rope_sin)
             k = rope_lib.apply_rope(k.reshape(b, l, n, d), rope_cos, rope_sin)
-        o = attention(q, k, v.reshape(b, l, n, d))
-        return _dense(o.reshape(b, l, c.dim), self.o, x.dtype)
+        o = attention(q, k, v.reshape(b, l, n, d)).reshape(b, l, c.dim)
+        if c.w8a8:
+            return _w8a8_dense(o, self, "o", (self.o,))
+        return _dense(o, self.o, x.dtype)
 
 
 class CrossAttention(nn.Module):
@@ -153,7 +191,11 @@ class CrossAttention(nn.Module):
         c = self.cfg
         b, l, _ = x.shape
         n, d = c.num_heads, c.head_dim
-        q = _dense(x, self.q, x.dtype)
+        if c.w8a8:
+            q = _w8a8_dense(x, self, "q", (self.q,))
+        else:
+            q = _dense(x, self.q, x.dtype)
+        # context-side k and v stay exact (512 text rows)
         k = _dense(context, self.k, x.dtype)
         v = _dense(context, self.v, x.dtype)
         if c.qk_norm:
@@ -161,8 +203,10 @@ class CrossAttention(nn.Module):
             q = fused_adaln.rms_norm(q, self.norm_q.weight, eps=c.eps)
             k = self.norm_k(k)
         o = attention(q.reshape(b, l, n, d), k.reshape(b, -1, n, d),
-                      v.reshape(b, -1, n, d))
-        return _dense(o.reshape(b, l, c.dim), self.o, x.dtype)
+                      v.reshape(b, -1, n, d)).reshape(b, l, c.dim)
+        if c.w8a8:
+            return _w8a8_dense(o, self, "o", (self.o,))
+        return _dense(o, self.o, x.dtype)
 
 
 class DiTBlock(nn.Module):
@@ -204,8 +248,12 @@ class DiTBlock(nn.Module):
         x = x + self.cross_attn(h, context)
 
         h = fused_adaln.adaln_norm(x, etab(4), etab(3), mod.idx, eps=c.eps)
-        h = _gelu(_dense(h, self.ffn[0], x.dtype))
-        y = _dense(h, self.ffn[2], x.dtype)
+        if c.w8a8:
+            h = _gelu(_w8a8_dense(h, self, "ffn.0", (self.ffn[0],)))
+            y = _w8a8_dense(h, self, "ffn.2", (self.ffn[2],))
+        else:
+            h = _gelu(_dense(h, self.ffn[0], x.dtype))
+            y = _dense(h, self.ffn[2], x.dtype)
         return fused_adaln.adaln_residual(x, y, etab(5), mod.idx)
 
 
@@ -398,23 +446,43 @@ class WanDiT(nn.Module):
     def _context(self, context: torch.Tensor) -> torch.Tensor:
         return self._text_embed(context)
 
-    def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin):
-        for block in self.blocks:
+    def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin,
+               block_cache=None, cache_list: Tuple[int, ...] = (),
+               return_cache: bool = False):
+        """All blocks, with TeaCache-style residual caching (reference
+        wan/modules/model.py:977-998): blocks listed in ``cache_list`` store
+        their residual (x_out − x_in) in bf16 with ``return_cache``, or are
+        skipped with the cached residual added back when ``block_cache`` is
+        given. Returns (x, new_cache)."""
+        new_cache = []
+        for i, block in enumerate(self.blocks):
+            if block_cache is not None and not return_cache and i in cache_list:
+                x = x + block_cache[cache_list.index(i)].to(x.dtype)
+                continue
+            x_in = x
             x = block(x, mod, context, rope_cos, rope_sin)
-        return x
+            if return_cache and i in cache_list:
+                new_cache.append((x - x_in).to(torch.bfloat16))
+        return x, new_cache
 
     def forward(self, x: torch.Tensor, t_frame: torch.Tensor, context: torch.Tensor,
-                *, packed: bool = True, latent_frame_zero: int = 8) -> torch.Tensor:
+                *, packed: bool = True, latent_frame_zero: int = 8,
+                block_cache: Optional[List[torch.Tensor]] = None,
+                cache_list: Tuple[int, ...] = (), return_cache: bool = False):
         """Velocity for the trailing ``latent_frame_zero`` frames.
 
         x: [B, F, H, W, C_in] channels-last latents; t_frame: [B, F]
         per-frame timesteps (0..1000); context: [B, text_len, text_dim].
-        Returns [B, latent_frame_zero, H, W, C_out] in fp32."""
+        Returns [B, latent_frame_zero, H, W, C_out] in fp32, and with
+        ``return_cache`` also the residuals of the ``cache_list`` blocks;
+        ``block_cache`` skips those blocks (see :meth:`_trunk`)."""
         if not packed:
             raise NotImplementedError("the unpacked forward is not ported yet")
-        return self._forward_packed(x, t_frame, context, latent_frame_zero)
+        return self._forward_packed(x, t_frame, context, latent_frame_zero,
+                                    block_cache, cache_list, return_cache)
 
-    def _forward_packed(self, x, t_frame, context, latent_frame_zero):
+    def _forward_packed(self, x, t_frame, context, latent_frame_zero,
+                        block_cache=None, cache_list=(), return_cache=False):
         c = self.cfg
         b, f, h_lat, w_lat, _ = x.shape
         f_hist = f - latent_frame_zero
@@ -447,8 +515,10 @@ class WanDiT(nn.Module):
         mod = self._time_mod(t_vals, idx)
 
         ctx = self._context(context)
-        out = self.head(self._trunk(tokens, mod, ctx, cos, sin), mod)
-        return self._unpatchify(out[:, l_hist:], tail_grid)
+        out, new_cache = self._trunk(tokens, mod, ctx, cos, sin, block_cache,
+                                     cache_list, return_cache)
+        out = self._unpatchify(self.head(out, mod)[:, l_hist:], tail_grid)
+        return (out, new_cache) if return_cache else out
 
     def _unpatchify(self, x, grid):
         """Tokens [B, F·H·W, p·C] → video [B, F·pt, H·ph, W·pw, C]."""

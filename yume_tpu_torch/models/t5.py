@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yume_tpu.configs import T5Config
+from ..configs import T5Config
 
 
 def relative_position_bucket(rel_pos: np.ndarray, num_buckets: int = 32,

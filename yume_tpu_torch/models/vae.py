@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yume_tpu.configs import VAEConfig
+from ..configs import VAEConfig
 
 # Wan2.2 48-channel latent normalisation
 WAN22_LATENT_MEAN = np.array([

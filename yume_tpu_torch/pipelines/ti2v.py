@@ -2,13 +2,16 @@
 yume_tpu/pipelines/ti2v.py).
 
 One request is one autoregressive continuation segment: the umT5 prompt
-encode (:meth:`TI2VPipeline.encode_text`), the Euler segment sampler over
-the FramePack-packed DiT (:meth:`TI2VPipeline.generate_segment`) and the
+encode (:meth:`TI2VPipeline.encode_text`), a segment sampler over the
+FramePack-packed DiT (:meth:`TI2VPipeline.generate_segment`) and the
 streaming VAE decode of the new tail (:meth:`TI2VPipeline.decode_auto`).
 :meth:`TI2VPipeline.generate_long` runs one segment per caption.
 
-Ported: the ``sampler="euler"`` path. Not ported yet: TeaCache, the TTS
-samplers, W8A8, t2v/i2v entry points, the VAE encode, tiled decode.
+Ported: the ``sampler="euler"`` and ``sampler="teacache"`` paths (fixed
+interval and adaptive threshold), and W8A8 through ``config.dit.w8a8``
+(:meth:`TI2VPipeline.with_w8a8` builds it on the same DiT parameters). Not
+ported yet: the TTS samplers (``sde``, ``time_travel``), t2v/i2v entry
+points, the VAE encode, tiled decode.
 """
 
 from __future__ import annotations
@@ -20,10 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from yume_tpu.configs import PipelineConfig
-from yume_tpu.diffusion.schedule import sampling_sigmas
-
+from ..configs import PipelineConfig
 from ..diffusion import samplers
+from ..diffusion.schedule import sampling_sigmas
 from ..models.dit import WanDiT
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode
@@ -55,6 +57,8 @@ class TI2VPipeline:
     dit: WanDiT
     vae: WanVAE
     t5: Optional[T5Encoder] = None
+    # full-DiT steps of the last sampler="teacache" segment
+    last_teacache_n_full: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -63,7 +67,7 @@ class TI2VPipeline:
     # -- construction --------------------------------------------------------
 
     @classmethod
-    def from_config(cls, config: PipelineConfig, *, device, seed: int = 0,
+    def from_config(cls, config: PipelineConfig, *, device="cuda", seed: int = 0,
                     init_t5: bool = False,
                     dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Random-initialised pipeline at the config's full width, allocated
@@ -86,7 +90,7 @@ class TI2VPipeline:
     @classmethod
     def from_state_dicts(cls, config: PipelineConfig, dit_sd: Mapping,
                          vae_sd: Mapping, t5_sd: Optional[Mapping] = None, *,
-                         device="cpu",
+                         device="cuda",
                          dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Pipeline from reference-named state dicts (torch tensors or numpy
         arrays, e.g. from :mod:`..utils.convert`), stored and computed in
@@ -104,6 +108,17 @@ class TI2VPipeline:
             load_state_dict(t5, t5_sd)
         return cls(config, dit.eval(), vae.eval(), t5.eval() if t5 is not None else None)
 
+    def with_w8a8(self) -> "TI2VPipeline":
+        """This pipeline with ``config.dit.w8a8`` on: a second ``WanDiT``
+        whose parameters are this one's own tensors (no copy), beside the
+        same VAE and text encoder. Its int8 weights are made on first use."""
+        dit_cfg = dataclasses.replace(self.config.dit, w8a8=True)
+        dit = WanDiT(dit_cfg, self.dit.dtype, device="meta")
+        dit.load_state_dict(self.dit.state_dict(), assign=True)
+        return dataclasses.replace(
+            self, config=dataclasses.replace(self.config, dit=dit_cfg),
+            dit=dit.eval(), last_teacache_n_full=None)
+
     # -- conditioning --------------------------------------------------------
 
     @torch.no_grad()
@@ -117,6 +132,53 @@ class TI2VPipeline:
 
     # -- generation ----------------------------------------------------------
 
+    def _dit(self, lat, t_frame, ctx, **kw):
+        """Packed DiT forward on ``lat``; the reference feeds the DiT a bf16
+        latent whatever its dtype."""
+        return self.dit(lat.to(torch.bfloat16), t_frame, ctx,
+                        latent_frame_zero=self.config.latent_frame_zero, **kw)
+
+    @staticmethod
+    def _pad_v(lat, out):
+        """Tail velocity spliced into a full-length tensor (zeros over the
+        history)."""
+        pad = torch.zeros_like(lat[:, : lat.shape[1] - out.shape[1]])
+        return torch.cat([pad, out.to(lat.dtype)], dim=1)
+
+    def _sample_segment_teacache(self, latent, ctx, history_t, steps, shift,
+                                 cache_interval=2, cache_edge=None,
+                                 cache_threshold=None):
+        """Euler tail sampling with block-residual caching (TeaCache;
+        reference wan/modules/model.py:977-998): the full DiT every
+        ``cache_interval`` steps, or whenever the accumulated rel-L1 change
+        reaches ``cache_threshold``; in between, the middle blocks are
+        skipped and their stored residuals added back. ``cache_edge`` live
+        blocks per side are recomputed on cached steps (None → n // 4).
+        Returns (latent, n_full)."""
+        sig = sampling_sigmas(steps, shift)
+        lfz = self.config.latent_frame_zero
+        n = self.config.dit.num_layers
+        edge = n // 4 if cache_edge is None else max(1, int(cache_edge))
+        cache_list = tuple(range(edge, n - edge))
+
+        def full(lat, t_frame):
+            out, cache = self._dit(lat, t_frame, ctx, cache_list=cache_list,
+                                   return_cache=True)
+            return self._pad_v(lat, out), cache
+
+        def cached(lat, t_frame, cache):
+            return self._pad_v(lat, self._dit(lat, t_frame, ctx, cache_list=cache_list,
+                                              block_cache=cache))
+
+        if cache_threshold is not None:
+            return samplers.euler_sample_segment_cached_adaptive(
+                full, cached, latent, sig, lfz, threshold=cache_threshold,
+                history_t=history_t)
+        out = samplers.euler_sample_segment_cached(
+            full, cached, latent, sig, lfz, cache_interval=cache_interval,
+            history_t=history_t)
+        return out, -(-steps // cache_interval)
+
     @torch.no_grad()
     def generate_segment(
         self,
@@ -126,12 +188,27 @@ class TI2VPipeline:
         steps: int = 4,
         shift: float = 7.0,
         seed: int = 0,
+        sampler: str = "euler",
         noise: Optional[torch.Tensor] = None,
+        teacache_interval: int = 3,
+        teacache_edge: Optional[int] = None,
+        teacache_threshold: Optional[float] = None,
     ) -> torch.Tensor:
         """One autoregressive continuation: append ``latent_frame_zero``
         noise frames after the history, denoise them with the packed DiT
-        (per-frame timesteps, Euler), return the grown latent sequence.
-        ``noise`` overrides the seeded tail noise."""
+        (per-frame timesteps), return the grown latent sequence. ``noise``
+        overrides the seeded tail noise.
+
+        ``sampler``: 'euler', or 'teacache' (block-residual caching: the
+        full DiT every ``teacache_interval``-th step, or, with
+        ``teacache_threshold``, whenever the accumulated rel-L1 change of
+        the tail reaches it; ``teacache_edge`` live blocks per side on
+        cached steps, None → num_layers // 4). The full-DiT step count of a
+        'teacache' segment is left in ``last_teacache_n_full``."""
+        if sampler not in ("euler", "teacache"):
+            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        if sampler == "teacache" and teacache_interval < 1:
+            raise ValueError(f"teacache_interval must be >= 1, got {teacache_interval}")
         lfz = self.config.latent_frame_zero
         b, f_hist, h, w, c = history_latents.shape
         device = history_latents.device
@@ -141,16 +218,14 @@ class TI2VPipeline:
                                 dtype=torch.float32)
         latent = torch.cat([history_latents, noise.to(history_latents.dtype)], dim=1)
         history_t = torch.zeros((b, f_hist), dtype=torch.float32, device=device)
-
-        def denoise(lat, t_frame):
-            # the reference feeds the DiT a bf16 latent whatever its dtype
-            out = self.dit(lat.to(torch.bfloat16), t_frame, ctx,
-                           latent_frame_zero=lfz).to(lat.dtype)
-            pad = torch.zeros_like(lat[:, : lat.shape[1] - lfz])
-            return torch.cat([pad, out], dim=1)
-
+        if sampler == "teacache":
+            out, self.last_teacache_n_full = self._sample_segment_teacache(
+                latent, ctx, history_t, steps, shift, teacache_interval,
+                teacache_edge, teacache_threshold)
+            return out
         return samplers.euler_sample_segment(
-            denoise, latent, sampling_sigmas(steps, shift), lfz, history_t=history_t)
+            lambda lat, t_frame: self._pad_v(lat, self._dit(lat, t_frame, ctx)), latent,
+            sampling_sigmas(steps, shift), lfz, history_t=history_t)
 
     @torch.no_grad()
     def decode_auto(self, z: torch.Tensor) -> torch.Tensor:
@@ -168,14 +243,21 @@ class TI2VPipeline:
         steps: int = 4,
         shift: float = 7.0,
         seed: int = 0,
+        sampler: str = "euler",
+        teacache_interval: int = 3,
+        teacache_edge: Optional[int] = None,
+        teacache_threshold: Optional[float] = None,
     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Autoregressive rollout: one segment per context in ``ctxs`` after
-        ``first_segment`` [B, F0, h, w, z]. Returns (full latent sequence,
-        decoded tail videos)."""
+        ``first_segment`` [B, F0, h, w, z], each with the sampler arguments
+        of :meth:`generate_segment`. Returns (full latent sequence, decoded
+        tail videos)."""
         latents = first_segment
         videos = []
         for s, ctx in enumerate(ctxs):
-            latents = self.generate_segment(latents, ctx, steps=steps, shift=shift,
-                                            seed=seed + s + 1)
+            latents = self.generate_segment(
+                latents, ctx, steps=steps, shift=shift, seed=seed + s + 1,
+                sampler=sampler, teacache_interval=teacache_interval,
+                teacache_edge=teacache_edge, teacache_threshold=teacache_threshold)
             videos.append(self.decode_auto(latents[:, -self.config.latent_frame_zero:]))
         return latents, videos
