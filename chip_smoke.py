@@ -12,15 +12,19 @@ result line:
    source, in parallel);
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4+K5, the
-   W8A8 int8 matmul K6) against its plain PyTorch version on the same
-   seeded inputs at the 5B segment's shapes: error against a stated
-   tolerance, median times of the kernel, of its plain version and of one
-   PyTorch library call where one computes the same function, and the
-   least time the card could take (bytes over 3.35 TB/s or operations over
-   the published peak of their type, whichever is larger);
+   W8A8 int8 matmul K6, the flash-attention backward K8 (dQ) and K9 (dK,
+   dV)) against its plain PyTorch version on the same seeded inputs at the
+   5B segment's shapes (K8/K9 and K4's batched-table case at the
+   trainer's): error against a stated tolerance, median times of the
+   kernel, of its plain version and of one PyTorch library call where one
+   computes the same function, and the least time the card could take
+   (bytes over 3.35 TB/s or operations over the published peak of their
+   type, whichever is larger);
 4. reference: a 2-layer full-width DiT on the card (kernels, bf16) against
    the same weights on the CPU (plain versions, fp32), once in bf16 matmuls
-   and once with W8A8, at a small input;
+   and once with W8A8, at a small input; then the gradient of a flow loss
+   through the same 2 layers (card: bf16, kernels, remat) against the CPU's
+   (fp32, autograd), per parameter group;
 5. quality: the weights-free serving-mode gate (dim 768, 8 layers, a 16×28
    latent grid, 12 steps): latent PSNR of W8A8 and the TeaCache modes
    against the bf16 Euler run, each above its floor and below 80 dB;
@@ -33,6 +37,14 @@ result line:
       adaptive TeaCache at threshold 0.1, then ``decode_auto`` of the tail:
       K1–K6 must launch.
    Each tail video must be finite [1, 29, 704, 1280, 3].
+7. train (after the pipeline is freed): the 5B trainer at full width and
+   its geometry (2,805 packed tokens), random bf16 parameters, remat, each
+   path with the counts set to 0 just before it and read just after:
+   a. the full fine-tune, clipped AdamW + EMA, 1 warm-up and 3 timed steps;
+   b. one MVDT step (mask ratio 0.30) on the same model;
+   c. LoRA rank 16 through ``yume_tpu_torch.train.main`` (3 steps);
+   then ``train.main --smoke`` on the card. Losses and gradient norms must
+   be finite; K1–K5, K8 and K9 must launch and K6 must not.
 
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -42,7 +54,9 @@ device the script exits non-zero.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -59,9 +73,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 L, N, D, DIM = 12095, 24, 128, 3072   # 5B segment: tokens, heads, head dim, width
 FFN = 14336
 TEXT_LEN = 512
+# the trainer's geometry (yume_tpu_torch.train defaults): 33 frames at
+# 352×640 are 9 history + 8 tail latent frames on a 22×40 grid, 2,805
+# packed tokens; MVDT at mask ratio 0.30 keeps 1,963 of them
+TRAIN_F_HIST, TRAIN_LFZ, TRAIN_H, TRAIN_W = 9, 8, 22, 40
+TRAIN_L, TRAIN_KEEP = 2805, 1963
 K1_TOL = 2e-2            # bf16 kernel vs fp32 plain, N(0, 1) inputs
+BWD_REL_TOL = 2e-2       # K8/K9: share of the largest plain gradient
 REL_TOL = 2.0 ** -7      # one bf16 ulp of the output magnitude (K2–K6)
 DIT_REL_TOL = 3e-2       # 2 bf16 layers vs fp32, relative L2
+GRAD_REL_TOL = 5e-2      # their loss gradient, relative L2 per parameter group
 CAPTIONS = ["The camera moves forward along a sunlit forest path.",
             "The camera turns left toward a river and keeps walking."]
 HEADLINE_STEPS, HEADLINE_THRESHOLD = 50, 0.1
@@ -145,7 +166,7 @@ def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
 def _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms=None, **extra):
     ok = err <= tol
     lib = "n/a" if lib_ms is None else f"{lib_ms:9.3f} ms"
-    log(f"  {kernel:<15} {case:<26} max_abs_err {err:.3e}  tol {tol:.3e}  "
+    log(f"  {kernel:<23} {case:<26} max_abs_err {err:.3e}  tol {tol:.3e}  "
         f"kernel {ms:9.3f} ms  plain {plain_ms:9.3f} ms  library {lib}  "
         f"bound {bound[0]:.4f} ms ({bound[1]})  {'ok' if ok else 'FAIL'}"
         + "".join(f"  {k} {v}" for k, v in extra.items()))
@@ -249,6 +270,17 @@ def attention_and_glue_kernels(results, gen):
     def flat(out):  # K4 writes q and k: compare both
         return torch.cat(out) if isinstance(out, tuple) else out
 
+    # K4 with per-sample tables [B, keep, D/2]: the MVDT masked pass of the
+    # trainer (1,963 kept of its 2,805 packed tokens, tables gathered)
+    keep = TRAIN_KEEP
+    qm_, km_ = x[:, :keep], y[:, :keep]
+    pos = torch.randperm(L, generator=gen, device="cuda")[:keep]
+    bcos, bsin = cos[pos][None].contiguous(), sin[pos][None].contiguous()
+    glue.append(
+        ("qk_norm_rope", f"batched tables [1,{keep},64]",
+         lambda: fa.qk_norm_rope(qm_, km_, wq, wk, bcos, bsin, N, eps=1e-6),
+         lambda: fa._qk_norm_rope_ref(qm_, km_, wq, wk, bcos, bsin, N, 1e-6),
+         None, 4 * nbytes(qm_) + nbytes(wq, wk, bcos, bsin), 2 * 8 * qm_.numel()))
     for kernel, case, run, plain, lib, n_bytes, ops in glue:
         want = flat(plain())
         _record(results, kernel, case, max_err(flat(run()), want),
@@ -256,6 +288,57 @@ def attention_and_glue_kernels(results, gen):
                 median_ms(run, reps=20), median_ms(plain, reps=20),
                 bound_ms(n_bytes, ops, "fp32"),
                 None if lib is None else median_ms(lib, reps=20))
+
+
+def flash_backward_kernels(results, gen):
+    """K8 (dQ) and K9 (dK, dV) against ``plain_attention_bwd`` at the 5B
+    trainer's shapes: self-attention over its 2,805 packed tokens and
+    cross-attention over 512 text rows. Tolerance: 2e-2 of the largest
+    plain gradient (the kernels round P and dS to bf16 before their
+    products and write bf16; about 3 bf16 ulps of the largest entry). The
+    plain version and the library yardstick (``F.scaled_dot_product_attention``'s
+    backward, timed as forward + backward less the forward) each compute
+    dQ, dK and dV together, so K8 and K9 report the same plain and library
+    times."""
+    from yume_tpu_torch.ops import flash_attention as fl
+
+    for case, lk in ((f"self [1,{TRAIN_L},24,128]", TRAIN_L), ("cross Lk=512", TEXT_LEN)):
+        q, do = _randn(gen, 1, TRAIN_L, N, D), _randn(gen, 1, TRAIN_L, N, D)
+        k, v = _randn(gen, 1, lk, N, D), _randn(gen, 1, lk, N, D)
+        out, lse = fl.flash_attention(q, k, v, return_lse=True)
+        delta = fl.attention_delta(out, do)
+        dq = fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        want = fl.plain_attention_bwd(q, k, v, out, lse, do)
+        plain_ms = median_ms(lambda: fl.plain_attention_bwd(q, k, v, out, lse, do), reps=3)
+
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        do_t = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(*leaves)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do_t)
+
+        lib_ms = median_ms(sdpa_fwd_bwd, reps=5) - median_ms(sdpa_fwd, reps=5)
+        flops = 2.0 * N * TRAIN_L * lk * D  # one [Lq, Lk, D] product, all heads
+        stats = nbytes(lse, delta)
+        for kernel, got, ref, run, ops, out_bytes in (
+                ("flash_attention_bwd_dq", (dq,), want[:1],
+                 lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                 3 * flops, nbytes(dq)),
+                ("flash_attention_bwd_dkv", (dk, dv), want[1:],
+                 lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                 4 * flops, nbytes(dk, dv))):
+            err = max(max_err(g, w) for g, w in zip(got, ref))
+            tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in ref)
+            ms = median_ms(run, reps=5)
+            _record(results, kernel, case, err, tol, ms, plain_ms,
+                    bound_ms(nbytes(q, k, v, do) + stats + out_bytes, ops, "bf16"), lib_ms,
+                    tflops=round(ops / ms / 1e9, 1))
+        del q, k, v, do, out, lse, delta, dq, dk, dv, want, leaves, do_t
 
 
 K6_SHAPES = [  # (case, K, N, launches per layer)
@@ -339,6 +422,71 @@ def reference_phase():
         del card, host
 
 
+def _param_group(name: str) -> str:
+    """blocks.7.self_attn.q.weight → blocks.self_attn; head.head.weight → head."""
+    parts = [p for p in name.split(".") if not p.isdigit()]
+    return ".".join(parts[:2]) if parts[0] == "blocks" else parts[0]
+
+
+def gradient_reference_phase():
+    """The flow loss of a 2-layer full-width DiT and its gradient: on the
+    card (kernels, bf16, remat: K1 forward, K8/K9 backward, K2–K5 through
+    their recompute) against the same weights on the CPU (plain versions
+    under autograd, fp32), with the same batch and draws. Relative error of
+    the loss and relative L2 of each parameter group's gradient."""
+    from yume_tpu_torch.configs import ti2v_5b
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.pipelines.ti2v import _random_init_
+    from yume_tpu_torch.training.train_step import TrainConfig, draw_step, make_loss_fn
+    from yume_tpu_torch.utils.convert import load_state_dict
+
+    cfg = dataclasses.replace(ti2v_5b().dit, num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    card = WanDiT(cfg, torch.bfloat16, device="meta", param_dtype=torch.bfloat16,
+                  remat=True).to_empty(device="cuda")
+    _random_init_(card, gen)
+    host = WanDiT(cfg, torch.float32, device="meta").to_empty(device="cpu")
+    load_state_dict(host, {k: v.float().cpu() for k, v in card.state_dict().items()})
+    tc = TrainConfig(latent_frame_zero=8)
+    batch = {"latents": torch.randn((1, 3 + 8, 16, 16, cfg.in_dim), generator=gen,
+                                    device="cuda"),
+             "context": torch.randn((1, TEXT_LEN, cfg.text_dim), generator=gen,
+                                    device="cuda")}
+    draws = draw_step(batch, tc, torch.Generator().manual_seed(5))
+    out = {}
+    for name, model, b in (("card", card, batch),
+                           ("host", host, {k: v.cpu() for k, v in batch.items()})):
+        loss, _ = make_loss_fn(model, tc)(b, draws)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        out[name] = (loss.item(), {n: g.float().cpu() for n, g in zip(names, grads)})
+    (loss_c, g_c), (loss_h, g_h) = out["card"], out["host"]
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    ok = loss_rel <= DIT_REL_TOL
+    groups = {}
+    for n in g_h:
+        groups.setdefault(_param_group(n), []).append(n)
+    worst = 0.0
+    rels = {}
+    for group, names in groups.items():
+        want = torch.cat([g_h[n].reshape(-1) for n in names])
+        got = torch.cat([g_c[n].reshape(-1) for n in names])
+        ok &= bool(torch.isfinite(got).all())
+        if want.norm() == 0:  # a FramePack scale this input does not use
+            ok &= bool(got.norm() == 0)
+            continue
+        rels[group] = ((got - want).norm() / want.norm()).item()
+        worst = max(worst, rels[group])
+    ok &= worst <= GRAD_REL_TOL
+    log(f"reference: 2-layer DiT flow loss card(bf16, kernels, remat) {loss_c:.6f} vs "
+        f"cpu(fp32, plain) {loss_h:.6f}: relative error {loss_rel:.3e}  tol {DIT_REL_TOL:.1e}")
+    log("  gradient relative L2 per parameter group (tol "
+        f"{GRAD_REL_TOL:.1e}): " + ", ".join(f"{g} {r:.3e}" for g, r in sorted(rels.items()))
+        + f"  {'ok' if ok else 'FAIL'}")
+    require(ok, "gradient reference check failed")
+    del card, host
+
+
 # The serving-mode quality gate, weights-free: latent PSNR of each mode
 # against the bf16 Euler run of the same segment. Floors as the JAX
 # package's gate (tests_tpu/test_quality_gate.py) sets them; the W8A8 +
@@ -407,6 +555,7 @@ def quality_phase():
 def pipeline_phase(counters):
     from yume_tpu_torch.configs import ti2v_5b
     from yume_tpu_torch.data.tokenizer import Tokenizer
+    from yume_tpu_torch.ops import flash_attention as fl
     from yume_tpu_torch.ops import quant_matmul as qm
     from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
 
@@ -467,11 +616,16 @@ def pipeline_phase(counters):
         require(tuple(video.shape) == (1, 29, 704, 1280, 3) and finite,
                 f"{name}: tail video shape {tuple(video.shape)}, finite {finite}")
 
+    # the flash backward (K8, K9) runs only under autograd: serving never launches it
+    backward = {fl.flash_attention_bwd_dq.__name__, fl.flash_attention_bwd_dkv.__name__}
+
     def read_counts(path, needed):
         launches = {c.__name__: c.launches for c in counters}
         log(f"  kernel launches in the {path} run: {launches}")
         missing = [k for k in needed if launches[k] == 0]
         require(not missing, f"kernels not launched on the {path} path: {missing}")
+        stray = [k for k in backward if launches[k]]
+        require(not stray, f"backward kernels launched on the {path} path: {stray}")
         return launches
 
     # a. bf16 Euler, one caption (PR 1's path) --------------------------------
@@ -483,8 +637,8 @@ def pipeline_phase(counters):
     latents, videos = pipe.generate_long([ctx], history, steps=4)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    euler_launches = read_counts("bf16 Euler", [c.__name__ for c in counters
-                                                if c is not qm.q8_dot])
+    euler_launches = read_counts("bf16 Euler", [c.__name__ for c in counters if c
+                                                is not qm.q8_dot and c.__name__ not in backward])
     check_tail("euler", latents, 31 + 8, videos[0])
     log(f"  euler: 4 steps, wall {total:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -506,7 +660,8 @@ def pipeline_phase(counters):
     video = w8.decode_auto(latents[:, -cfg.latent_frame_zero:])
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = read_counts("headline", [c.__name__ for c in counters])
+    launches = read_counts("headline", [c.__name__ for c in counters
+                                        if c.__name__ not in backward])
     check_tail("headline", latents, 31 + 8, video)
     n_full = w8.last_teacache_n_full
     require(n_full == len(times["full_step"]) and
@@ -527,11 +682,243 @@ def pipeline_phase(counters):
     return launches, euler_launches
 
 
+# kernel families of a device trace, by kernel name (first match wins)
+KERNEL_FAMILIES = [
+    ("K1 flash fwd", ("flash_fwd_kernel",)),
+    ("K8 dQ", ("flash_bwd_dq_kernel",)),
+    ("K9 dK dV", ("flash_bwd_dkv_kernel",)),
+    ("K2-K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_rope_kernel")),
+    ("conv", ("conv", "cudnn")),
+    ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+]
+
+
+TRAIN_RANGES = ("loss_and_grads", "optimizer", "ema")  # training/train_step.py
+
+
+def device_breakdown(what: str, fn) -> dict:
+    """Run ``fn`` once under torch.profiler and log its device time by
+    kernel family, by the train step's named ranges and its ten longest
+    kernels. Per range: the kernels launched inside it (``optimizer`` and
+    ``ema``; the backward runs on autograd's own thread, so the loss and
+    gradient part is the rest) and the span on the device from its first
+    to its last kernel, idle gaps included. Times in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(e, total=False):
+        names = (("device_time_total", "cuda_time_total") if total else
+                 ("self_device_time_total", "self_cuda_time_total"))
+        return next((getattr(e, n) for n in names if hasattr(e, n)), 0.0) / 1e3
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    families = dict.fromkeys([name for name, _ in KERNEL_FAMILIES] + ["other"], 0.0)
+    ranges, spans, kernels = {}, {}, []
+    for e in prof.key_averages():
+        if e.key in TRAIN_RANGES:
+            if e.device_type == DeviceType.CUDA:
+                spans[e.key] = dev_ms(e)
+            elif e.key != "loss_and_grads":
+                ranges[e.key] = dev_ms(e, total=True)
+        elif e.device_type == DeviceType.CUDA:
+            fam = next((n for n, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)),
+                       "other")
+            families[fam] += dev_ms(e)
+            kernels.append((dev_ms(e), e.count, e.key[:90]))
+        elif e.key in ("optimizer", "ema"):
+            ranges[e.key] = dev_ms(e, total=True)
+    busy = sum(families.values())
+    log(f"  trace of one {what}: wall {wall:.1f} ms under the profiler, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
+    log("    by family: " + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                                      for k, v in families.items()))
+    ranges["loss_and_grads"] = busy - sum(ranges.values())
+    log("    kernels by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items()))
+    log("    device span by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items()))
+    for ms, count, name in sorted(kernels, reverse=True)[:10]:
+        log(f"    {ms:9.2f} ms  x{count:<6d} {name}")
+    return {"wall_ms": wall, "busy_ms": busy, "families_ms": families, "ranges_ms": ranges,
+            "spans_ms": spans}
+
+
+def count_syncs(fn) -> int:
+    """Run ``fn`` once with CUDA sync debugging on and count the calls that
+    synchronised the host with the card (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def train_phase(counters):
+    """The 5B trainer at full width and its geometry (2,805 packed tokens),
+    random bf16 parameters, per-block remat. Three paths, each with the
+    launch counts set to 0 just before it and read just after:
+    a. the full fine-tune: ``make_train_step`` with clipped AdamW and EMA,
+       1 warm-up and 3 timed steps (the model carries the MVDT side block,
+       whose parameters get zero gradients here);
+    b. one MVDT step on the same model and state at mask ratio 0.30, then
+       one LoRA rank-16 step on that model (``make_lora_train_step``), whose
+       random head gives the adapters a gradient that is not zero;
+    c. LoRA rank 16 through the entry point ``train.main`` (its own fp32
+       parameters, 3 steps), after the model of a. and b. is freed;
+    then ``train.main --smoke`` on the card. Every loss and gradient norm
+    must be finite; K1–K5, K8 and K9 must launch, K6 must not."""
+    from yume_tpu_torch import train
+    from yume_tpu_torch.configs import ti2v_5b
+    from yume_tpu_torch.models.dit import WanDiT, packed_token_count
+    from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.pipelines.ti2v import _random_init_
+    from yume_tpu_torch.training.lora import LoRAModel, init_lora, make_lora_train_step
+    from yume_tpu_torch.training.train_step import (TrainConfig, draw_step, init_train_state,
+                                                    make_train_step, trainable_params)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"train: {left:.2f} GiB left allocated after the pipeline phase")
+    require(left < 1.0, "the pipeline phase left memory allocated")
+    cfg = dataclasses.replace(ti2v_5b().dit, mvdt=True)
+    require(packed_token_count(TRAIN_F_HIST, TRAIN_LFZ, TRAIN_H, TRAIN_W, cfg.patch_size)
+            == TRAIN_L, "trainer token count")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    t0 = time.perf_counter()
+    model = WanDiT(cfg, torch.bfloat16, device="meta", param_dtype=torch.bfloat16,
+                   remat=True).to_empty(device="cuda")
+    _random_init_(model, gen)
+    tc = TrainConfig(latent_frame_zero=TRAIN_LFZ)
+    state = init_train_state(trainable_params(model), tc)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  5B DiT (+ MVDT side block) {n_params / 1e9:.3f}B bf16 params, AdamW state and "
+        f"EMA in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    f = TRAIN_F_HIST + TRAIN_LFZ
+
+    def batch(step):
+        g = torch.Generator(device="cuda").manual_seed(100 + step)
+        return {"latents": torch.randn((1, f, TRAIN_H, TRAIN_W, cfg.in_dim), generator=g,
+                                       device="cuda"),
+                "context": torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g,
+                                       device="cuda") * 0.02}
+
+    def run(path, step_fn, st, n_steps, masked=False):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, norms = [], [], []
+        for i in range(n_steps):
+            b = batch(i)
+            draws = draw_step(b, tc, torch.Generator(device="cuda").manual_seed(200 + i),
+                              masked=masked)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = step_fn(st, b, draws)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            times.append(time.perf_counter() - t)
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {path}: step times {[round(t, 4) for t in times]} s, losses "
+            f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in norms]}, "
+            f"peak device memory {peak:.2f} GiB")
+        log(f"  kernel launches in the {path} run: {launches}")
+        require(all(map(math.isfinite, losses + norms)), f"{path}: non-finite loss or norm")
+        missing = [c.__name__ for c in counters if c is not qm.q8_dot and not c.launches]
+        require(not missing, f"kernels not launched on the {path} path: {missing}")
+        require(qm.q8_dot.launches == 0, f"{path}: the W8A8 kernel launched in training")
+        return {"step_s": times, "losses": losses, "grad_norms": norms, "peak_gib": peak,
+                "launches": launches}
+
+    runs = {}
+    full_step = make_train_step(model, tc)
+    runs["full"] = run("5B AdamW full fine-tune (remat)", full_step, state, 4)
+    runs["full"]["median_step_s"] = statistics.median(runs["full"]["step_s"][1:])
+    log(f"  full fine-tune: median step {runs['full']['median_step_s']:.4f} s (steps 2-4)")
+    b = batch(4)
+    draws = draw_step(b, tc, torch.Generator(device="cuda").manual_seed(204))
+    trace = device_breakdown("full fine-tune step", lambda: full_step(state, b, draws))
+    # the kernels' time hardly changes under the profiler, the host's does:
+    # the unprofiled step's idle share is its median wall less that busy time
+    trace["idle_share_unprofiled"] = 1.0 - trace["busy_ms"] / (
+        runs["full"]["median_step_s"] * 1e3)
+    trace["syncs_per_step"] = count_syncs(lambda: full_step(state, b, draws))
+    log(f"  unprofiled idle share {trace['idle_share_unprofiled']:.3f} (median step less "
+        f"{trace['busy_ms']:.1f} ms of kernels); host-device synchronisations in one "
+        f"step: {trace['syncs_per_step']}")
+    runs["full"]["trace"] = trace
+    tc_m = dataclasses.replace(tc, mvdt=True)
+    runs["mvdt"] = run(f"5B MVDT step (keep {TRAIN_KEEP} of {TRAIN_L})",
+                       make_train_step(model, tc_m, mvdt_keep=TRAIN_KEEP), state, 1,
+                       masked=True)
+    # one LoRA step on this model: its head is random, so the adapters'
+    # gradient is not zero (train.main below starts from a zero head)
+    del state, full_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_model = LoRAModel(model, init_lora(model, rank=16, generator=gen))
+    runs["lora_random_head"] = run(
+        "LoRA rank 16 step on the random-head model", make_lora_train_step(lora_model, tc),
+        init_train_state(lora_model.adapters, tc), 1)
+    require(runs["lora_random_head"]["grad_norms"][0] > 0, "LoRA: zero adapter gradient")
+    del model, lora_model, b, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(REPO, "build", "train_smoke")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train.main(["--lora_rank", "16", "--remat", "--max_train_steps", "3",
+                "--checkpointing_steps", "0", "--output_dir", os.path.join(out_dir, "lora")])
+    lora = dict(train.main.last_run, launches={c.__name__: c.launches for c in counters},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                wall_s=time.perf_counter() - t0)
+    lora["median_step_s"] = statistics.median(lora["step_times"][1:])
+    log(f"  LoRA rank 16 through train.main (fp32 base, bf16 compute, remat): "
+        f"{lora['trainable']:,} trainable params, step times "
+        f"{[round(t, 4) for t in lora['step_times']]} s, losses "
+        f"{[round(x, 5) for x in lora['losses']]}, grad norms {lora['grad_norms']}, "
+        f"peak device memory {lora['peak_gib']:.2f} GiB, wall {lora['wall_s']:.1f} s")
+    log(f"  kernel launches in the LoRA run: {lora['launches']}")
+    require(all(map(math.isfinite, lora["losses"] + lora["grad_norms"])),
+            "LoRA: non-finite loss or norm")
+    missing = [k for k, n in lora["launches"].items() if k != "q8_dot" and not n]
+    require(not missing and not lora["launches"]["q8_dot"],
+            f"LoRA: kernels not launched {missing} or W8A8 launched")
+    runs["lora"] = lora
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train.main(["--smoke", "--max_train_steps", "2", "--checkpointing_steps", "0",
+                "--output_dir", os.path.join(out_dir, "smoke")])
+    smoke = train.main.last_run
+    log(f"  train.main --smoke on the card: losses {smoke['losses']}, grad norms "
+        f"{smoke['grad_norms']}")
+    require(all(map(math.isfinite, smoke["losses"] + smoke["grad_norms"])),
+            "smoke: non-finite loss or norm")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU fallback here",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     # fp32 results are compared in phases 3 and 4: no TF32 there
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -540,6 +927,7 @@ def main() -> int:
 
     from yume_tpu_torch.ops import fused_adaln as fa
     from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.ops import flash_attention as fl
     from yume_tpu_torch.ops.flash_attention import flash_attention
 
     smi = device_phase()
@@ -558,22 +946,30 @@ def main() -> int:
                      "yume_tpu/ops/fused_adaln.py:193"),
         "quant_matmul": ("cuda", "yume_tpu_torch/csrc/quant_matmul.cu",
                          "yume_tpu/ops/quant_matmul.py:48"),
+        "flash_attention_bwd_dq": ("cuda", "yume_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "yume_tpu/ops/flash_attention.py:151"),
+        "flash_attention_bwd_dkv": ("cuda", "yume_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "yume_tpu/ops/flash_attention.py:183"),
     }
     results = {k: {"cases": []} for k in meta}
     log("kernels vs plain versions at the 5B segment shapes:")
     gen = torch.Generator(device="cuda").manual_seed(0)
     attention_and_glue_kernels(results, gen)
     quant_matmul_kernel(results, gen)
+    flash_backward_kernels(results, gen)
     torch.cuda.empty_cache()
     reference_phase()
+    gradient_reference_phase()
     torch.cuda.empty_cache()
     # the quality gate and the pipeline run with PyTorch's default precision
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     quality_phase()
     torch.cuda.empty_cache()
     counters = [flash_attention, fa.adaln_norm, fa.adaln_residual, fa.qk_norm_rope,
-                fa.rms_norm, qm.q8_dot]
+                fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv]
     launches, euler_launches = pipeline_phase(counters)
+    train_runs = train_phase(counters)
+    train_launches = train_runs["full"]["launches"]
     counter_name = {"quant_matmul": "q8_dot"}
 
     kernels = []
@@ -581,9 +977,15 @@ def main() -> int:
         r = results[name]
         # the headline numbers: K6 per 5B layer, the others their first case
         head = r.get("per_layer") or r["cases"][0]
+        key = counter_name.get(name, name)
+        backward = name.startswith("flash_attention_bwd")
         entry = {"name": name, "route": route, "source": src, "replaces": rep,
-                 "launches": launches[counter_name.get(name, name)],
-                 "launches_euler_path": euler_launches[counter_name.get(name, name)],
+                 # the backward kernels' main path is the train phase's
+                 "launches": train_launches[key] if backward else launches[key],
+                 "launches_euler_path": euler_launches[key],
+                 "launches_train": train_launches[key],
+                 "launches_train_mvdt": train_runs["mvdt"]["launches"][key],
+                 "launches_train_lora": train_runs["lora"]["launches"][key],
                  "max_abs_err": max(c["max_abs_err"] for c in r["cases"]),
                  "ms": head["ms"], "plain_ms": head["plain_ms"],
                  "bound_ms": head["bound_ms"],
@@ -594,7 +996,14 @@ def main() -> int:
                                  "library_ms is torch._int_mm, the s8 x s8 -> s32 "
                                  "product alone")
             entry["bf16_matmul_ms"] = head["bf16_matmul_ms"]
+        if backward:
+            entry["timed_as"] = ("plain_ms and library_ms (the backward of "
+                                 "F.scaled_dot_product_attention) compute dq, dk and dv "
+                                 "together")
         kernels.append(entry)
+    train = {k: {f: v for f, v in r.items() if f != "launches"} for k, r in train_runs.items()}
+    log("train: " + json.dumps(train))
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

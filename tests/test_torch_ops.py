@@ -189,9 +189,13 @@ def _chip_smoke_imports():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "yume_tpu_torch.pipelines.ti2v" in mods
+    for m in ("yume_tpu_torch.pipelines.ti2v", "yume_tpu_torch.train",
+              "yume_tpu_torch.training.train_step", "yume_tpu_torch.training.optim",
+              "yume_tpu_torch.training.lora", "yume_tpu_torch.utils.checkpoint"):
+        assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke
+    assert "from yume_tpu_torch import train" in smoke
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"

@@ -1,0 +1,111 @@
+"""The flash-attention backward kernels K8 (dQ) and K9 (dK, dV) against
+:func:`plain_attention_bwd` on the card: head dims 16, 64 and 128, batch > 1, q and
+kv lengths that are not multiples of 64, Lk < 64, kv_len including 0, a
+non-contiguous dout, and the gradients of the ``attention`` autograd path.
+
+Tolerance: the kernels round P and dS to bf16 before their tensor-core
+products and write bf16; the plain version computes in fp32 from the same
+bf16 inputs. For N(0, 1) inputs and dout the gradients are O(1)–O(10), so
+the bound is relative: 2e-2 × max |plain| per output (about 3 bf16 ulps of
+the largest entry).
+"""
+
+import pytest
+import torch
+
+from yume_tpu_torch.ops import attention as attn
+from yume_tpu_torch.ops.flash_attention import (attention_delta, flash_attention,
+                                                flash_attention_bwd,
+                                                flash_attention_bwd_dkv,
+                                                flash_attention_bwd_dq,
+                                                plain_attention_bwd)
+
+pytestmark = pytest.mark.cuda
+
+REL_TOL = 2e-2
+
+
+def _randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+@pytest.fixture
+def gen(cuda):
+    return torch.Generator(device=cuda).manual_seed(0)
+
+
+def _close(got, want):
+    tol = REL_TOL * want.float().abs().max().item() + 1e-6
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,kv_len", [
+    (1, 64, 64, 1, 128, None),
+    (2, 65, 130, 3, 64, (77, 130)),
+    (1, 200, 37, 2, 128, None),          # Lk < 64
+    (2, 127, 513, 4, 128, (1, 500)),
+    (3, 64, 100, 2, 128, (0, 100, 37)),  # a batch with no live key
+    (1, 53, 70, 4, 16, None),
+    (2, 90, 45, 2, 64, (45, 20)),
+])
+def test_flash_bwd_edges(gen, b, lq, lk, n, d, kv_len):
+    q, k, v = _randn(gen, b, lq, n, d), _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
+    dout = _randn(gen, b, lq, n, d)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = flash_attention(q, k, v, kv_len=kl, return_lse=True)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, kv_len=kl)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = plain_attention_bwd(q, k, v, out, lse, dout, kv_len=kl)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close(g, w)
+    if kv_len is not None:
+        for i, n_live in enumerate(kv_len):
+            # masked keys get zero gradient; a query with no key gets zero dq
+            if n_live < lk:
+                assert got[1][i, n_live:].abs().max().item() == 0.0
+                assert got[2][i, n_live:].abs().max().item() == 0.0
+            if n_live == 0:
+                assert got[0][i].abs().max().item() == 0.0
+
+
+def test_flash_bwd_strided_dout_and_delta(gen):
+    b, l, n, d = 2, 97, 4, 128
+    q, k, v = _randn(gen, b, l, n, d), _randn(gen, b, l, n, d), _randn(gen, b, l, n, d)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    # dout as a view into a wider buffer: strided, not contiguous
+    dout = _randn(gen, b, l, 2, n, d)[:, :, 1]
+    assert not dout.is_contiguous()
+    delta = attention_delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta)
+    want = plain_attention_bwd(q, k, v, out, lse, dout.contiguous())
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("kv_len", [None, (300,)])
+def test_attention_autograd_uses_the_kernels(gen, kv_len):
+    b, lq, lk, n, d = 1, 150, 300, 2, 128
+    q, k, v = (_randn(gen, b, lq, n, d), _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d))
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    g = _randn(gen, b, lq, n, d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_bwd_dq.launches
+    out = attn.attention(*leaves, kv_len=kl)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    assert flash_attention_bwd_dq.launches == before + 1
+    _, lse = flash_attention(q, k, v, kv_len=kl, return_lse=True)
+    want = plain_attention_bwd(q, k, v, out.detach(), lse, g, kv_len=kl)
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
+def test_lse_output_refuses_gradients(gen):
+    q = _randn(gen, 1, 8, 2, 64).requires_grad_()
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, return_lse=True)

@@ -136,3 +136,60 @@ def test_glue_rejects_non_contiguous(gen):
     s = _randn(gen, 1, 1, 128, dtype=torch.float32)
     with pytest.raises(ValueError):
         fa.adaln_residual(x, x, s, None)
+
+
+def test_qk_norm_rope_batched_tables(gen):
+    """Per-sample RoPE tables [B, L, D/2] (the MVDT masked pass) go to the
+    kernel, not to the plain version."""
+    b, l, heads, head_dim = 2, 45, 4, 64
+    d = heads * head_dim
+    q, k = _randn(gen, b, l, d), _randn(gen, b, l, d)
+    wq = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    wk = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    ang = torch.rand((b, l, head_dim // 2), generator=gen, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = fa.qk_norm_rope.launches
+    got = fa.qk_norm_rope(q, k, wq, wk, cos, sin, heads, eps=1e-6)
+    assert fa.qk_norm_rope.launches == before + 1
+    want = fa._qk_norm_rope_ref(q, k, wq, wk, cos, sin, heads, 1e-6)
+    for g, w in zip(got, want):
+        _glue_check(g, w)
+
+
+def test_glue_gradients_on_the_card(gen):
+    """With inputs that require grad, the glue kernels launch through
+    their autograd Function, and the gradients (activations, fp32 tables,
+    weights, batched RoPE tables) equal those of the plain versions under
+    autograd on the same inputs: the backward recomputes through them."""
+    b, l, heads, head_dim, k = 2, 37, 4, 64, 2
+    d = heads * head_dim
+    x, y = _randn(gen, b, l, d), _randn(gen, b, l, d)
+    s = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    t = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+    w = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    ang = torch.rand((b, l, head_dim // 2), generator=gen, device="cuda") * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cases = [
+        (fa.adaln_norm, lambda *a: fa._adaln_norm_ref(*a, idx, 1e-6, 1.0, torch.bfloat16),
+         lambda *a: fa.adaln_norm(*a, idx), (x, s, t)),
+        (fa.adaln_residual, lambda *a: fa._adaln_residual_ref(*a, idx),
+         lambda *a: fa.adaln_residual(*a, idx), (x, y, s)),
+        (fa.rms_norm, lambda *a: fa._rms_ref(*a, 1e-6),
+         lambda *a: fa.rms_norm(*a, eps=1e-6), (x, w)),
+        (fa.qk_norm_rope, lambda *a: fa._qk_norm_rope_ref(*a, heads, 1e-6),
+         lambda *a: fa.qk_norm_rope(*a, heads, eps=1e-6), (x, y, w, w + 0.5, cos, sin)),
+    ]
+    for counter, plain, kernel, inputs in cases:
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [a.clone().requires_grad_() for a in inputs]
+            before = counter.launches
+            outs = fn(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            assert all(o.grad_fn is not None for o in outs)
+            cots = [torch.ones_like(o) for o in outs]
+            grads.append(torch.autograd.grad(outs, leaves, cots))
+            assert counter.launches == before + (fn is kernel)
+        for g_kernel, g_plain in zip(*grads):
+            torch.testing.assert_close(g_kernel, g_plain, atol=1e-5, rtol=1e-5)

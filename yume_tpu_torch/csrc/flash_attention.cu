@@ -281,12 +281,14 @@ extern "C" int yume_flash_attention_fwd(
     long long osb, long long osl, long long osn, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64:
-      return launch<64>(q, k, v, out, lse, kv_len, B, Lq, Lk, N, qsb, qsl, qsn,
-                        ksb, ksl, ksn, vsb, vsl, vsn, osb, osl, osn, scale, s);
-    case 128:
-      return launch<128>(q, k, v, out, lse, kv_len, B, Lq, Lk, N, qsb, qsl, qsn,
-                         ksb, ksl, ksn, vsb, vsl, vsn, osb, osl, osn, scale, s);
+#define YUME_FWD(DIM)                                                          \
+  case DIM:                                                                    \
+    return launch<DIM>(q, k, v, out, lse, kv_len, B, Lq, Lk, N, qsb, qsl, qsn, \
+                       ksb, ksl, ksn, vsb, vsl, vsn, osb, osl, osn, scale, s);
+    YUME_FWD(16)
+    YUME_FWD(64)
+    YUME_FWD(128)
+#undef YUME_FWD
     default:
       return cudaErrorInvalidValue;
   }

@@ -37,8 +37,12 @@ TeaCache hooks (``cache_list``/``return_cache``/``block_cache``): the listed
 blocks either store their residual ``x_out − x_in`` in bf16 or are skipped
 with the stored residual added back.
 
-Ported: the FramePack-packed forward (``_forward_packed``). Not ported yet:
-``_forward_unpacked``, MVDT and the 14B branch.
+Training: every kernel on the path carries a gradient (K1 forward with
+K8/K9 backward, K2–K5 through recompute); ``remat`` checkpoints each block;
+the MVDT masked pass (``mvdt_noise``/``mvdt_keep``) runs with ``cfg.mvdt``.
+
+Ported: the FramePack-packed forward (``_forward_packed``) and MVDT. Not
+ported yet: ``_forward_unpacked`` and the 14B branch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import DiTConfig
 from ..ops import fused_adaln, quant_matmul, rope as rope_lib
@@ -71,7 +76,15 @@ def _w8a8_dense(x: torch.Tensor, owner: nn.Module, name: str,
     """W8A8 ``x @ cat(W).T + cat(b)`` for sibling ``layers`` of one input
     (the reference's ``fused_sibling_dense``/``QDense`` with ``w8a8``), in
     x.dtype. The int8 weight of ``cat(W)`` cast to x.dtype is kept on
-    ``owner`` under ``name``, keyed by the weights' storage and version."""
+    ``owner`` under ``name``, keyed by the weights' storage and version.
+
+    Serving only: the int8 product has no gradient, so a call that autograd
+    would have to differentiate raises instead of dropping the gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            l.weight.requires_grad or l.bias.requires_grad for l in layers)):
+        raise RuntimeError(
+            "W8A8 projections are for serving: run them under torch.no_grad() "
+            "or with parameters that do not require grad (train the bf16 DiT)")
     dtype = x.dtype
     key = (dtype, tuple((l.weight.data_ptr(), l.weight._version) for l in layers))
     cache = owner.__dict__.setdefault("_q8_cache", {})
@@ -124,6 +137,12 @@ class Modulation:
     e: torch.Tensor
     e0: torch.Tensor
     idx: Optional[torch.Tensor]
+
+    def gathered(self, keep_idx: torch.Tensor) -> "Modulation":
+        """Restrict to kept tokens [B, keep] (MVDT masked branch)."""
+        if self.idx is None:
+            return self
+        return Modulation(self.e, self.e0, torch.gather(self.idx, 1, keep_idx))
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +382,16 @@ def packed_grids(
     return grids
 
 
+def packed_token_count(f_hist: int, latent_frame_zero: int, h_lat: int, w_lat: int,
+                       patch: Tuple[int, int, int]) -> int:
+    """Tokens of the packed sequence: the FramePack history plus the tail
+    at full resolution (what MVDT masking draws its keep count from)."""
+    grids = packed_grids(framepack_plan(f_hist), h_lat, w_lat, patch)
+    grids.append((latent_frame_zero // patch[0], _ceil_div(h_lat, patch[1]),
+                  _ceil_div(w_lat, patch[2])))
+    return sum(f * h * w for f, h, w in grids)
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -372,14 +401,18 @@ class WanDiT(nn.Module):
     """Wan diffusion transformer, FramePack-packed call mode.
 
     ``dtype`` is the compute dtype of the matmul paths (bf16 on the card);
-    ``param_dtype`` the storage dtype of the parameters.
+    ``param_dtype`` the storage dtype of the parameters. ``remat``
+    recomputes each block's activations in the backward pass (per-block
+    ``torch.utils.checkpoint``, the reference's ``nn.remat``). With
+    ``cfg.mvdt`` the model has the MVDT ``sideblock`` and ``mask_token``.
     """
 
     def __init__(self, cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16, *,
-                 device=None, param_dtype=None):
+                 device=None, param_dtype=None, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(device=device, dtype=param_dtype)
         p = cfg.patch_size
 
@@ -404,6 +437,9 @@ class WanDiT(nn.Module):
             nn.SiLU(), nn.Linear(cfg.dim, 6 * cfg.dim, **kw))
         self.blocks = nn.ModuleList(DiTBlock(cfg, **kw) for _ in range(cfg.num_layers))
         self.head = Head(cfg, **kw)
+        if cfg.mvdt:
+            self.sideblock = DiTBlock(cfg, **kw)
+            self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.dim, **kw))
 
     def _embed_chunk(self, x, scale: int, double_f: bool):
         """Patch-embed a channels-last chunk [B, F, H, W, C] at a spatial
@@ -447,26 +483,80 @@ class WanDiT(nn.Module):
         return self._text_embed(context)
 
     def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin,
-               block_cache=None, cache_list: Tuple[int, ...] = (),
-               return_cache: bool = False):
-        """All blocks, with TeaCache-style residual caching (reference
-        wan/modules/model.py:977-998): blocks listed in ``cache_list`` store
-        their residual (x_out − x_in) in bf16 with ``return_cache``, or are
-        skipped with the cached residual added back when ``block_cache`` is
-        given. Returns (x, new_cache)."""
+               mvdt: Optional[dict] = None, block_cache=None,
+               cache_list: Tuple[int, ...] = (), return_cache: bool = False):
+        """All blocks, with the MVDT side interpolation before block
+        ``mid − 1`` (after it the trunk runs on the full token set), and
+        TeaCache-style residual caching (reference wan/modules/model.py:
+        977-998): blocks listed in ``cache_list`` store their residual
+        (x_out − x_in) in bf16 with ``return_cache``, or are skipped with the
+        cached residual added back when ``block_cache`` is given. Returns
+        (x, the modulation after the trunk, new_cache)."""
+        mid = (self.cfg.num_layers + 1) // 2
         new_cache = []
         for i, block in enumerate(self.blocks):
+            if mvdt is not None and i == mid - 1:
+                x = self._side_interpolate(x, mvdt, context)
+                mod = mvdt["mod_full"]
+                rope_cos, rope_sin = mvdt["rope_full"]
             if block_cache is not None and not return_cache and i in cache_list:
                 x = x + block_cache[cache_list.index(i)].to(x.dtype)
                 continue
             x_in = x
-            x = block(x, mod, context, rope_cos, rope_sin)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, mod, context, rope_cos, rope_sin,
+                               use_reentrant=False)
+            else:
+                x = block(x, mod, context, rope_cos, rope_sin)
             if return_cache and i in cache_list:
                 new_cache.append((x - x_in).to(torch.bfloat16))
-        return x, new_cache
+        return x, mod, new_cache
+
+    def _side_interpolate(self, x, mvdt, context):
+        """MVDT mid-network side interpolater (reference
+        wan23/modules/model.py:531-545): unshuffle the kept tokens and mask
+        tokens to full length, run the side block, masked shortcut."""
+        ids_restore, mask = mvdt["ids_restore"], mvdt["mask"]
+        b, lk, d = x.shape
+        l_full = ids_restore.shape[1]
+        pad = self.mask_token.to(x.dtype).expand(b, l_full - lk, d)
+        x_full = torch.gather(torch.cat([x, pad], dim=1), 1,
+                              ids_restore[:, :, None].expand(-1, -1, d))
+        y = self.sideblock(x_full, mvdt["mod_full"], context, *mvdt["rope_full"])
+        m = mask[:, :, None].to(y.dtype)
+        return y * m + x_full * (1.0 - m)
+
+    def _maybe_mask(self, tokens, mod, cos, sin, mvdt_noise, mvdt_keep):
+        """MVDT random masking with a fixed keep count (reference
+        random_masking, wan23/modules/model.py:500-528). ``mvdt_noise`` is a
+        uniform [B, L] tensor or a ``torch.Generator`` to draw it from.
+        Returns (kept tokens, their modulation, the MVDT state or None, and
+        the RoPE tables at each sample's kept positions, [B, keep, D/2])."""
+        if mvdt_noise is None:
+            return tokens, mod, None, cos, sin
+        if not self.cfg.mvdt or mvdt_keep is None:
+            raise ValueError("MVDT masking needs cfg.mvdt and mvdt_keep")
+        b, l, d = tokens.shape
+        if isinstance(mvdt_noise, torch.Generator):
+            noise = torch.rand((b, l), generator=mvdt_noise, device=mvdt_noise.device)
+        else:
+            noise = mvdt_noise
+        noise = noise.to(tokens.device)
+        ids_shuffle = torch.argsort(noise, dim=1, stable=True)
+        ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+        ids_keep = ids_shuffle[:, :mvdt_keep]
+        x_masked = torch.gather(tokens, 1, ids_keep[:, :, None].expand(-1, -1, d))
+        mask = torch.ones((b, l), dtype=torch.float32, device=tokens.device)
+        mask[:, :mvdt_keep] = 0.0
+        mask = torch.gather(mask, 1, ids_restore)
+        cos_k, sin_k = cos[ids_keep], sin[ids_keep]
+        mvdt = dict(ids_restore=ids_restore, ids_keep=ids_keep, mask=mask,
+                    mod_full=mod, rope_full=(cos, sin))
+        return x_masked, mod.gathered(ids_keep), mvdt, cos_k, sin_k
 
     def forward(self, x: torch.Tensor, t_frame: torch.Tensor, context: torch.Tensor,
                 *, packed: bool = True, latent_frame_zero: int = 8,
+                mvdt_noise=None, mvdt_keep: Optional[int] = None,
                 block_cache: Optional[List[torch.Tensor]] = None,
                 cache_list: Tuple[int, ...] = (), return_cache: bool = False):
         """Velocity for the trailing ``latent_frame_zero`` frames.
@@ -475,14 +565,19 @@ class WanDiT(nn.Module):
         per-frame timesteps (0..1000); context: [B, text_len, text_dim].
         Returns [B, latent_frame_zero, H, W, C_out] in fp32, and with
         ``return_cache`` also the residuals of the ``cache_list`` blocks;
-        ``block_cache`` skips those blocks (see :meth:`_trunk`)."""
+        ``block_cache`` skips those blocks (see :meth:`_trunk`).
+        ``mvdt_noise`` ([B, L] uniform noise or a ``torch.Generator``) with
+        ``mvdt_keep`` runs the MVDT masked pass on ``mvdt_keep`` of the L
+        packed tokens (see :meth:`_maybe_mask`)."""
         if not packed:
             raise NotImplementedError("the unpacked forward is not ported yet")
         return self._forward_packed(x, t_frame, context, latent_frame_zero,
-                                    block_cache, cache_list, return_cache)
+                                    mvdt_noise, mvdt_keep, block_cache,
+                                    cache_list, return_cache)
 
     def _forward_packed(self, x, t_frame, context, latent_frame_zero,
-                        block_cache=None, cache_list=(), return_cache=False):
+                        mvdt_noise=None, mvdt_keep=None, block_cache=None,
+                        cache_list=(), return_cache=False):
         c = self.cfg
         b, f, h_lat, w_lat, _ = x.shape
         f_hist = f - latent_frame_zero
@@ -515,8 +610,10 @@ class WanDiT(nn.Module):
         mod = self._time_mod(t_vals, idx)
 
         ctx = self._context(context)
-        out, new_cache = self._trunk(tokens, mod, ctx, cos, sin, block_cache,
-                                     cache_list, return_cache)
+        tokens, mod, mvdt, cos_k, sin_k = self._maybe_mask(tokens, mod, cos, sin,
+                                                           mvdt_noise, mvdt_keep)
+        out, mod, new_cache = self._trunk(tokens, mod, ctx, cos_k, sin_k, mvdt,
+                                          block_cache, cache_list, return_cache)
         out = self._unpatchify(self.head(out, mod)[:, l_hist:], tail_grid)
         return (out, new_cache) if return_cache else out
 

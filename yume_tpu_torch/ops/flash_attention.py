@@ -1,14 +1,21 @@
-"""Flash-attention forward: wrapper of the CUDA kernel K1
-(``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""Flash attention with gradients: wrappers of the CUDA kernels K1 (forward,
+``csrc/flash_attention.cu``), K8 (dQ) and K9 (dK, dV)
+(``csrc/flash_attention_bwd.cu``), and their plain PyTorch versions.
 
-Replaces yume_tpu/ops/flash_attention.py::_fwd_kernel (via ``_fwd`` and
-``flash_attention``). On the H100 the kernel is bound by tensor-core FLOPs
-at the DiT shapes (self-attention over 12,095 tokens, 24 heads, D = 128);
-its design (wmma bf16 tiles, fp32 online softmax, strided [B, L, N, D]
-reads, in-kernel ragged edges) is described in the source.
+Replaces yume_tpu/ops/flash_attention.py: ``_fwd_kernel`` (via ``_fwd`` and
+``flash_attention``), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (via
+``_bwd_impl``), and the ``_flash`` custom VJP that ties them together
+(:class:`FlashAttention`). On the H100 all three are bound by tensor-core
+FLOPs at the DiT shapes (self-attention over 2,805 to 12,095 tokens, 24
+heads, D = 128); their designs (wmma bf16 tiles, fp32 softmax statistics,
+strided [B, L, N, D] reads, in-kernel ragged edges; the backward as two
+kernels without atomics) are described in the sources.
 
-On a CPU tensor :func:`flash_attention` runs :func:`plain_attention`; on a
-CUDA tensor it launches the kernel or raises.
+On CPU tensors :func:`flash_attention` runs :func:`plain_attention`, which
+autograd differentiates, and the backward wrappers run
+:func:`plain_attention_bwd`. On CUDA tensors each wrapper launches its
+kernel or raises; when a gradient is needed the forward goes through
+:class:`FlashAttention`, whose backward launches K8 and K9.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import Optional
 
 import torch
 
-_SUPPORTED_HEAD_DIMS = (64, 128)
+_SUPPORTED_HEAD_DIMS = (16, 64, 128)
 
 
 def plain_attention(q, k, v, *, kv_len=None, scale=None, return_lse=False):
@@ -32,9 +39,7 @@ def plain_attention(q, k, v, *, kv_len=None, scale=None, return_lse=False):
     s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
     s = s * scale
     if kv_len is not None:
-        col = torch.arange(k.shape[1], device=k.device)
-        mask = col[None, :] < kv_len.to(k.device)[:, None]  # [B, Lk]
-        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+        s = s.masked_fill(~_key_mask(kv_len, k)[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", p, v.float()).to(q.dtype)
     if return_lse:
@@ -42,19 +47,68 @@ def plain_attention(q, k, v, *, kv_len=None, scale=None, return_lse=False):
     return out
 
 
+def _key_mask(kv_len, k):
+    """[B, Lk] bool: key j of batch b is live (j < kv_len[b])."""
+    col = torch.arange(k.shape[1], device=k.device)
+    return col[None, :] < kv_len.to(k.device)[:, None]
+
+
+def attention_delta(out, dout):
+    """delta = Σ_d out·dout in fp32, as [B, N, Lq] (the flash backward's
+    row term; the reference's ``_bwd`` computes it the same way)."""
+    return torch.einsum("bqnd,bqnd->bnq", out.float(), dout.float()).contiguous()
+
+
+def plain_attention_bwd(q, k, v, out, lse, dout, *, kv_len=None, scale=None,
+                        delta=None):
+    """The flash backward in fp32 from the forward's lse: returns (dq, dk,
+    dv) in the dtypes of q, k and v. ``delta`` [B, N, Lq] defaults to
+    Σ_d out·dout; a caller that folds an lse cotangent into it (the
+    partial-attention VJP) passes its own and may give ``out=None``.
+
+        p  = exp(s·scale − lse), 0 at masked keys
+        dv = pᵀ·do,  dp = do·vᵀ,  ds = p∘(dp − delta)·scale
+        dq = ds·k,   dk = dsᵀ·q
+    """
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    if delta is None:
+        delta = attention_delta(out, dout)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    if kv_len is not None:
+        p = p.masked_fill(~_key_mask(kv_len, k)[:, None, None, :], 0.0)
+    dv = torch.einsum("bnqk,bqnd->bknd", p, dof)
+    dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None]) * scale
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, kf)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bf16(name, t, device):
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"flash_attention: {name} must be on {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: {name} must be bf16, got {t.dtype}")
+    if t.dim() != 4:
+        raise ValueError(f"flash_attention: {name} must be [B, L, N, D]")
+    if not _strides_ok(t):
+        raise ValueError(
+            f"flash_attention: {name} needs unit stride in D, strides "
+            f"that are multiples of 8 and a 16-byte aligned base")
+
+
+def _strides_ok(t) -> bool:
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} must be bf16, got {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"flash_attention: {name} must be [B, L, N, D]")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention: {name} needs unit stride in D, strides "
-                f"that are multiples of 8 and a 16-byte aligned base")
+        _check_bf16(name, t, q.device)
     b, _, n, d = q.shape
     if k.shape[0] != b or k.shape[2:] != q.shape[2:] or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -63,6 +117,66 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: head dim {d} not in {_SUPPORTED_HEAD_DIMS}")
     if b * n > 65535:
         raise ValueError("flash_attention: B*N exceeds the grid's y limit")
+
+
+def _kv_len_arg(kv_len, b, device):
+    if kv_len is None:
+        return None
+    kv_len = kv_len.to(device=device, dtype=torch.int32).contiguous()
+    if kv_len.shape != (b,):
+        raise ValueError(f"flash_attention: kv_len must be [{b}]")
+    return kv_len
+
+
+def _fwd(q, k, v, kv_len, scale):
+    """Launch K1: (out, lse)."""
+    from .. import _build
+
+    _check(q, k, v)
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    kv_len = _kv_len_arg(kv_len, b, q.device)
+    if lq == 0:
+        return out, lse
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.yume_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), kv_len.data_ptr() if kv_len is not None else None,
+            b, lq, lk, n, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], ctypes.c_float(scale), stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with a gradient: the forward launches K1 and
+    keeps q, k, v, out, lse and kv_len; the backward computes delta and
+    launches K8 and K9 (the reference's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, scale):
+        out, lse = _fwd(q, k, v, kv_len, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len, ctx.scale = kv_len, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         kv_len=ctx.kv_len, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -76,37 +190,125 @@ def flash_attention(
 ):
     """Attention over q [B, Lq, N, D], k/v [B, Lk, N, D] → [B, Lq, N, D]
     (and the fp32 lse [B, N, Lq] with ``return_lse``). ``kv_len``: optional
-    [B] true key lengths; ``scale`` defaults to D**-0.5."""
+    [B] true key lengths; ``scale`` defaults to D**-0.5. Differentiable on
+    both devices; the lse output is not (its cotangent belongs to the
+    partial-attention VJP, kernel K7, not ported yet)."""
     if not q.is_cuda:
         return plain_attention(q, k, v, kv_len=kv_len, scale=scale,
                                return_lse=return_lse)
-    from .. import _build
-
-    _check(q, k, v)
-    b, lq, n, d = q.shape
-    lk = k.shape[1]
     if scale is None:
-        scale = d ** -0.5
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
-    if kv_len is not None:
-        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-        if kv_len.shape != (b,):
-            raise ValueError(f"flash_attention: kv_len must be [{b}]")
-    if lq == 0:
-        return (out, lse) if return_lse else out
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.yume_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), kv_len.data_ptr() if kv_len is not None else None,
-            b, lq, lk, n, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], ctypes.c_float(scale), stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+        scale = q.shape[-1] ** -0.5
+    if _needs_grad(q, k, v):
+        if return_lse:
+            raise NotImplementedError(
+                "flash_attention: a gradient through the lse output is the "
+                "partial-attention VJP (kernel K7), not ported yet")
+        return FlashAttention.apply(q, k, v, kv_len, scale)
+    out, lse = _fwd(q, k, v, kv_len, scale)
     return (out, lse) if return_lse else out
 
 
+def _check_bwd(q, k, v, dout, lse, delta):
+    _check(q, k, v)
+    _check_bf16("dout", dout, q.device)
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention: dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    b, lq, n, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or t.shape != (b, n, lq) or not t.is_contiguous()):
+            raise ValueError(f"flash_attention: {name} must be a contiguous fp32 "
+                             f"[{b}, {n}, {lq}] tensor on {q.device}")
+
+
+def _dout_arg(dout):
+    """dout is read through its strides; one that breaks the kernel's
+    alignment rules (a broadcast or odd-strided gradient) is made
+    contiguous once."""
+    return dout if dout.dim() == 4 and _strides_ok(dout) else dout.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None):
+    """dQ of attention (K8) from the forward's lse [B, N, Lq] and delta
+    [B, N, Lq] (see :func:`plain_attention_bwd`)."""
+    if not q.is_cuda:
+        return plain_attention_bwd(q, k, v, None, lse, dout, kv_len=kv_len,
+                                   scale=scale, delta=delta)[0]
+    from .. import _build
+
+    dout = _dout_arg(dout)
+    _check_bwd(q, k, v, dout, lse, delta)
+    b, lq, n, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = _kv_len_arg(kv_len, b, q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if lq == 0:
+        return dq
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.yume_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            kv_len.data_ptr() if kv_len is not None else None, dq.data_ptr(),
+            b, lq, k.shape[1], n, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dq.stride()[:3], ctypes.c_float(scale), stream)
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, kv_len=None, scale=None):
+    """(dK, dV) of attention (K9); arguments as :func:`flash_attention_bwd_dq`."""
+    if not q.is_cuda:
+        return plain_attention_bwd(q, k, v, None, lse, dout, kv_len=kv_len,
+                                   scale=scale, delta=delta)[1:]
+    from .. import _build
+
+    dout = _dout_arg(dout)
+    _check_bwd(q, k, v, dout, lse, delta)
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = _kv_len_arg(kv_len, b, q.device)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if lk == 0:
+        return dk, dv
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.yume_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            kv_len.data_ptr() if kv_len is not None else None,
+            dk.data_ptr(), dv.data_ptr(), b, lq, lk, n, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            ctypes.c_float(scale), stream)
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, kv_len=None, scale=None,
+                        delta=None):
+    """(dq, dk, dv) of attention: delta (default Σ_d out·dout), then K8 and
+    K9 on the card, :func:`plain_attention_bwd` on the CPU. ``delta`` is an
+    argument, as in the reference's ``_bwd_impl``, so a VJP that folds an
+    lse cotangent into it can reuse the kernels."""
+    if delta is None:
+        delta = attention_delta(out, dout)
+    if not q.is_cuda:
+        return plain_attention_bwd(q, k, v, out, lse, dout, kv_len=kv_len,
+                                   scale=scale, delta=delta)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=kv_len, scale=scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=kv_len,
+                                     scale=scale)
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -22,7 +22,9 @@ dot was a Mosaic workaround). For RoPE the even and odd lanes load as two
 strided vectors; the RMS sum of squares covers both. Any batch size works.
 
 Each wrapper runs its plain version on CPU tensors and launches its kernel
-(or raises) on CUDA tensors. The plain versions keep the reference's
+(or raises) on CUDA tensors. When an input requires grad, the launch goes
+through :class:`_Recompute`, whose backward recomputes through the plain
+version as the reference's custom VJPs do. The plain versions keep the reference's
 rounding points: fp32 math, one cast at the end, and the x.dtype round-trip
 between the norm and the rotation in :func:`qk_norm_rope`.
 
@@ -146,12 +148,15 @@ def _kernels():
 
     @triton.jit
     def rms_rope_kernel(q_ptr, wq_ptr, oq_ptr, k_ptr, wk_ptr, ok_ptr,
-                        cos_ptr, sin_ptr, L, D, HALF, eps,
+                        cos_ptr, sin_ptr, L, D, HALF, tab_bstride, eps,
                         ROPE: tl.constexpr, NUM: tl.constexpr,
                         BLOCK_H: tl.constexpr):
-        # NUM = 2: the row of q, then the row of k; NUM = 1: q only
+        # NUM = 2: the row of q, then the row of k; NUM = 1: q only.
+        # tab_bstride: 0 for [L, HALF] RoPE tables, L·HALF for batched
+        # [B, L, HALF] tables (per-sample positions under MVDT masking)
         row = tl.program_id(0).to(tl.int64)
         pos = row % L
+        tab = (row // L) * tab_bstride + pos * HALF
         # even lanes x[2j] and odd lanes x[2j+1] as two strided vectors
         j = tl.arange(0, BLOCK_H)
         mask = j < D // 2
@@ -177,7 +182,7 @@ def _kernels():
                 # the norm's output is rounded to x.dtype before the rotation
                 ne = ne.to(o_ptr.dtype.element_ty).to(tl.float32)
                 no = no.to(o_ptr.dtype.element_ty).to(tl.float32)
-                p = pos * HALF + j % HALF
+                p = tab + j % HALF
                 c = tl.load(cos_ptr + p, mask=mask, other=0.0)
                 s = tl.load(sin_ptr + p, mask=mask, other=0.0)
                 re = ne * c - no * s
@@ -241,27 +246,34 @@ def _index(idx, x):
     return idx.to(device=x.device, dtype=torch.int32).contiguous()
 
 
+def _weight(name, w, x):
+    w = w.to(device=x.device, dtype=torch.float32).contiguous()
+    if w.shape != (x.shape[-1],):
+        raise ValueError(f"{name} must be [{x.shape[-1]}], got {tuple(w.shape)}")
+    return w
+
+
+def _rope_tables(cos, sin, x, half):
+    """fp32 contiguous RoPE tables [L, half] or batched [B, L, half] on x's
+    device, and their batch stride."""
+    b, l, _ = x.shape
+    cos = cos.to(device=x.device, dtype=torch.float32).contiguous()
+    sin = sin.to(device=x.device, dtype=torch.float32).contiguous()
+    if cos.shape != sin.shape or cos.shape not in ((l, half), (b, l, half)):
+        raise ValueError(f"qk_norm_rope: cos/sin must be [{l}, {half}] or "
+                         f"[{b}, {l}, {half}], got {tuple(cos.shape)}")
+    return cos, sin, (l * half if cos.dim() == 3 else 0)
+
+
 # ---------------------------------------------------------------------------
-# public ops
+# kernel launches (CUDA tensors, no gradient)
 # ---------------------------------------------------------------------------
 
 
-def adaln_norm(x, scale_tab, shift_tab, idx, *, eps=1e-6, gate=1.0,
-               out_dtype=None):
-    """``LayerNorm(x) * (gate + scale_tab[idx]) + shift_tab[idx]`` (K2).
-
-    x: [B, L, D]; scale_tab/shift_tab: [B or 1, K, D] (computed in fp32);
-    idx: [B, L] int or None (None ⇒ row 0 everywhere). gate=1 is the AdaLN
-    "(1 + scale)" form; gate=0 with a weight/bias table is an affine
-    LayerNorm. ``out_dtype`` overrides the output dtype (the Head keeps
-    fp32)."""
-    out_dtype = x.dtype if out_dtype is None else out_dtype
-    if not x.is_cuda:
-        return _adaln_norm_ref(x, scale_tab.float(), shift_tab.float(), idx,
-                               eps, gate, out_dtype)
+def _adaln_norm_launch(x, scale_tab, shift_tab, idx, eps, gate, out_dtype):
     _check_act("adaln_norm x", x)
     s_tab, bstride = _table("adaln_norm scale_tab", scale_tab, x)
-    t_tab, bstride_t = _table("adaln_norm shift_tab", shift_tab, x)
+    t_tab, _ = _table("adaln_norm shift_tab", shift_tab, x)
     if s_tab.shape != t_tab.shape:
         raise ValueError("adaln_norm: scale and shift tables differ in shape")
     idx = _index(idx, x)
@@ -279,11 +291,7 @@ def adaln_norm(x, scale_tab, shift_tab, idx, *, eps=1e-6, gate=1.0,
     return out
 
 
-def adaln_residual(x, y, scale_tab, idx):
-    """``x + y * scale_tab[idx]`` in fp32 → x.dtype (K3, the AdaLN gated
-    residual). Shapes as in :func:`adaln_norm`."""
-    if not x.is_cuda:
-        return _adaln_residual_ref(x, y, scale_tab.float(), idx)
+def _adaln_residual_launch(x, y, scale_tab, idx):
     _check_act("adaln_residual x", x)
     _check_act("adaln_residual y", y, like=x)
     s_tab, bstride = _table("adaln_residual scale_tab", scale_tab, x)
@@ -301,18 +309,7 @@ def adaln_residual(x, y, scale_tab, idx):
     return out
 
 
-def _weight(name, w, x):
-    w = w.to(device=x.device, dtype=torch.float32).contiguous()
-    if w.shape != (x.shape[-1],):
-        raise ValueError(f"{name} must be [{x.shape[-1]}], got {tuple(w.shape)}")
-    return w
-
-
-def rms_norm(x, w, *, eps=1e-5):
-    """fp32 RMSNorm with learned scale over the last axis (K5: the Triton
-    kernel of :func:`qk_norm_rope` with ``ROPE`` off)."""
-    if not x.is_cuda:
-        return _rms_ref(x, w, eps)
+def _rms_norm_launch(x, w, eps):
     _check_act("rms_norm x", x)
     w = _weight("rms_norm w", w, x)
     b, l, d = x.shape
@@ -324,20 +321,13 @@ def rms_norm(x, w, *, eps=1e-5):
     block = _block(d // 2)
     with torch.cuda.device(x.device):
         _kernels().rms_rope[(b * l,)](
-            x, w, out, x, w, out, w, w, l, d, 1, float(eps),
+            x, w, out, x, w, out, w, w, l, d, 1, 0, float(eps),
             ROPE=False, NUM=1, BLOCK_H=block, num_warps=_warps(block))
     rms_norm.launches += 1
     return out
 
 
-def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
-    """RMSNorm over the full model dim + RoPE for q and k in one pass (K4).
-
-    q/k: [B, L, D] flat (heads packed); w_q/w_k: [D]; cos/sin:
-    [L, head_dim//2] fp32. Returns rotated flat (q, k) in the input dtype.
-    Math equals RMSNorm → x.dtype → apply_rope."""
-    if not q.is_cuda:
-        return _qk_norm_rope_ref(q, k, w_q, w_k, cos, sin, num_heads, eps)
+def _qk_norm_rope_launch(q, k, w_q, w_k, cos, sin, num_heads, eps):
     _check_act("qk_norm_rope q", q)
     _check_act("qk_norm_rope k", k, like=q)
     if k.dtype != q.dtype:
@@ -349,10 +339,7 @@ def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
     half = d // num_heads // 2
     w_q = _weight("qk_norm_rope w_q", w_q, q)
     w_k = _weight("qk_norm_rope w_k", w_k, q)
-    cos = cos.to(device=q.device, dtype=torch.float32).contiguous()
-    sin = sin.to(device=q.device, dtype=torch.float32).contiguous()
-    if cos.shape != (l, half) or sin.shape != (l, half):
-        raise ValueError(f"qk_norm_rope: cos/sin must be [{l}, {half}]")
+    cos, sin, tab_bstride = _rope_tables(cos, sin, q, half)
     oq = torch.empty_like(q)
     ok = torch.empty_like(k)
     if b * l == 0:
@@ -360,10 +347,114 @@ def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
     block = _block(d // 2)
     with torch.cuda.device(q.device):
         _kernels().rms_rope[(b * l,)](
-            q, w_q, oq, k, w_k, ok, cos, sin, l, d, half, float(eps),
+            q, w_q, oq, k, w_k, ok, cos, sin, l, d, half, tab_bstride, float(eps),
             ROPE=True, NUM=2, BLOCK_H=block, num_warps=_warps(block))
     qk_norm_rope.launches += 1
     return oq, ok
+
+
+# ---------------------------------------------------------------------------
+# gradients: forward on the kernel, backward through the plain version
+# ---------------------------------------------------------------------------
+
+
+def _adaln_norm_f32(x, scale_tab, shift_tab, idx, eps, gate, out_dtype):
+    return _adaln_norm_ref(x, scale_tab.float(), shift_tab.float(), idx, eps,
+                           gate, out_dtype)
+
+
+def _adaln_residual_f32(x, y, scale_tab, idx):
+    return _adaln_residual_ref(x, y, scale_tab.float(), idx)
+
+
+class _Recompute(torch.autograd.Function):
+    """A glue kernel with a gradient (the reference's custom VJPs,
+    yume_tpu/ops/fused_adaln.py): the forward launches the kernel and keeps
+    only the primal tensor inputs; the backward recomputes the op through
+    its plain version and differentiates that, so every tensor input that
+    requires grad (activations, the fp32 modulation tables, norm weights,
+    RoPE tables) gets its gradient."""
+
+    @staticmethod
+    def forward(ctx, launch, ref, n_tensors, *args):
+        tensors, static = args[:n_tensors], args[n_tensors:]
+        ctx.ref, ctx.static = ref, static
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors, *static)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:3 + len(tensors)]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() if need else t
+                      for t, need in zip(tensors, needs)]
+            outs = ctx.ref(*leaves, *ctx.static)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = [torch.zeros_like(o) if g is None else g for o, g in zip(outs, grads)]
+        wrt = [t for t, need in zip(leaves, needs) if need]
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return (None, None, None, *(next(got) if need else None for need in needs),
+                *(None for _ in ctx.static))
+
+
+def _run(launch, ref, tensors, static):
+    """Launch on the card; through :class:`_Recompute` when a tensor input
+    requires grad, so the output carries the gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        return _Recompute.apply(launch, ref, len(tensors), *tensors, *static)
+    return launch(*tensors, *static)
+
+
+# ---------------------------------------------------------------------------
+# public ops
+# ---------------------------------------------------------------------------
+
+
+def adaln_norm(x, scale_tab, shift_tab, idx, *, eps=1e-6, gate=1.0,
+               out_dtype=None):
+    """``LayerNorm(x) * (gate + scale_tab[idx]) + shift_tab[idx]`` (K2).
+
+    x: [B, L, D]; scale_tab/shift_tab: [B or 1, K, D] (computed in fp32);
+    idx: [B, L] int or None (None ⇒ row 0 everywhere). gate=1 is the AdaLN
+    "(1 + scale)" form; gate=0 with a weight/bias table is an affine
+    LayerNorm. ``out_dtype`` overrides the output dtype (the Head keeps
+    fp32)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if not x.is_cuda:
+        return _adaln_norm_f32(x, scale_tab, shift_tab, idx, eps, gate, out_dtype)
+    return _run(_adaln_norm_launch, _adaln_norm_f32, (x, scale_tab, shift_tab, idx),
+                (eps, gate, out_dtype))
+
+
+def adaln_residual(x, y, scale_tab, idx):
+    """``x + y * scale_tab[idx]`` in fp32 → x.dtype (K3, the AdaLN gated
+    residual). Shapes as in :func:`adaln_norm`."""
+    if not x.is_cuda:
+        return _adaln_residual_f32(x, y, scale_tab, idx)
+    return _run(_adaln_residual_launch, _adaln_residual_f32, (x, y, scale_tab, idx), ())
+
+
+def rms_norm(x, w, *, eps=1e-5):
+    """fp32 RMSNorm with learned scale over the last axis (K5: the Triton
+    kernel of :func:`qk_norm_rope` with ``ROPE`` off)."""
+    if not x.is_cuda:
+        return _rms_ref(x, w, eps)
+    return _run(_rms_norm_launch, _rms_ref, (x, w), (eps,))
+
+
+def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
+    """RMSNorm over the full model dim + RoPE for q and k in one pass (K4).
+
+    q/k: [B, L, D] flat (heads packed); w_q/w_k: [D]; cos/sin:
+    [L, head_dim//2] fp32, or [B, L, head_dim//2] per-sample tables (the
+    MVDT masked pass). Returns rotated flat (q, k) in the input dtype.
+    Math equals RMSNorm → x.dtype → apply_rope."""
+    if not q.is_cuda:
+        return _qk_norm_rope_ref(q, k, w_q, w_k, cos, sin, num_heads, eps)
+    return _run(_qk_norm_rope_launch, _qk_norm_rope_ref,
+                (q, k, w_q, w_k, cos, sin), (num_heads, eps))
 
 
 adaln_norm.launches = 0

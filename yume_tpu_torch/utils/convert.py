@@ -8,7 +8,10 @@ produce the same reference-named state dicts, as float32 numpy arrays:
 * :func:`dit_state_dict` mirrors ``yume_tpu.utils.checkpoint.export_dit_state_dict``;
 * :func:`t5_state_dict` inverts ``convert_t5_state_dict``;
 * :func:`vae22_state_dict` inverts ``convert_vae22_state_dict`` (encoder
-  included, with the reference's tensor shapes).
+  included, with the reference's tensor shapes);
+* :func:`lora_state_dict` / :func:`lora_tree` map LoRA adapters both ways,
+  and :func:`adamw_state` / :func:`adam8bit_state` optimizer states, so a
+  test can start both packages from the same mid-run training state.
 
 Each is an exact inverse of the reference converter: feeding the result
 back through it reproduces the input tree bit for bit.
@@ -16,7 +19,8 @@ back through it reproduces the input tree bit for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -235,3 +239,116 @@ def load_state_dict(module: nn.Module, sd: Mapping, *, allow_unused: bool = Fals
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{k}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# training state: LoRA adapters and optimizer moments
+# ---------------------------------------------------------------------------
+
+
+def _module_name(parts) -> str:
+    """JAX module path parts → the port's module name
+    (``blocks_0/self_attn/q`` → ``blocks.0.self_attn.q``, ``ffn_0`` → ``ffn.0``)."""
+    return ".".join(re.sub(r"_(\d+)$", r".\1", p) for p in parts)
+
+
+def _jax_parts(name: str):
+    """Inverse of :func:`_module_name`."""
+    parts = name.split(".")
+    out = []
+    for p in parts:
+        if p.isdigit():
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def lora_state_dict(lora: Mapping) -> Dict[str, np.ndarray]:
+    """JAX LoRA tree (``{...: {"kernel": {"lora_a": A [in, r], "lora_b": B
+    [r, out]}}}``) → the port's flat adapters in Linear layout:
+    ``<layer>.lora_a`` = Aᵀ [r, in], ``<layer>.lora_b`` = Bᵀ [out, r]."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if "lora_a" in node:
+            layer = _module_name(path[:-1])  # drop the trailing "kernel"
+            out[f"{layer}.lora_a"] = _f32(node["lora_a"]).T
+            out[f"{layer}.lora_b"] = _f32(node["lora_b"]).T
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(_root(lora), ())
+    return out
+
+
+def lora_tree(lora_sd: Mapping) -> Dict:
+    """Inverse of :func:`lora_state_dict`: the port's adapters → a JAX LoRA
+    tree (numpy)."""
+    tree: Dict = {}
+    for key, val in lora_sd.items():
+        layer, which = key.rsplit(".", 1)
+        node = tree
+        for p in _jax_parts(layer) + ["kernel"]:
+            node = node.setdefault(p, {})
+        node[which] = np.asarray(torch.as_tensor(val).detach().float().cpu()).T
+    return tree
+
+
+def _adam_leaves(opt_state, kind: str):
+    """The first ScaleByAdamState (``kind='adam'``) or Adam8bitState
+    (``kind='adam8bit'``) inside an optax chain state."""
+    if kind == "adam" and hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if kind == "adam8bit" and hasattr(opt_state, "leaves") and hasattr(opt_state, "count"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_leaves(s, kind)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state(opt_state, to_port: Callable[[Mapping], Dict[str, np.ndarray]]) -> Dict:
+    """The AdamW moments of an optax ``make_optimizer`` state → the port's
+    optimizer state (``{"count", "mu", "nu"}``). ``to_port`` maps a
+    parameter-shaped JAX tree to the port's names and layouts (e.g.
+    ``lambda t: dit_state_dict(t, num_layers)`` or :func:`lora_state_dict`);
+    it only transposes, so the moments carry over exactly."""
+    adam = _adam_leaves(opt_state, "adam")
+    return {"count": int(adam.count), "mu": to_port(adam.mu), "nu": to_port(adam.nu)}
+
+
+def adam8bit_state(opt_state, to_port: Callable[[Mapping], Dict[str, np.ndarray]],
+                   params: Mapping) -> Dict:
+    """The int8 moments of an optax ``adam8bit`` state → the port's
+    (``{"count", "leaves"}``). ``params`` is the JAX parameter tree (for the
+    leaf shapes). Each moment is dequantized, mapped by ``to_port`` and
+    requantized over the port tensor's own 256-element blocks: where the
+    layout is unchanged the codes carry over and a scale may move by one
+    ulp (127·s/127); a transposed leaf is re-blocked."""
+    from ..training import optim
+
+    state = _adam_leaves(opt_state, "adam8bit")
+
+    def dequant(leaves, params, which):
+        if hasattr(leaves, "m_q"):
+            q, s = (leaves.m_q, leaves.m_scale) if which == "m" else (leaves.v_q, leaves.v_scale)
+            q, s = torch.from_numpy(np.asarray(q)), torch.from_numpy(np.asarray(s, np.float32))
+            deq = optim._dequantize_signed if which == "m" else optim._dequantize_sqrt
+            n = int(np.prod(np.shape(params)))
+            return deq(q, s)[:n].reshape(np.shape(params)).numpy()
+        return {k: dequant(leaves[k], params[k], which) for k in leaves}
+
+    m = to_port(dequant(state.leaves, _root(params), "m"))
+    v = to_port(dequant(state.leaves, _root(params), "v"))
+    leaves = {}
+    for name in m:
+        mf, vf = (torch.from_numpy(np.ascontiguousarray(a)).reshape(-1) for a in (m[name], v[name]))
+        pad = optim._pad_len(mf.numel()) - mf.numel()
+        mq, ms = optim._quantize_signed(torch.nn.functional.pad(mf, (0, pad)))
+        vq, vs = optim._quantize_sqrt(torch.nn.functional.pad(vf, (0, pad)))
+        leaves[name] = {"m_q": mq, "m_scale": ms, "v_q": vq, "v_scale": vs}
+    return {"count": int(state.count), "leaves": leaves}
