@@ -12,14 +12,16 @@ result line:
    source, in parallel);
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4+K5, the
-   W8A8 int8 matmul K6, the flash-attention backward K8 (dQ) and K9 (dK,
-   dV)) against its plain PyTorch version on the same seeded inputs at the
-   5B segment's shapes (K8/K9 and K4's batched-table case at the
-   trainer's): error against a stated tolerance, median times of the
-   kernel, of its plain version and of one PyTorch library call where one
-   computes the same function, and the least time the card could take
-   (bytes over 3.35 TB/s or operations over the published peak of their
-   type, whichever is larger);
+   W8A8 int8 matmul K6, the partial flash attention of ring attention K7,
+   the flash-attention backward K8 (dQ) and K9 (dK, dV)) against its plain
+   PyTorch version on the same seeded inputs at the 5B segment's shapes
+   (K7 at its ring shapes: sp 4, sp 8, USP 2 x 2, a block with no live key;
+   K8/K9 and K4's batched-table case at the trainer's): error against a
+   stated tolerance, median times of the kernel, of its plain version and
+   of one PyTorch library call where one computes the same function, and
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the published peak of their type, whichever is larger); then K7's
+   ring invariant against K1 and its VJP with an lse cotangent;
 4. reference: a 2-layer full-width DiT on the card (kernels, bf16) against
    the same weights on the CPU (plain versions, fp32), once in bf16 matmuls
    and once with W8A8, at a small input; then the gradient of a flow loss
@@ -45,6 +47,16 @@ result line:
    c. LoRA rank 16 through ``yume_tpu_torch.train.main`` (3 steps);
    then ``train.main --smoke`` on the card. Losses and gradient norms must
    be finite; K1–K5, K8 and K9 must launch and K6 must not.
+8. sp (after the train phase is freed): sequence-parallel serving on four
+   ranks, four spawned processes that share the one card over a gloo group
+   (NCCL refuses two ranks on one device), so their transfers go through
+   host memory and their times say nothing of SP speed. Each rank holds the
+   same random full-width 5B DiT (checksummed across ranks); Ulysses (sp
+   4), ring (sp 4) and USP (2 x 2) forwards at 12,095 tokens against the
+   unsharded forward, a 2-step ring Euler segment against the unsharded
+   one, and a 12-step ring W8A8 + adaptive TeaCache segment; every rank
+   must return the same latents and n_full, and K7 must launch 120 times a
+   forward on ring and USP and never on Ulysses.
 
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -134,6 +146,19 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attn_bound(q, kv_rows: int):
+    """Bound of a flash forward of bf16 q [B, Lq, N, D] over ``kv_rows``
+    live keys: q and k/v read once, out (bf16) and the fp32 lse written
+    once; 4·B·N·Lq·kv_rows·D operations (the two products). With no live
+    key the output is 0 whatever q holds: out and lse written, nothing
+    read."""
+    b, lq, n, d = q.shape
+    lse = b * n * lq * 4
+    q_read = nbytes(q) if kv_rows else 0
+    return bound_ms(q_read + nbytes(q) + 2 * b * kv_rows * n * d * 2 + lse,
+                    4 * b * n * lq * kv_rows * d, "bf16")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -186,12 +211,6 @@ def attention_and_glue_kernels(results, gen):
     def sdpa(q, k, v):  # the library yardstick of K1, on [B, N, L, D] views
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                               v.transpose(1, 2))
-
-    def attn_bound(q, kv_rows):
-        b, lq, n, d = q.shape
-        lse = b * n * lq * 4
-        return bound_ms(2 * nbytes(q) + 2 * b * kv_rows * n * d * 2 + lse,
-                        4 * b * n * lq * kv_rows * d, "bf16")
 
     # K1 flash attention --------------------------------------------------
     q, k, v = _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D)
@@ -339,6 +358,121 @@ def flash_backward_kernels(results, gen):
                     bound_ms(nbytes(q, k, v, do) + stats + out_bytes, ops, "bf16"), lib_ms,
                     tflops=round(ops / ms / 1e9, 1))
         del q, k, v, do, out, lse, delta, dq, dk, dv, want, leaves, do_t
+
+
+# ring shapes of the 5B segment: 12,095 tokens padded to 12,096, so the
+# last shard holds one pad token
+L_PAD = 12096
+K7_CASES = [  # (case, q rows, kv rows, heads, live keys of the block or None)
+    ("ring sp=4 hop [1,3024,24,128]", 3024, 3024, N, None),
+    ("ring sp=4 last shard kv_len=3023", 3024, 3024, N, 3023),
+    ("ring sp=8 hop [1,1512,24,128]", 1512, 1512, N, None),
+    ("ring sp=8 last shard kv_len=1511", 1512, 1512, N, 1511),
+    ("USP 2x2 q [1,6048,12,128] x run 3024", 6048, 3024, N // 2, None),
+    ("USP 2x2 last run kv_len=3023", 6048, 3024, N // 2, 3023),
+    ("block with no live key kv_len=0", 3024, 3024, N, 0),
+]
+K7_LSE_TOL = 1e-3  # fp32 statistics on both sides; exp2 in the kernel, exp in plain
+# K7's bf16 output against the fp32 plain one: the largest |out| of a hop at
+# these shapes (N(0, 1) inputs) lies in [0.125, 0.5), where a bf16 ulp is
+# 2^-10 to 2^-9; one rounding gave 9.8e-4 to 1.95e-3 on the H100. Two ulps
+# at the top, about a tenth of a typical |out| (~0.03 at sp = 4).
+K7_TOL = 4e-3
+# the ring invariant: four hops merged in fp32 and rounded once, against K1
+# rounded once, over 12,095 keys, where the largest |out| is < 0.125 and a
+# typical one ~0.015: 4.9e-4 (two ulps) on the H100; 2e-3 is four times it
+RING_TOL = 2e-3
+
+
+def partial_attention_kernel(results, gen):
+    """K7 (``flash_attention_partial``) against ``plain_attention_partial``
+    at the ring shapes of the 5B segment (``K7_CASES``): out within
+    ``K7_TOL``, lse within ``K7_LSE_TOL``; library yardstick
+    ``aten._scaled_dot_product_flash_attention`` (it returns the lse too)
+    on the block's live keys, wherever one key is live. Then: a block with
+    no live key has output 0 and lse <= -1e38 and merges to zero weight;
+    the ring invariant (the last shard's q against the four sp=4 kv
+    blocks, merged, equals K1 over all 12,095 keys in output and lse); and
+    K7's VJP with a cotangent on its lse (K8/K9) against the plain
+    version's autograd gradient."""
+    from yume_tpu_torch.ops import flash_attention as fl
+    from yume_tpu_torch.parallel.ulysses import _INITIAL_LSE, _merge_partials
+
+    for case, lq, lk, n, live in K7_CASES:
+        q, k, v = _randn(gen, 1, lq, n, D), _randn(gen, 1, lk, n, D), _randn(gen, 1, lk, n, D)
+        kl = None if live is None else torch.tensor([live], dtype=torch.int32, device="cuda")
+        out, lse = fl.flash_attention_partial(q, k, v, kv_len=kl)
+        want, want_lse = fl.plain_attention_partial(q, k, v, kv_len=kl)
+        rows = lk if live is None else live
+        lse_err = max_err(lse, want_lse)
+        require(lse_err <= K7_LSE_TOL, f"K7 {case}: lse error {lse_err}")
+        lib_ms = None
+        if rows:  # the library call on the live keys computes the same out and lse
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (t[:, :rows].transpose(1, 2).contiguous() for t in (k, v))
+            lib_ms = median_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt))
+            del qt, kt, vt
+        extra = {"lse_max_abs_err": lse_err}
+        if rows == 0:
+            # output 0, lse far below any real one, zero weight in a merge
+            o_live, lse_live = fl.flash_attention_partial(q, k, v)
+            merged, merged_lse = _merge_partials(o_live.float(), lse_live, out.float(), lse)
+            require(torch.isfinite(out).all().item() and not out.any().item()
+                    and lse.max().item() <= -1e38, f"K7 {case}: output or lse")
+            require(torch.equal(merged, o_live.float()) and torch.equal(merged_lse, lse_live),
+                    f"K7 {case}: the masked block changed a merge")
+            extra["merges_to_zero_weight"] = True
+        _record(results, "flash_attention_partial", case, max_err(out, want), K7_TOL,
+                median_ms(lambda: fl.flash_attention_partial(q, k, v, kv_len=kl)),
+                median_ms(lambda: fl.plain_attention_partial(q, k, v, kv_len=kl), reps=3),
+                attn_bound(q, rows), lib_ms, **extra)
+        del q, k, v, out, lse, want, want_lse
+
+    # the ring invariant at sp = 4: the last shard's q (3,023 tokens and a pad)
+    q = _randn(gen, 1, L_PAD, N, D)[:, L_PAD - 3024:].contiguous()
+    k, v = _randn(gen, 1, L_PAD, N, D), _randn(gen, 1, L_PAD, N, D)
+    o = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    lse = torch.full((1, N, 3024), _INITIAL_LSE, device="cuda")
+    for hop in range(4):
+        blk = slice(hop * 3024, (hop + 1) * 3024)
+        kl = torch.tensor([min(L - hop * 3024, 3024)], dtype=torch.int32, device="cuda")
+        o_b, lse_b = fl.flash_attention_partial(q, k[:, blk], v[:, blk], kv_len=kl)
+        o, lse = _merge_partials(o, lse, o_b.float(), lse_b)
+    want, want_lse = fl.flash_attention(q, k[:, :L], v[:, :L], return_lse=True)
+    err, lse_err = max_err(o.to(torch.bfloat16), want), max_err(lse, want_lse)
+    ok = err <= RING_TOL and lse_err <= K7_LSE_TOL
+    log(f"  flash_attention_partial ring invariant: 4 sp=4 hops merged vs K1 over {L} keys: "
+        f"max_abs_err {err:.3e}  tol {RING_TOL:.1e}  lse max_abs_err {lse_err:.3e}  "
+        f"tol {K7_LSE_TOL:.1e}  {'ok' if ok else 'FAIL'}")
+    require(ok, f"K7 ring invariant: error {err}, lse error {lse_err}")
+    results["flash_attention_partial"]["ring_invariant_max_abs_err"] = err
+    results["flash_attention_partial"]["ring_invariant_lse_max_abs_err"] = lse_err
+    del q, k, v, o, lse, want, want_lse
+
+    # the VJP: a cotangent on both outputs, gradients against plain autograd
+    q, k, v = (_randn(gen, 1, 3024, N, D) for _ in range(3))
+    dout, dlse = _randn(gen, 1, 3024, N, D), torch.randn((1, N, 3024), generator=gen,
+                                                         device="cuda")
+    kl = torch.tensor([3023], dtype=torch.int32, device="cuda")
+    grads, times = [], []
+    for fn in (fl.flash_attention_partial, fl.plain_attention_partial):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn(*leaves, kv_len=kl), leaves, (dout, dlse))
+
+        grads.append(fwd_bwd())
+        times.append(median_ms(fwd_bwd, reps=3))
+    err = max(max_err(g, w) for g, w in zip(*grads))
+    tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in grads[1])
+    log(f"  flash_attention_partial VJP with dlse (K7 + K8 + K9) [1,3024,24,128] "
+        f"kv_len=3023: max_abs_err {err:.3e}  tol {tol:.3e}  forward + backward "
+        f"{times[0]:.3f} ms, plain autograd {times[1]:.3f} ms  {'ok' if err <= tol else 'FAIL'}")
+    require(err <= tol, f"K7 VJP: error {err} exceeds {tol}")
+    results["flash_attention_partial"]["vjp"] = {"max_abs_err": err, "tol": tol,
+                                                 "ms": times[0], "plain_ms": times[1]}
+    del q, k, v, dout, dlse, grads
 
 
 K6_SHAPES = [  # (case, K, N, launches per layer)
@@ -913,6 +1047,245 @@ def train_phase(counters):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# sequence-parallel serving: four ranks on the one card
+# ---------------------------------------------------------------------------
+
+SP_WORLD = 4
+SP_KINDS = ("ulysses", "ring", "usp")
+# relative L2 of a sharded 30-layer bf16 forward (or 2-step Euler segment)
+# against the unsharded one: the same arithmetic but for the attention
+# (all-to-all and K1 over the whole sequence, or K7 blocks merged in fp32),
+# whose last-bit differences then propagate through 30 bf16 layers; as the
+# 2-layer bf16-vs-fp32 reference (3e-2)
+SP_REL_TOL = 3e-2
+SP_EULER_STEPS, SP_TEACACHE_STEPS = 2, 12
+SP_TIMEOUT_S = 600
+# K7 launches per rank in one forward: 30 layers x 4 hops (ring sp 4) or
+# x 2 hops x 2 runs (USP 2 x 2); a cached TeaCache step runs 14 layers
+K7_PER_LAYER = {"ulysses": 0, "ring": SP_WORLD, "usp": SP_WORLD}
+
+
+def _sp_rank_run(rank: int, world: int, init_file: str) -> dict:
+    """One rank of the SP phase; see :func:`sp_phase`."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from yume_tpu_torch.configs import ti2v_5b
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.ops import fused_adaln as fa
+    from yume_tpu_torch.ops import flash_attention as fl
+    from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.parallel.mesh import make_sp_groups, make_usp_groups
+    from yume_tpu_torch.parallel.sp_forward import sp_dit_forward
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline, _random_init_
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    sp = make_sp_groups(world)
+    groups = {"ulysses": sp, "ring": sp, "usp": make_usp_groups(2, world // 2)}
+    counters = [fl.flash_attention, fl.flash_attention_partial, fa.adaln_norm,
+                fa.adaln_residual, fa.qk_norm_rope, fa.rms_norm, qm.q8_dot,
+                fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv]
+    out = {"rank": rank, "times_s": {}, "launches": {}, "rel_l2": {}}
+
+    def same_on_every_rank(what, value) -> bool:
+        every = [None] * world
+        dist.all_gather_object(every, value)
+        same = all(x == every[0] for x in every)
+        require(same, f"SP rank {rank}: {what} differs between ranks: {every}")
+        return same
+
+    def digest(t):
+        return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
+
+    def run(path, fn, every_rank=True):
+        """``fn()`` with the counts set to 0 just before and read just
+        after, and its wall time; a path of every rank starts on all of
+        them together."""
+        if every_rank:
+            dist.barrier()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["times_s"][path] = time.perf_counter() - t0
+        out["launches"][path] = {c.__name__: c.launches for c in counters}
+        return res
+
+    def rel_l2(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    cfg = ti2v_5b()
+    t0 = time.perf_counter()
+    dit = WanDiT(cfg.dit, torch.bfloat16, device="meta", param_dtype=torch.bfloat16)
+    dit = dit.to_empty(device="cuda")
+    _random_init_(dit, torch.Generator(device="cuda").manual_seed(0))
+    dit.eval()
+    checksum = sum(p.float().sum(dtype=torch.float64).item() for p in dit.parameters())
+    out["weights_checksum"] = checksum
+    same_on_every_rank("the weights' checksum", checksum)
+    out["times_s"]["init"] = time.perf_counter() - t0
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    history = torch.randn((1, 31, 44, 80, cfg.dit.in_dim), generator=g, device="cuda")
+    tail = torch.randn((1, 8, 44, 80, cfg.dit.in_dim), generator=g, device="cuda")
+    ctx = 0.1 * torch.randn((1, TEXT_LEN, cfg.dit.text_dim), generator=g, device="cuda")
+    x = torch.cat([history, tail], 1).to(torch.bfloat16)
+    t = torch.cat([torch.zeros(1, 31), torch.full((1, 8), 700.0)], 1).cuda()
+    with torch.no_grad():
+        ref = run("unsharded forward", lambda: dit(x, t, ctx), False) if rank == 0 else None
+        for kind in SP_KINDS:
+            v = run(f"{kind} forward", lambda: sp_dit_forward(dit, groups[kind], x, t, ctx,
+                                                               latent_frame_zero=8, kind=kind))
+            require(v.shape == (1, 8, 44, 80, cfg.dit.out_dim) and torch.isfinite(v).all().item(),
+                    f"SP {kind} forward: shape {tuple(v.shape)} or non-finite")
+            same_on_every_rank(f"the {kind} forward", digest(v))
+            if rank == 0:
+                out["rel_l2"][f"{kind} forward"] = rel_l2(v, ref)
+        del ref, v
+
+    pipe = TI2VPipeline(cfg, dit, None, sp_groups=groups["ring"], sp_kind="ring")
+    seg = dict(seed=1, shift=7.0)
+    lat = run("ring euler", lambda: pipe.generate_segment(history, ctx, steps=SP_EULER_STEPS,
+                                                          **seg))
+    require(torch.isfinite(lat).all().item() and torch.equal(lat[:, :31], history),
+            "SP ring Euler: non-finite latents or history changed")
+    same_on_every_rank("the ring Euler latents", digest(lat))
+    if rank == 0:
+        want = run("unsharded euler", lambda: dataclasses.replace(pipe, sp_groups=None)
+                   .generate_segment(history, ctx, steps=SP_EULER_STEPS, **seg), False)
+        out["rel_l2"]["ring euler"] = rel_l2(lat[:, 31:], want[:, 31:])
+        del want
+    del lat
+    w8 = pipe.with_w8a8()
+    lat = run("ring w8a8 adaptive teacache", lambda: w8.generate_segment(
+        history, ctx, steps=SP_TEACACHE_STEPS, sampler="teacache",
+        teacache_threshold=HEADLINE_THRESHOLD, **seg))
+    require(torch.isfinite(lat).all().item(), "SP ring TeaCache: non-finite latents")
+    out["n_full"] = w8.last_teacache_n_full
+    same_on_every_rank("the ring TeaCache latents", digest(lat))
+    same_on_every_rank("n_full", out["n_full"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def sp_rank(rank: int, world: int, init_file: str, results):
+    """Entry point of a spawned SP rank: its results, or its traceback,
+    go to the parent through ``results``."""
+    import traceback
+
+    try:
+        results.put((rank, "ok", _sp_rank_run(rank, world, init_file)))
+    except BaseException:  # the parent reports it and fails the run
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def sp_phase() -> dict:
+    """Sequence-parallel serving at full 5B width on four ranks, four
+    processes that time-share the one card and join a gloo group (NCCL
+    refuses two ranks on one device), so their transfers go through host
+    memory: the card checks the SP path's numerics and kernels, not its
+    speed. Each rank builds the same random bf16 5B DiT (a checksum across
+    ranks proves it), then, with the launch counts set to 0 before and read
+    after each path:
+    a. ``sp_dit_forward`` with Ulysses (sp 4), ring (sp 4) and USP (2 x 2)
+       on 31 history + 8 tail frames at 44x80 (12,095 tokens), each within
+       ``SP_REL_TOL`` of the unsharded forward on rank 0;
+    b. ``generate_segment`` with ``sp_kind="ring"``: a 2-step Euler segment
+       (against the unsharded one on rank 0), then W8A8 + adaptive TeaCache
+       @0.1 over 12 steps.
+    Every rank must return the same velocity and latents, bit for bit, and
+    the same n_full. K7 must launch 120 times a forward on ring and USP,
+    never on Ulysses."""
+    import multiprocessing
+    import queue
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"sp: {left:.2f} GiB left allocated in the parent; {SP_WORLD} ranks on one card "
+        "over gloo (transfers through host memory; times are not SP speed)")
+    require(left < 1.0, "the train phase left memory allocated")
+    init_file = os.path.join(REPO, "build", f"sp_rendezvous_{os.getpid()}")
+    os.makedirs(os.path.dirname(init_file), exist_ok=True)
+    if os.path.exists(init_file):
+        os.remove(init_file)
+    ctx = multiprocessing.get_context("spawn")
+    inbox = ctx.Queue()
+    procs = [ctx.Process(target=sp_rank, args=(r, SP_WORLD, init_file, inbox))
+             for r in range(SP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        while len(ranks) < SP_WORLD:
+            left_s = SP_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rank, status, payload = inbox.get(timeout=max(left_s, 1.0))
+            except queue.Empty:
+                require(False, f"SP ranks timed out after {SP_TIMEOUT_S} s")
+            require(status == "ok", f"SP rank {rank} failed:\n{payload}")
+            ranks[rank] = payload
+        for p in procs:
+            p.join(timeout=60)
+        require(all(p.exitcode == 0 for p in procs),
+                f"SP ranks exited {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init_file):
+            os.remove(init_file)
+    wall = time.perf_counter() - t0
+
+    r0 = ranks[0]
+    log(f"  weights checksum {r0['weights_checksum']!r} on every rank; phase wall {wall:.1f} s")
+    for kind in SP_KINDS:
+        path = f"{kind} forward"
+        rel = r0["rel_l2"][path]
+        per_rank = [ranks[r]["launches"][path] for r in range(SP_WORLD)]
+        k7 = {c["flash_attention_partial"] for c in per_rank}
+        log(f"  {path}: relative L2 vs the unsharded forward {rel:.3e}  tol {SP_REL_TOL:.0e}  "
+            f"{'ok' if rel <= SP_REL_TOL else 'FAIL'}; K7 launches per rank {sorted(k7)}, "
+            f"rank 0 {per_rank[0]}")
+        require(rel <= SP_REL_TOL, f"SP {path}: relative L2 {rel} exceeds {SP_REL_TOL}")
+        require(k7 == {30 * K7_PER_LAYER[kind]}, f"SP {path}: K7 launches {k7}")
+        require(all(c["flash_attention"] > 0 and c["q8_dot"] == 0 for c in per_rank),
+                f"SP {path}: K1 did not launch or K6 did")
+    rel = r0["rel_l2"]["ring euler"]
+    log(f"  ring euler ({SP_EULER_STEPS} steps): tail relative L2 vs the unsharded segment "
+        f"{rel:.3e}  tol {SP_REL_TOL:.0e}  {'ok' if rel <= SP_REL_TOL else 'FAIL'}; latents "
+        f"identical on every rank")
+    require(rel <= SP_REL_TOL, f"SP ring Euler: relative L2 {rel}")
+    require(r0["launches"]["ring euler"]["flash_attention_partial"]
+            == SP_EULER_STEPS * 30 * SP_WORLD, "SP ring Euler: K7 launches")
+    n_full = r0["n_full"]
+    tc = r0["launches"]["ring w8a8 adaptive teacache"]
+    want_k7 = (n_full * 30 + (SP_TEACACHE_STEPS - n_full) * 14) * SP_WORLD
+    log(f"  ring W8A8 + adaptive TeaCache @{HEADLINE_THRESHOLD}, {SP_TEACACHE_STEPS} steps: "
+        f"n_full {n_full} on every rank, latents identical on every rank; launches {tc}")
+    require(tc["flash_attention_partial"] == want_k7 and tc["q8_dot"] > 0,
+            f"SP ring TeaCache: K7 launches {tc['flash_attention_partial']} != {want_k7}, "
+            f"or K6 did not launch")
+    log("  per-rank wall times (s; four ranks time-share one card, transfers through host "
+        "memory over gloo):")
+    for r in range(SP_WORLD):
+        log(f"    rank {r}: " + ", ".join(f"{k} {v:.3f}" for k, v in ranks[r]["times_s"].items())
+            + f"; peak device memory {ranks[r]['peak_gib']:.2f} GiB")
+    return {"wall_s": wall, "ranks": [ranks[r] for r in range(SP_WORLD)]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU fallback here",
@@ -950,6 +1323,9 @@ def main() -> int:
                                    "yume_tpu/ops/flash_attention.py:151"),
         "flash_attention_bwd_dkv": ("cuda", "yume_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "yume_tpu/ops/flash_attention.py:183"),
+        # K7: K1's kernel launched per kv block by ring attention
+        "flash_attention_partial": ("cuda", "yume_tpu_torch/csrc/flash_attention.cu",
+                                    "yume_tpu/ops/flash_attention.py:393"),
     }
     results = {k: {"cases": []} for k in meta}
     log("kernels vs plain versions at the 5B segment shapes:")
@@ -957,6 +1333,7 @@ def main() -> int:
     attention_and_glue_kernels(results, gen)
     quant_matmul_kernel(results, gen)
     flash_backward_kernels(results, gen)
+    partial_attention_kernel(results, gen)
     torch.cuda.empty_cache()
     reference_phase()
     gradient_reference_phase()
@@ -970,6 +1347,8 @@ def main() -> int:
     launches, euler_launches = pipeline_phase(counters)
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
+    sp = sp_phase()
+    sp_launches = sp["ranks"][0]["launches"]
     counter_name = {"quant_matmul": "q8_dot"}
 
     kernels = []
@@ -980,17 +1359,30 @@ def main() -> int:
         key = counter_name.get(name, name)
         backward = name.startswith("flash_attention_bwd")
         entry = {"name": name, "route": route, "source": src, "replaces": rep,
-                 # the backward kernels' main path is the train phase's
-                 "launches": train_launches[key] if backward else launches[key],
-                 "launches_euler_path": euler_launches[key],
-                 "launches_train": train_launches[key],
-                 "launches_train_mvdt": train_runs["mvdt"]["launches"][key],
-                 "launches_train_lora": train_runs["lora"]["launches"][key],
                  "max_abs_err": max(c["max_abs_err"] for c in r["cases"]),
                  "ms": head["ms"], "plain_ms": head["plain_ms"],
                  "bound_ms": head["bound_ms"],
                  "bound_by": r["cases"][0]["bound_by"],
                  "library_ms": head["library_ms"], "cases": r["cases"]}
+        if name == "flash_attention_partial":
+            # K7's main path is the SP phase's ring forward (rank 0)
+            entry.update(launches=sp_launches["ring forward"][key],
+                         **{f"launches_sp_{p.replace(' ', '_')}": sp_launches[p][key]
+                            for p in sp_launches if p != "unsharded forward"},
+                         ring_invariant_max_abs_err=r["ring_invariant_max_abs_err"],
+                         ring_invariant_lse_max_abs_err=r["ring_invariant_lse_max_abs_err"],
+                         vjp=r["vjp"],
+                         library="aten._scaled_dot_product_flash_attention, [B, N, L, D]")
+            kernels.append(entry)
+            continue
+        entry.update({
+            # the backward kernels' main path is the train phase's
+            "launches": train_launches[key] if backward else launches[key],
+            "launches_euler_path": euler_launches[key],
+            "launches_train": train_launches[key],
+            "launches_train_mvdt": train_runs["mvdt"]["launches"][key],
+            "launches_train_lora": train_runs["lora"]["launches"][key],
+            "launches_sp_ring_forward": sp_launches["ring forward"][key]})
         if name == "quant_matmul":
             entry["timed_as"] = ("per 5B layer: qkv + 3 x (3072->3072) + ffn.0 + ffn.2; "
                                  "library_ms is torch._int_mm, the s8 x s8 -> s32 "
@@ -1003,6 +1395,7 @@ def main() -> int:
         kernels.append(entry)
     train = {k: {f: v for f, v in r.items() if f != "launches"} for k, r in train_runs.items()}
     log("train: " + json.dumps(train))
+    log("sp: " + json.dumps(sp))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The flash-attention backward kernels K8 (dQ) and K9 (dK, dV) against
 :func:`plain_attention_bwd` on the card: head dims 16, 64 and 128, batch > 1, q and
 kv lengths that are not multiples of 64, Lk < 64, kv_len including 0, a
-non-contiguous dout, and the gradients of the ``attention`` autograd path.
+non-contiguous dout, the gradients of the ``attention`` autograd path, and
+K7's VJP (``flash_attention_partial``) with a cotangent on its lse.
 
 Tolerance: the kernels round P and dS to bf16 before their tensor-core
 products and write bf16; the plain version computes in fp32 from the same
@@ -18,7 +19,9 @@ from yume_tpu_torch.ops.flash_attention import (attention_delta, flash_attention
                                                 flash_attention_bwd,
                                                 flash_attention_bwd_dkv,
                                                 flash_attention_bwd_dq,
-                                                plain_attention_bwd)
+                                                flash_attention_partial,
+                                                plain_attention_bwd,
+                                                plain_attention_partial)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,5 +110,27 @@ def test_attention_autograd_uses_the_kernels(gen, kv_len):
 
 def test_lse_output_refuses_gradients(gen):
     q = _randn(gen, 1, 8, 2, 64).requires_grad_()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="flash_attention_partial"):
         flash_attention(q, q, q, return_lse=True)
+
+
+@pytest.mark.parametrize("kv_len", [None, (1, 90)])
+def test_partial_attention_vjp_with_dlse(gen, kv_len):
+    """K7 under autograd: the backward folds the lse cotangent into delta
+    and launches K8 and K9; the gradients equal the plain version's under
+    autograd from the same bf16 inputs."""
+    b, lq, lk, n, d = 2, 150, 90, 2, 128
+    q, k, v = (_randn(gen, b, lq, n, d), _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d))
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    dout, dlse = _randn(gen, b, lq, n, d), torch.randn((b, n, lq), generator=gen, device="cuda")
+    grads = []
+    for fn in (flash_attention_partial, plain_attention_partial):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = flash_attention_partial.launches, flash_attention_bwd_dq.launches
+        out, lse = fn(*leaves, kv_len=kl)
+        grads.append(torch.autograd.grad((out, lse), leaves, (dout, dlse)))
+        kernel = fn is flash_attention_partial
+        assert (flash_attention_partial.launches, flash_attention_bwd_dq.launches) == (
+            before[0] + kernel, before[1] + kernel)
+    for g, w in zip(*grads):
+        _close(g, w)

@@ -1,7 +1,10 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, at the edge cases the main path does not reach: ragged q and kv
 lengths, per-batch kv_len (including 0), strided views, head dim 64, batch
-> 1 with per-batch modulation tables, and the wrappers' input checks.
+> 1 with per-batch modulation tables, and the wrappers' input checks; the
+partial attention K7 (ring attention's block) at ragged Lq and Lk, kv_len
+0, 1 and Lk, head dims 16, 64 and 128, and a q that is a strided view, as
+an all-to-all's output may be.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -13,7 +16,9 @@ import pytest
 import torch
 
 from yume_tpu_torch.ops import fused_adaln as fa
-from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
+from yume_tpu_torch.ops.flash_attention import (MASKED_LSE, flash_attention,
+                                                flash_attention_partial, plain_attention,
+                                                plain_attention_partial)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +83,48 @@ def test_flash_attention_counts_launches(gen):
     before = flash_attention.launches
     flash_attention(q, q, q)
     assert flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,kv_len", [
+    (1, 3024, 3024, 2, 128, (3023,)),     # a ring hop at sp = 4, the last shard
+    (2, 65, 130, 3, 64, (0, 130)),
+    (3, 127, 77, 2, 16, (1, 77, 0)),
+    (1, 200, 63, 4, 128, None),
+    (2, 6048 // 64 + 1, 100, 2, 128, (100, 1)),
+])
+def test_flash_attention_partial_edges(gen, b, lq, lk, n, d, kv_len):
+    q = _randn(gen, b, lq, n, d)
+    k = _randn(gen, b, lk, n, d)
+    v = _randn(gen, b, lk, n, d)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = flash_attention_partial.launches, flash_attention.launches
+    out, lse = flash_attention_partial(q, k, v, kv_len=kl)
+    assert (flash_attention_partial.launches, flash_attention.launches) == (
+        before[0] + 1, before[1])
+    want, want_lse = plain_attention_partial(q, k, v, kv_len=kl)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert out.is_contiguous() and lse.shape == (b, n, lq)
+    assert (out.float() - want.float()).abs().max().item() <= K1_TOL
+    live = [i for i in range(b) if kv_len is None or kv_len[i] > 0]
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=1e-3)
+    for i in set(range(b)) - set(live):  # no live key: output 0, lse MASKED_LSE
+        assert out[i].abs().max().item() == 0.0
+        assert lse[i].max().item() == want_lse[i].min().item() == MASKED_LSE
+
+
+def test_flash_attention_partial_strided_q(gen):
+    """q, k and v as head slices of wider [B, L, N, D] buffers (a zero-copy
+    view of an all-to-all's output), kv as a run of a longer block."""
+    buf = _randn(gen, 1, 6048, 24, 128)
+    q = buf[:, :, 12:]
+    kv = _randn(gen, 2, 1, 6048, 24, 128)
+    k, v = kv[0, :, 3024:, :12], kv[1, :, 3024:, :12]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    kl = torch.tensor([3023], dtype=torch.int32, device="cuda")
+    out, lse = flash_attention_partial(q, k, v, kv_len=kl)
+    want, want_lse = plain_attention_partial(q, k, v, kv_len=kl)
+    assert (out.float() - want.float()).abs().max().item() <= K1_TOL
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
 
 
 def _glue_check(got, want):

@@ -17,13 +17,17 @@ the tokenizer (pinned equal to the reference's by the tests).
 
 Layout:
     configs.py  model and pipeline config dataclasses
-    ops/        RoPE, attention dispatch, flash attention (CUDA), W8A8 int8
-                matmul (CUDA), fused glue (Triton)
+    ops/        RoPE, attention dispatch, flash attention and its partial
+                (ring) form (CUDA), W8A8 int8 matmul (CUDA), fused glue
+                (Triton)
     models/     WanDiT (5B, FramePack-packed, W8A8, TeaCache hooks), umT5
                 encoder, Wan2.2 VAE decoder
     diffusion/  Euler and TeaCache (interval, adaptive) segment samplers,
                 sigma schedules
-    pipelines/  TI2VPipeline (text encode, segment sampling, decode)
+    pipelines/  TI2VPipeline (text encode, segment sampling, decode; one
+                rank of a sequence-parallel run with ``sp_groups``)
+    parallel/   sequence parallelism over torch.distributed process groups:
+                Ulysses, ring and USP attention, the sharded DiT forward
     data/       offline tokenizer
     utils/      JAX parameter tree → state-dict conversion
 """

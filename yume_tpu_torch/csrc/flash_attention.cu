@@ -1,11 +1,13 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
 //
 // Replaces the Pallas TPU kernel yume_tpu/ops/flash_attention.py::_fwd_kernel
-// (reached through _fwd and flash_attention). Same math: flash-v2 online
-// softmax with fp32 running max, sum and accumulator, per-batch kv_len
-// masking, rows whose keys are all masked yield 0, and the logsumexp is
-// written beside the output so the partial-attention merge (ring attention)
-// can reuse this kernel later.
+// (reached through _fwd by flash_attention, K1, and by
+// flash_attention_partial, K7). Same math: flash-v2 online softmax with fp32
+// running max, sum and accumulator, per-batch kv_len masking, rows whose keys
+// are all masked yield 0, and the logsumexp is written beside the output, so
+// ring attention (K7, one launch per kv block) merges blocks exactly. A
+// ring hop's kv block may be ragged (Lq 3,024 or 6,048), partly live
+// (kv_len 3,023) or all pad (kv_len 0: output 0, lse MASKED_LSE).
 //
 // Differences from the TPU kernel, on purpose:
 //  * The softmax scale multiplies the fp32 scores (the TPU wrapper folds it

@@ -110,11 +110,14 @@ def euler_sample_segment_cached_adaptive(
     *,
     threshold: float = 0.15,
     history_t: Optional[torch.Tensor] = None,
+    decide: Optional[Callable[[bool], bool]] = None,
 ) -> Tuple[torch.Tensor, int]:
     """TeaCache with data-adaptive refresh: each step adds the relative L1
     change of the tail latent to an fp32 accumulator and runs the full DiT
     only when it reaches ``threshold`` (then resets it); other steps reuse
-    the cached residuals. Step 0 always runs full.
+    the cached residuals. Step 0 always runs full. ``decide`` maps this
+    process's refresh decision to the one to take (under sequence
+    parallelism: rank 0's, the same on every rank).
 
     Returns ``(latent, n_full)``, n_full counting the full-DiT steps
     (step 0 included)."""
@@ -129,7 +132,10 @@ def euler_sample_segment_cached_adaptive(
         cur_tail = latent[:, -latent_frame_zero:]
         accum = accum + _rel_l1(cur_tail, prev_tail).float()
         t_frame = _t_frame(history_t, sig[i], latent_frame_zero)
-        if bool(accum >= threshold):  # one host read per step
+        refresh = bool(accum >= threshold)  # one host read per step
+        if decide is not None:
+            refresh = decide(refresh)
+        if refresh:
             v, cache = denoise_full(latent, t_frame)
             accum = torch.zeros_like(accum)
             n_full += 1

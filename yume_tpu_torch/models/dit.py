@@ -41,6 +41,12 @@ Training: every kernel on the path carries a gradient (K1 forward with
 K8/K9 backward, K2–K5 through recompute); ``remat`` checkpoints each block;
 the MVDT masked pass (``mvdt_noise``/``mvdt_keep``) runs with ``cfg.mvdt``.
 
+Sequence parallelism: :meth:`WanDiT.embed_packed` and
+:meth:`WanDiT.trunk_head` split the packed forward where a sequence-parallel
+rank shards the tokens (:mod:`..parallel.sp_forward`); ``attn_fn`` replaces
+the blocks' self-attention, while the cross-attention stays local against
+the replicated text, as in the reference.
+
 Ported: the FramePack-packed forward (``_forward_packed``) and MVDT. Not
 ported yet: ``_forward_unpacked`` and the 14B branch.
 """
@@ -163,7 +169,9 @@ class SelfAttention(nn.Module):
             self.norm_q = RMSNorm(cfg.dim, cfg.eps, **kw)
             self.norm_k = RMSNorm(cfg.dim, cfg.eps, **kw)
 
-    def forward(self, x, rope_cos, rope_sin):
+    def forward(self, x, rope_cos, rope_sin, attn_fn=None, kv_len=None):
+        """``attn_fn(q, k, v, kv_len=kv_len)`` replaces :func:`attention`
+        (a sequence-parallel attention over this rank's tokens)."""
         c = self.cfg
         b, l, _ = x.shape
         n, d = c.num_heads, c.head_dim
@@ -185,7 +193,8 @@ class SelfAttention(nn.Module):
         else:
             q = rope_lib.apply_rope(q.reshape(b, l, n, d), rope_cos, rope_sin)
             k = rope_lib.apply_rope(k.reshape(b, l, n, d), rope_cos, rope_sin)
-        o = attention(q, k, v.reshape(b, l, n, d)).reshape(b, l, c.dim)
+        o = (attention if attn_fn is None else attn_fn)(
+            q, k, v.reshape(b, l, n, d), kv_len=kv_len).reshape(b, l, c.dim)
         if c.w8a8:
             return _w8a8_dense(o, self, "o", (self.o,))
         return _dense(o, self.o, x.dtype)
@@ -230,7 +239,9 @@ class CrossAttention(nn.Module):
 
 class DiTBlock(nn.Module):
     """AdaLN-modulated self-attn + cross-attn + FFN block (reference
-    WanAttentionBlock)."""
+    WanAttentionBlock). ``attn_fn``/``kv_len`` go to the self-attention
+    only: a sequence-parallel rank attends to the replicated text
+    locally."""
 
     def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -245,7 +256,8 @@ class DiTBlock(nn.Module):
                                  nn.GELU(approximate="tanh"),
                                  nn.Linear(cfg.ffn_dim, cfg.dim, **kw))
 
-    def forward(self, x, mod: Modulation, context, rope_cos, rope_sin):
+    def forward(self, x, mod: Modulation, context, rope_cos, rope_sin, attn_fn=None,
+                kv_len=None):
         c = self.cfg
         m = self.modulation.float()
 
@@ -254,7 +266,7 @@ class DiTBlock(nn.Module):
             return m[:, j][:, None, :] + mod.e0[:, :, j, :]
 
         h = fused_adaln.adaln_norm(x, etab(1), etab(0), mod.idx, eps=c.eps)
-        y = self.self_attn(h, rope_cos, rope_sin)
+        y = self.self_attn(h, rope_cos, rope_sin, attn_fn, kv_len)
         x = fused_adaln.adaln_residual(x, y, etab(2), mod.idx)
 
         if c.cross_attn_norm:
@@ -484,14 +496,17 @@ class WanDiT(nn.Module):
 
     def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin,
                mvdt: Optional[dict] = None, block_cache=None,
-               cache_list: Tuple[int, ...] = (), return_cache: bool = False):
+               cache_list: Tuple[int, ...] = (), return_cache: bool = False,
+               attn_fn=None, kv_len=None):
         """All blocks, with the MVDT side interpolation before block
         ``mid − 1`` (after it the trunk runs on the full token set), and
         TeaCache-style residual caching (reference wan/modules/model.py:
         977-998): blocks listed in ``cache_list`` store their residual
         (x_out − x_in) in bf16 with ``return_cache``, or are skipped with the
-        cached residual added back when ``block_cache`` is given. Returns
-        (x, the modulation after the trunk, new_cache)."""
+        cached residual added back when ``block_cache`` is given.
+        ``attn_fn``/``kv_len``: the blocks' self-attention (see
+        :class:`SelfAttention`). Returns (x, the modulation after the trunk,
+        new_cache)."""
         mid = (self.cfg.num_layers + 1) // 2
         new_cache = []
         for i, block in enumerate(self.blocks):
@@ -504,10 +519,10 @@ class WanDiT(nn.Module):
                 continue
             x_in = x
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, mod, context, rope_cos, rope_sin,
-                               use_reentrant=False)
+                x = checkpoint(block, x, mod, context, rope_cos, rope_sin, attn_fn,
+                               kv_len, use_reentrant=False)
             else:
-                x = block(x, mod, context, rope_cos, rope_sin)
+                x = block(x, mod, context, rope_cos, rope_sin, attn_fn, kv_len)
             if return_cache and i in cache_list:
                 new_cache.append((x - x_in).to(torch.bfloat16))
         return x, mod, new_cache
@@ -578,6 +593,26 @@ class WanDiT(nn.Module):
     def _forward_packed(self, x, t_frame, context, latent_frame_zero,
                         mvdt_noise=None, mvdt_keep=None, block_cache=None,
                         cache_list=(), return_cache=False):
+        emb = self.embed_packed(x, t_frame, context, latent_frame_zero)
+        out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
+                              emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
+                              mvdt_keep=mvdt_keep, block_cache=block_cache,
+                              cache_list=cache_list, return_cache=return_cache)
+        out, new_cache = out if return_cache else (out, None)
+        out = self._unpatchify(out[:, emb["l_hist"]:], emb["tail_grid"])
+        return (out, new_cache) if return_cache else out
+
+    # -- token-level entry points for sequence parallelism --------------------
+
+    def embed_packed(self, x, t_frame, context, latent_frame_zero):
+        """Embedding and conditioning of the packed forward, without the
+        blocks: a dict of the packed tokens [B, L, dim], the distinct
+        timesteps ``t_values`` [B, 2] (history, tail), the per-token index
+        ``idx`` [B, L], the embedded text ``ctx``, the RoPE tables ``cos``
+        and ``sin`` [L, D/2], ``l_hist`` and the tail's token grid. A
+        sequence-parallel forward embeds on every rank and shards the token
+        axis between this and :meth:`trunk_head` (the reference's
+        sp_dit_forward, wan23/distributed/sequence_parallel.py:64-146)."""
         c = self.cfg
         b, f, h_lat, w_lat, _ = x.shape
         f_hist = f - latent_frame_zero
@@ -600,21 +635,34 @@ class WanDiT(nn.Module):
         # multi-resolution RoPE with cumulative compressed-frame offsets
         cos, sin = rope_lib.framepack_rope(grids, c.head_dim, max_len=c.rope_max_len,
                                            theta=c.rope_theta)
-        cos = torch.from_numpy(cos).to(x.device)
-        sin = torch.from_numpy(sin).to(x.device)
-
         # two distinct timesteps: history (first frame's) and tail (last frame's)
         t_vals = torch.stack([t_frame[:, 0], t_frame[:, -1]], dim=1).float()
         idx = (torch.arange(l, device=x.device) >= l_hist).to(torch.int32)
-        idx = idx[None, :].expand(b, l).contiguous()
-        mod = self._time_mod(t_vals, idx)
+        return dict(tokens=tokens, t_values=t_vals,
+                    idx=idx[None, :].expand(b, l).contiguous(), ctx=self._context(context),
+                    cos=torch.from_numpy(cos).to(x.device),
+                    sin=torch.from_numpy(sin).to(x.device),
+                    l_hist=l_hist, tail_grid=tail_grid)
 
-        ctx = self._context(context)
+    def trunk_head(self, tokens, t_values, idx, ctx, cos, sin, *, attn_fn=None,
+                   kv_len=None, mvdt_noise=None, mvdt_keep=None, block_cache=None,
+                   cache_list: Tuple[int, ...] = (), return_cache: bool = False):
+        """Blocks and head over embedded tokens [B, L, dim] (any contiguous
+        run of the packed sequence, with its ``idx``, ``cos`` and ``sin``
+        rows): per-token work apart from the self-attention, which
+        ``attn_fn``/``kv_len`` may make sequence-parallel. Returns the head's
+        output [B, L, p·C_out] in fp32, and with ``return_cache`` the
+        residuals of the ``cache_list`` blocks (:meth:`_trunk`); under
+        sequence parallelism they are this rank's rows and stay there
+        between TeaCache steps. ``mvdt_noise``/``mvdt_keep``: see
+        :meth:`_maybe_mask`."""
+        mod = self._time_mod(t_values, idx)
         tokens, mod, mvdt, cos_k, sin_k = self._maybe_mask(tokens, mod, cos, sin,
                                                            mvdt_noise, mvdt_keep)
         out, mod, new_cache = self._trunk(tokens, mod, ctx, cos_k, sin_k, mvdt,
-                                          block_cache, cache_list, return_cache)
-        out = self._unpatchify(self.head(out, mod)[:, l_hist:], tail_grid)
+                                          block_cache, cache_list, return_cache,
+                                          attn_fn=attn_fn, kv_len=kv_len)
+        out = self.head(out, mod)
         return (out, new_cache) if return_cache else out
 
     def _unpatchify(self, x, grid):

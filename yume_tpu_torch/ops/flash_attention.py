@@ -1,21 +1,34 @@
 """Flash attention with gradients: wrappers of the CUDA kernels K1 (forward,
-``csrc/flash_attention.cu``), K8 (dQ) and K9 (dK, dV)
-(``csrc/flash_attention_bwd.cu``), and their plain PyTorch versions.
+``csrc/flash_attention.cu``), K7 (the partial attention of ring attention,
+the same kernel), K8 (dQ) and K9 (dK, dV) (``csrc/flash_attention_bwd.cu``),
+and their plain PyTorch versions.
 
 Replaces yume_tpu/ops/flash_attention.py: ``_fwd_kernel`` (via ``_fwd`` and
 ``flash_attention``), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (via
-``_bwd_impl``), and the ``_flash`` custom VJP that ties them together
-(:class:`FlashAttention`). On the H100 all three are bound by tensor-core
-FLOPs at the DiT shapes (self-attention over 2,805 to 12,095 tokens, 24
-heads, D = 128); their designs (wmma bf16 tiles, fp32 softmax statistics,
+``_bwd_impl``), the ``_flash`` custom VJP that ties them together
+(:class:`FlashAttention`), and ``flash_attention_partial`` with its
+``_flash_partial`` custom VJP (:class:`FlashAttentionPartial`). On the
+H100 the kernels are bound by tensor-core FLOPs at the DiT shapes
+(self-attention over 2,805 to 12,095 tokens, 24 heads, D = 128); their
+designs (wmma bf16 tiles, fp32 softmax statistics,
 strided [B, L, N, D] reads, in-kernel ragged edges; the backward as two
 kernels without atomics) are described in the sources.
 
+K7 is K1's kernel launched for one kv block of ring attention: it returns
+the block-normalized output with its fp32 logsumexp, so that blocks held
+on other devices merge exactly (``parallel/ulysses.py``). It keeps its own
+launch count. A row with no live key (``kv_len`` <= 0, a ring hop over pad
+tokens only) gets output 0 and lse ``MASKED_LSE``, which any merge weighs
+to zero. Bound on the H100 like K1: tensor-core FLOPs (a ring hop at sp = 4
+is 1.1e11 FLOP against 75 MB of q/k/v/out).
+
 On CPU tensors :func:`flash_attention` runs :func:`plain_attention`, which
-autograd differentiates, and the backward wrappers run
+autograd differentiates, :func:`flash_attention_partial` runs
+:func:`plain_attention_partial`, and the backward wrappers run
 :func:`plain_attention_bwd`. On CUDA tensors each wrapper launches its
-kernel or raises; when a gradient is needed the forward goes through
-:class:`FlashAttention`, whose backward launches K8 and K9.
+kernel or raises. When a gradient is needed the forward goes through
+:class:`FlashAttention` (CUDA tensors) or :class:`FlashAttentionPartial`
+(on both devices), whose backward runs K8 and K9 or their plain version.
 """
 
 from __future__ import annotations
@@ -26,6 +39,10 @@ from typing import Optional
 import torch
 
 _SUPPORTED_HEAD_DIMS = (16, 64, 128)
+# lse of a row with no live key: the kernel's -0.7f·FLT_MAX
+# (csrc/flash_attention.cu) in fp32, as the TPU kernel's; far below any
+# real lse and still finite
+MASKED_LSE = (torch.tensor(-0.7, dtype=torch.float32) * torch.finfo(torch.float32).max).item()
 
 
 def plain_attention(q, k, v, *, kv_len=None, scale=None, return_lse=False):
@@ -45,6 +62,29 @@ def plain_attention(q, k, v, *, kv_len=None, scale=None, return_lse=False):
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
+
+
+def plain_attention_partial(q, k, v, *, kv_len=None, scale=None):
+    """K7's plain version: attention of q [B, Lq, N, D] over one kv block,
+    in fp32, as (out [B, Lq, N, D] in q's dtype, lse [B, N, Lq] fp32). A
+    row with no live key gets output 0 and lse ``MASKED_LSE`` (as the
+    kernel; the reference's blocked twin returns the mean of v there).
+    Differentiable without NaNs, empty rows included."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if kv_len is not None:
+        s = s.masked_fill(~_key_mask(kv_len, k)[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m)).detach()
+    p = torch.exp(s - m)                    # 0 at masked keys
+    l = p.sum(dim=-1)                       # [B, N, Lq]: >= 1, or 0 for an empty row
+    live = l > 0
+    l_safe = torch.where(live, l, torch.ones_like(l))
+    out = torch.einsum("bnqk,bknd->bqnd", p, v.float()) / l_safe.transpose(1, 2)[..., None]
+    lse = torch.where(live, m[..., 0] + torch.log(l_safe), torch.full_like(l, MASKED_LSE))
+    return out.to(q.dtype), lse
 
 
 def _key_mask(kv_len, k):
@@ -128,8 +168,9 @@ def _kv_len_arg(kv_len, b, device):
     return kv_len
 
 
-def _fwd(q, k, v, kv_len, scale):
-    """Launch K1: (out, lse)."""
+def _fwd(q, k, v, kv_len, scale, counter):
+    """Launch the forward kernel as K1 or K7 (``counter``, the wrapper
+    whose launch count it adds to): (out, lse)."""
     from .. import _build
 
     _check(q, k, v)
@@ -149,8 +190,8 @@ def _fwd(q, k, v, kv_len, scale):
             b, lq, lk, n, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], ctypes.c_float(scale), stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.check(err, counter.__name__)
+    counter.launches += 1
     return out, lse
 
 
@@ -166,7 +207,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, scale):
-        out, lse = _fwd(q, k, v, kv_len, scale)
+        out, lse = _fwd(q, k, v, kv_len, scale, flash_attention)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kv_len, ctx.scale = kv_len, scale
         return out
@@ -191,8 +232,8 @@ def flash_attention(
     """Attention over q [B, Lq, N, D], k/v [B, Lk, N, D] → [B, Lq, N, D]
     (and the fp32 lse [B, N, Lq] with ``return_lse``). ``kv_len``: optional
     [B] true key lengths; ``scale`` defaults to D**-0.5. Differentiable on
-    both devices; the lse output is not (its cotangent belongs to the
-    partial-attention VJP, kernel K7, not ported yet)."""
+    both devices; the lse output is not: a caller that needs its gradient
+    uses :func:`flash_attention_partial`."""
     if not q.is_cuda:
         return plain_attention(q, k, v, kv_len=kv_len, scale=scale,
                                return_lse=return_lse)
@@ -200,12 +241,73 @@ def flash_attention(
         scale = q.shape[-1] ** -0.5
     if _needs_grad(q, k, v):
         if return_lse:
-            raise NotImplementedError(
-                "flash_attention: a gradient through the lse output is the "
-                "partial-attention VJP (kernel K7), not ported yet")
+            raise ValueError(
+                "flash_attention: the lse output has no gradient here; use "
+                "flash_attention_partial (K7), whose VJP takes it")
         return FlashAttention.apply(q, k, v, kv_len, scale)
-    out, lse = _fwd(q, k, v, kv_len, scale)
+    out, lse = _fwd(q, k, v, kv_len, scale, flash_attention)
     return (out, lse) if return_lse else out
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """K7 with a gradient for both outputs (the reference's
+    ``_flash_partial`` custom VJP). The lse cotangent folds into the flash
+    backward's row term,
+
+        ds = p∘(dp − (Σ_d out·dout − dlse))·scale,
+
+    so the backward is :func:`flash_attention_bwd` with
+    ``delta = attention_delta(out, dout) − dlse``: K8 and K9 on the card.
+    A missing cotangent counts as zero. On CPU tensors the forward is
+    :func:`plain_attention_partial` (without a graph) and the backward
+    :func:`plain_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, scale):
+        if q.is_cuda:
+            out, lse = _fwd(q, k, v, kv_len, scale, flash_attention_partial)
+        else:
+            out, lse = plain_attention_partial(q, k, v, kv_len=kv_len, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len, ctx.scale = kv_len, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        delta = attention_delta(out, dout)
+        if dlse is not None:
+            delta = (delta - dlse.float()).contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_len=ctx.kv_len,
+                                         scale=ctx.scale, delta=delta)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_partial(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_len: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+):
+    """Partial attention of q [B, Lq, N, D] over one kv block k/v
+    [B, Lk, N, D] (K7): returns the block-normalized output [B, Lq, N, D]
+    in q's dtype and its logsumexp [B, N, Lq] in fp32, for merging across
+    kv blocks held on other devices (ring attention). ``kv_len``: optional
+    [B] live keys of the block (0 or less: the row's output is 0 and its
+    lse ``MASKED_LSE``). Differentiable through both outputs, on either
+    device through :class:`FlashAttentionPartial`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _needs_grad(q, k, v):
+        return FlashAttentionPartial.apply(q, k, v, kv_len, scale)
+    if not q.is_cuda:
+        return plain_attention_partial(q, k, v, kv_len=kv_len, scale=scale)
+    return _fwd(q, k, v, kv_len, scale, flash_attention_partial)
 
 
 def _check_bwd(q, k, v, dout, lse, delta):
@@ -310,5 +412,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, kv_len=None, scale=None,
 
 
 flash_attention.launches = 0
+flash_attention_partial.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

@@ -12,11 +12,22 @@ interval and adaptive threshold), and W8A8 through ``config.dit.w8a8``
 (:meth:`TI2VPipeline.with_w8a8` builds it on the same DiT parameters). Not
 ported yet: the TTS samplers (``sde``, ``time_travel``), t2v/i2v entry
 points, the VAE encode, tiled decode.
+
+Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
+``sp_groups`` set, the pipeline is one rank of a run in which every rank
+holds the whole model and calls :meth:`TI2VPipeline.generate_segment` with
+the same arguments; each DiT forward shards its tokens over the group
+(:func:`..parallel.sp_forward.sp_dit_forward`, kind ``sp_kind``) and every
+rank gets the same latents. W8A8 composes: each rank quantizes its own
+tokens. TeaCache's residual cache stays on each rank's tokens, and the
+adaptive refresh decision is rank 0's on every rank, so the ranks always
+run the same collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -29,7 +40,14 @@ from ..diffusion.schedule import sampling_sigmas
 from ..models.dit import WanDiT
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode
+from ..parallel.mesh import SPGroups
+from ..parallel.sp_forward import sp_dit_forward
+from ..parallel.ulysses import agree
 from ..utils.convert import load_state_dict
+
+# the samplers whose every DiT call goes through _dit (and so through the
+# sequence-parallel forward when sp_groups is set)
+_SP_SAMPLERS = ("euler", "teacache")
 
 
 def _materialize(factory: Callable[..., nn.Module], device) -> nn.Module:
@@ -59,6 +77,10 @@ class TI2VPipeline:
     t5: Optional[T5Encoder] = None
     # full-DiT steps of the last sampler="teacache" segment
     last_teacache_n_full: Optional[int] = None
+    # sequence-parallel serving: this rank's groups and the attention kind
+    # ("ulysses", "ring" or "usp")
+    sp_groups: Optional[SPGroups] = None
+    sp_kind: str = "ulysses"
 
     @property
     def device(self) -> torch.device:
@@ -133,10 +155,14 @@ class TI2VPipeline:
     # -- generation ----------------------------------------------------------
 
     def _dit(self, lat, t_frame, ctx, **kw):
-        """Packed DiT forward on ``lat``; the reference feeds the DiT a bf16
-        latent whatever its dtype."""
-        return self.dit(lat.to(torch.bfloat16), t_frame, ctx,
-                        latent_frame_zero=self.config.latent_frame_zero, **kw)
+        """Packed DiT forward on ``lat``, sequence-parallel when
+        ``sp_groups`` is set; the reference feeds the DiT a bf16 latent
+        whatever its dtype."""
+        lfz = self.config.latent_frame_zero
+        if self.sp_groups is not None:
+            return sp_dit_forward(self.dit, self.sp_groups, lat.to(torch.bfloat16), t_frame,
+                                  ctx, latent_frame_zero=lfz, kind=self.sp_kind, **kw)
+        return self.dit(lat.to(torch.bfloat16), t_frame, ctx, latent_frame_zero=lfz, **kw)
 
     @staticmethod
     def _pad_v(lat, out):
@@ -171,9 +197,12 @@ class TI2VPipeline:
                                               block_cache=cache))
 
         if cache_threshold is not None:
+            decide = None
+            if self.sp_groups is not None:
+                decide = functools.partial(agree, group=self.sp_groups.group)
             return samplers.euler_sample_segment_cached_adaptive(
                 full, cached, latent, sig, lfz, threshold=cache_threshold,
-                history_t=history_t)
+                history_t=history_t, decide=decide)
         out = samplers.euler_sample_segment_cached(
             full, cached, latent, sig, lfz, cache_interval=cache_interval,
             history_t=history_t)
@@ -204,7 +233,13 @@ class TI2VPipeline:
         ``teacache_threshold``, whenever the accumulated rel-L1 change of
         the tail reaches it; ``teacache_edge`` live blocks per side on
         cached steps, None → num_layers // 4). The full-DiT step count of a
-        'teacache' segment is left in ``last_teacache_n_full``."""
+        'teacache' segment is left in ``last_teacache_n_full``.
+
+        With ``sp_groups`` set every rank of the group makes this call with
+        the same arguments (the same history, context, seed or noise)."""
+        if self.sp_groups is not None and sampler not in _SP_SAMPLERS:
+            raise NotImplementedError(
+                f"SP serving runs the samplers {_SP_SAMPLERS}, not {sampler!r}")
         if sampler not in ("euler", "teacache"):
             raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
         if sampler == "teacache" and teacache_interval < 1:

@@ -15,8 +15,8 @@ Not ported, and refused with the ROADMAP item that brings them:
 ``--data_dir`` (the VAE encoder and real videos, queue 1 item 3),
 ``--ckpt_dir`` and ``--export_torch_dir`` (a safetensors reader and writer,
 queue 1 item 7), ``--Distil`` (the ADD discriminator, queue 1 item 7),
-``--sp > 1`` (multi-GPU, queue 1 item 8) and ``--config i2v-14B`` (queue 1
-item 6).
+``--sp > 1`` (sequence-parallel training, queue 1 item 8; SP serving is
+ported) and ``--config i2v-14B`` (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -82,7 +82,10 @@ def _refuse_unported(args):
         (args.export_torch_dir, "--export_torch_dir needs a safetensors writer "
                                 "(ROADMAP queue 1, item 7)"),
         (args.Distil, "--Distil needs the ADD discriminator (ROADMAP queue 1, item 7)"),
-        (args.sp > 1, "--sp > 1 needs multi-GPU support (ROADMAP queue 1, item 8)"),
+        (args.sp > 1, "--sp > 1 is sequence-parallel training, which needs a "
+                      "differentiable all-to-all and a ring backward that sends dK/dV "
+                      "round the ring (ROADMAP queue 1, item 8); sequence-parallel "
+                      "serving is TI2VPipeline with sp_groups"),
         (args.config == "i2v-14B", "--config i2v-14B needs the 14B modules "
                                    "(ROADMAP queue 1, item 6)"),
     ]
