@@ -13,10 +13,12 @@ result line:
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4+K5, the
    W8A8 int8 matmul K6, the partial flash attention of ring attention K7,
-   the flash-attention backward K8 (dQ) and K9 (dK, dV)) against its plain
-   PyTorch version on the same seeded inputs at the 5B segment's shapes
-   (K7 at its ring shapes: sp 4, sp 8, USP 2 x 2, a block with no live key;
-   K8/K9 and K4's batched-table case at the trainer's): error against a
+   the flash-attention backward K8 (dQ) and K9 (dK, dV), the fused bias +
+   activation K10) against its plain PyTorch version on the same seeded
+   inputs at the 5B segment's shapes (K7 at its ring shapes: sp 4, sp 8,
+   USP 2 x 2, a block with no live key; K8/K9 and K4's batched-table case
+   at the trainer's; K10 at the ADD discriminator's, every activation, bf16,
+   and an NCHW ``dim=1`` call of ``filtered_lrelu``): error against a
    stated tolerance, median times of the kernel, of its plain version and
    of one PyTorch library call where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -44,9 +46,14 @@ result line:
    path with the counts set to 0 just before it and read just after:
    a. the full fine-tune, clipped AdamW + EMA, 1 warm-up and 3 timed steps;
    b. one MVDT step (mask ratio 0.30) on the same model;
+   d. ADD distillation (``make_distill_train_step``) on the same model: an
+      fp32 discriminator with random weights on the 8 tail frames, 1
+      warm-up and 2 timed steps, the discriminator's share of a step;
    c. LoRA rank 16 through ``yume_tpu_torch.train.main`` (3 steps);
-   then ``train.main --smoke`` on the card. Losses and gradient norms must
-   be finite; K1–K5, K8 and K9 must launch and K6 must not.
+   then ``train.main --smoke`` and ``--smoke --Distil`` on the card.
+   Losses and gradient norms must be finite; K1–K5, K8 and K9 must launch
+   and K6 must not; K10 launches 60 times a distillation step and nowhere
+   else (serving, SP and the other train paths count 0).
 8. sp (after the train phase is freed): sequence-parallel serving on four
    ranks, four spawned processes that share the one card over a gloo group
    (NCCL refuses two ranks on one device), so their transfers go through
@@ -475,6 +482,63 @@ def partial_attention_kernel(results, gen):
     del q, k, v, dout, dlse, grads
 
 
+# K10 (bias_act) against its plain version: both compute in fp32 and round
+# once; fp32 to 1e-6 of the largest |output| (CUDA's expf/tanhf/log1pf and
+# ATen's may differ by an ulp or two), the half types to one of their ulps
+K10_FP32_REL = 1e-6
+K10_CLAMP = 256.0            # StyleGAN's conv_clamp
+# the discriminator's ConvBlock activation: 5 features x 2 heads x 2 blocks
+K10_PER_DISC_PASS = 20
+K10_PER_DISTILL_STEP = 3 * K10_PER_DISC_PASS   # D real, D fake, the GAN term
+
+
+def bias_act_kernel(results, gen):
+    """K10 against ``bias_act_plain``: the discriminator's ConvBlock call
+    (``[8,196,384]`` fp32, GroupNorm's bias, leaky ReLU 0.2, gain 1; the
+    feature-axis heads' ``[196,8,384]`` is the same work), the same
+    without a bias (library yardstick ``F.leaky_relu``), every activation at
+    that shape with clamp 256 and its default gain, a bf16 case, and
+    ``filtered_lrelu``'s NCHW ``dim=1`` call at a size that fills the
+    card's bandwidth. Bound: x read once, y written once, the bias read
+    once, over 3.35 TB/s; 5 fp32 operations an element (bias, activation,
+    gain, two clamps) over the fp32 peak."""
+    from yume_tpu_torch.ops import bias_act as ba
+
+    disc = (8, 196, 384)
+    cases = [  # (case, x, with bias, kwargs, library call or None)
+        ("disc [8,196,384] fp32 lrelu 0.2 gain 1", _randn(gen, *disc, dtype=torch.float32), True,
+         dict(act="lrelu", alpha=0.2, gain=1.0), None),
+        ("no bias, lrelu 0.2 gain 1", _randn(gen, *disc, dtype=torch.float32), False,
+         dict(act="lrelu", alpha=0.2, gain=1.0), lambda x: F.leaky_relu(x, 0.2)),
+    ]
+    for act in ba.ACTIVATIONS:
+        cases.append((f"{act}, clamp 256, default gain", _randn(gen, *disc, dtype=torch.float32),
+                      True, dict(act=act, clamp=K10_CLAMP), None))
+    cases += [
+        ("disc shape bf16 lrelu", _randn(gen, *disc), True, dict(act="lrelu", alpha=0.2, gain=1.0),
+         None),
+        ("NCHW dim=1 [8,64,256,256] fp32 lrelu", _randn(gen, 8, 64, 256, 256, dtype=torch.float32),
+         True, dict(act="lrelu", dim=1, clamp=K10_CLAMP), None),
+    ]
+    for case, x, with_bias, kw, lib in cases:
+        dim = kw.get("dim", -1)
+        b = _randn(gen, x.shape[dim], dtype=torch.float32) if with_bias else None
+        spec = ba.ACTIVATIONS[kw["act"]]
+        full = dict(kw, alpha=kw.get("alpha", spec.def_alpha), gain=kw.get("gain", spec.def_gain))
+        got = ba.bias_act(x, b, **kw)
+        want = ba.bias_act_plain(x, b, **full)
+        top = want.float().abs().max().item()
+        tol = (K10_FP32_REL if x.dtype == torch.float32 else REL_TOL) * top
+        n_bytes = 2 * nbytes(x) + (nbytes(b) if b is not None else 0)
+        ms = median_ms(lambda: ba.bias_act(x, b, **kw), reps=20)
+        _record(results, "bias_act", case, max_err(got, want), tol, ms,
+                median_ms(lambda: ba.bias_act_plain(x, b, **full), reps=10),
+                bound_ms(n_bytes, 5 * x.numel(), "fp32"),
+                None if lib is None else median_ms(lambda: lib(x), reps=20),
+                gb_per_s=round(n_bytes / ms / 1e6, 1))
+        del x, b, got, want
+
+
 K6_SHAPES = [  # (case, K, N, launches per layer)
     ("qkv 3072->9216", DIM, 3 * DIM, 1),
     ("o, cross q, cross o 3072->3072", DIM, DIM, 3),
@@ -750,16 +814,18 @@ def pipeline_phase(counters):
         require(tuple(video.shape) == (1, 29, 704, 1280, 3) and finite,
                 f"{name}: tail video shape {tuple(video.shape)}, finite {finite}")
 
-    # the flash backward (K8, K9) runs only under autograd: serving never launches it
+    # the flash backward (K8, K9) runs only under autograd, K10 only in the
+    # ADD discriminator, K7 only in SP: one-card serving never launches them
     backward = {fl.flash_attention_bwd_dq.__name__, fl.flash_attention_bwd_dkv.__name__}
+    not_serving = backward | {"bias_act", "flash_attention_partial"}
 
     def read_counts(path, needed):
         launches = {c.__name__: c.launches for c in counters}
         log(f"  kernel launches in the {path} run: {launches}")
         missing = [k for k in needed if launches[k] == 0]
         require(not missing, f"kernels not launched on the {path} path: {missing}")
-        stray = [k for k in backward if launches[k]]
-        require(not stray, f"backward kernels launched on the {path} path: {stray}")
+        stray = [k for k in not_serving if launches[k]]
+        require(not stray, f"kernels of other paths launched on the {path} path: {stray}")
         return launches
 
     # a. bf16 Euler, one caption (PR 1's path) --------------------------------
@@ -772,7 +838,7 @@ def pipeline_phase(counters):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     euler_launches = read_counts("bf16 Euler", [c.__name__ for c in counters if c
-                                                is not qm.q8_dot and c.__name__ not in backward])
+                                                is not qm.q8_dot and c.__name__ not in not_serving])
     check_tail("euler", latents, 31 + 8, videos[0])
     log(f"  euler: 4 steps, wall {total:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -795,7 +861,7 @@ def pipeline_phase(counters):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_counts("headline", [c.__name__ for c in counters
-                                        if c.__name__ not in backward])
+                                        if c.__name__ not in not_serving])
     check_tail("headline", latents, 31 + 8, video)
     n_full = w8.last_teacache_n_full
     require(n_full == len(times["full_step"]) and
@@ -822,21 +888,26 @@ KERNEL_FAMILIES = [
     ("K8 dQ", ("flash_bwd_dq_kernel",)),
     ("K9 dK dV", ("flash_bwd_dkv_kernel",)),
     ("K2-K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_rope_kernel")),
+    ("K10 bias_act", ("bias_act_kernel",)),
     ("conv", ("conv", "cudnn")),
     ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 ]
 
 
 TRAIN_RANGES = ("loss_and_grads", "optimizer", "ema")  # training/train_step.py
+# training/distill.py; every backward runs on autograd's own thread
+DISTILL_RANGES = ("generator_forward", "discriminator_update", "generator_gan_term",
+                  "generator_backward", "optimizer", "ema", "backward passes")
 
 
-def device_breakdown(what: str, fn) -> dict:
+def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
+                     rest: str = "loss_and_grads") -> dict:
     """Run ``fn`` once under torch.profiler and log its device time by
-    kernel family, by the train step's named ranges and its ten longest
-    kernels. Per range: the kernels launched inside it (``optimizer`` and
-    ``ema``; the backward runs on autograd's own thread, so the loss and
-    gradient part is the rest) and the span on the device from its first
-    to its last kernel, idle gaps included. Times in ms."""
+    kernel family, by the step's named ranges and its ten longest
+    kernels. Per range: the kernels launched inside it (the backward runs
+    on autograd's own thread, so ``rest``, the loss and gradient part of a
+    train step, is what the other ranges leave) and the span on the device
+    from its first to its last kernel, idle gaps included. Times in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -854,10 +925,10 @@ def device_breakdown(what: str, fn) -> dict:
     families = dict.fromkeys([name for name, _ in KERNEL_FAMILIES] + ["other"], 0.0)
     ranges, spans, kernels = {}, {}, []
     for e in prof.key_averages():
-        if e.key in TRAIN_RANGES:
+        if e.key in ranges_named:
             if e.device_type == DeviceType.CUDA:
                 spans[e.key] = dev_ms(e)
-            elif e.key != "loss_and_grads":
+            elif e.key != rest:
                 ranges[e.key] = dev_ms(e, total=True)
         elif e.device_type == DeviceType.CUDA:
             fam = next((n for n, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)),
@@ -871,7 +942,7 @@ def device_breakdown(what: str, fn) -> dict:
         f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
     log("    by family: " + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
                                       for k, v in families.items()))
-    ranges["loss_and_grads"] = busy - sum(ranges.values())
+    ranges[rest] = busy - sum(ranges.values())
     log("    kernels by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items()))
     log("    device span by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items()))
     for ms, count, name in sorted(kernels, reverse=True)[:10]:
@@ -903,17 +974,21 @@ def train_phase(counters):
     a. the full fine-tune: ``make_train_step`` with clipped AdamW and EMA,
        1 warm-up and 3 timed steps (the model carries the MVDT side block,
        whose parameters get zero gradients here);
-    b. one MVDT step on the same model and state at mask ratio 0.30, then
-       one LoRA rank-16 step on that model (``make_lora_train_step``), whose
-       random head gives the adapters a gradient that is not zero;
+    b. one MVDT step on the same model and state at mask ratio 0.30;
+    d. ADD distillation on the same model and state (:func:`distill_path`),
+       then one LoRA rank-16 step on that model (``make_lora_train_step``),
+       whose random head gives the adapters a gradient that is not zero;
     c. LoRA rank 16 through the entry point ``train.main`` (its own fp32
-       parameters, 3 steps), after the model of a. and b. is freed;
-    then ``train.main --smoke`` on the card. Every loss and gradient norm
-    must be finite; K1–K5, K8 and K9 must launch, K6 must not."""
+       parameters, 3 steps), after the model of a., b. and d. is freed;
+    then ``train.main --smoke`` and ``--smoke --Distil`` on the card. Every
+    loss and gradient norm must be finite; K1–K5, K8 and K9 must launch,
+    K6 must not, and K10 only in d. (60 times a step)."""
     from yume_tpu_torch import train
     from yume_tpu_torch.configs import ti2v_5b
     from yume_tpu_torch.models.dit import WanDiT, packed_token_count
+    from yume_tpu_torch.ops import bias_act as ba
     from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.ops.flash_attention import flash_attention_partial as fl_partial
     from yume_tpu_torch.pipelines.ti2v import _random_init_
     from yume_tpu_torch.training.lora import LoRAModel, init_lora, make_lora_train_step
     from yume_tpu_torch.training.train_step import (TrainConfig, draw_step, init_train_state,
@@ -948,11 +1023,14 @@ def train_phase(counters):
                 "context": torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g,
                                        device="cuda") * 0.02}
 
-    def run(path, step_fn, st, n_steps, masked=False):
+    def run(path, step_fn, st, n_steps, masked=False, k10_per_step=0):
+        """``n_steps`` steps with the counts set to 0 just before and read
+        just after; K10 must launch ``k10_per_step`` times a step."""
         for c in counters:
             c.launches = 0
         torch.cuda.reset_peak_memory_stats()
         times, losses, norms = [], [], []
+        extra = {"gan_loss": [], "d_loss": []}
         for i in range(n_steps):
             b = batch(i)
             draws = draw_step(b, tc, torch.Generator(device="cuda").manual_seed(200 + i),
@@ -962,19 +1040,30 @@ def train_phase(counters):
             _, metrics = step_fn(st, b, draws)
             losses.append(metrics["loss"].item())
             norms.append(metrics["grad_norm"].item())
+            for k in extra:
+                if k in metrics:
+                    extra[k].append(metrics[k].item())
             times.append(time.perf_counter() - t)
         launches = {c.__name__: c.launches for c in counters}
         peak = torch.cuda.max_memory_allocated() / 2**30
+        extra = {k + "es": v for k, v in extra.items() if v}
         log(f"  {path}: step times {[round(t, 4) for t in times]} s, losses "
             f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in norms]}, "
-            f"peak device memory {peak:.2f} GiB")
+            + "".join(f"{k} {[round(x, 5) for x in v]}, " for k, v in extra.items())
+            + f"peak device memory {peak:.2f} GiB")
         log(f"  kernel launches in the {path} run: {launches}")
-        require(all(map(math.isfinite, losses + norms)), f"{path}: non-finite loss or norm")
-        missing = [c.__name__ for c in counters if c is not qm.q8_dot and not c.launches]
+        finite = losses + norms + [x for v in extra.values() for x in v]
+        require(all(map(math.isfinite, finite)), f"{path}: non-finite loss or norm")
+        missing = [c.__name__ for c in counters if c not in (qm.q8_dot, ba.bias_act, fl_partial)
+                   and not c.launches]
         require(not missing, f"kernels not launched on the {path} path: {missing}")
-        require(qm.q8_dot.launches == 0, f"{path}: the W8A8 kernel launched in training")
+        require(qm.q8_dot.launches == 0 and fl_partial.launches == 0,
+                f"{path}: the W8A8 kernel or K7 launched in training")
+        require(ba.bias_act.launches == k10_per_step * n_steps,
+                f"{path}: K10 launched {ba.bias_act.launches} times in {n_steps} steps, "
+                f"not {k10_per_step} a step")
         return {"step_s": times, "losses": losses, "grad_norms": norms, "peak_gib": peak,
-                "launches": launches}
+                "launches": launches, **extra}
 
     runs = {}
     full_step = make_train_step(model, tc)
@@ -997,6 +1086,7 @@ def train_phase(counters):
     runs["mvdt"] = run(f"5B MVDT step (keep {TRAIN_KEEP} of {TRAIN_L})",
                        make_train_step(model, tc_m, mvdt_keep=TRAIN_KEEP), state, 1,
                        masked=True)
+    runs["distill"] = distill_path(model, tc, state, run, batch)
     # one LoRA step on this model: its head is random, so the adapters'
     # gradient is not zero (train.main below starts from a zero head)
     del state, full_step
@@ -1030,21 +1120,84 @@ def train_phase(counters):
     log(f"  kernel launches in the LoRA run: {lora['launches']}")
     require(all(map(math.isfinite, lora["losses"] + lora["grad_norms"])),
             "LoRA: non-finite loss or norm")
-    missing = [k for k, n in lora["launches"].items() if k != "q8_dot" and not n]
-    require(not missing and not lora["launches"]["q8_dot"],
-            f"LoRA: kernels not launched {missing} or W8A8 launched")
+    others = ("q8_dot", "bias_act", "flash_attention_partial")
+    missing = [k for k, n in lora["launches"].items() if k not in others and not n]
+    require(not missing and not any(lora["launches"][k] for k in others),
+            f"LoRA: kernels not launched {missing}, or one of {others} launched")
     runs["lora"] = lora
     gc.collect()
     torch.cuda.empty_cache()
 
-    train.main(["--smoke", "--max_train_steps", "2", "--checkpointing_steps", "0",
-                "--output_dir", os.path.join(out_dir, "smoke")])
-    smoke = train.main.last_run
-    log(f"  train.main --smoke on the card: losses {smoke['losses']}, grad norms "
-        f"{smoke['grad_norms']}")
-    require(all(map(math.isfinite, smoke["losses"] + smoke["grad_norms"])),
-            "smoke: non-finite loss or norm")
+    for flags in ([], ["--Distil"]):
+        train.main(["--smoke", "--max_train_steps", "2", "--checkpointing_steps", "0",
+                    "--output_dir", os.path.join(out_dir, "smoke"), *flags])
+        smoke = train.main.last_run
+        gan = {k: smoke[k] for k in ("gan_losses", "d_losses") if k in smoke}
+        log(f"  train.main --smoke {' '.join(flags)} on the card: losses {smoke['losses']}, "
+            f"grad norms {smoke['grad_norms']}" + "".join(f", {k} {v}" for k, v in gan.items()))
+        values = smoke["losses"] + smoke["grad_norms"] + [x for v in gan.values() for x in v]
+        require(all(map(math.isfinite, values)) and len(gan) == (2 if flags else 0),
+                f"smoke {flags}: non-finite loss or norm")
     return runs
+
+
+def distill_path(model, tc, state, run, batch) -> dict:
+    """Phase 7d: ADD distillation (``make_distill_train_step``) on the
+    trainer's 5B model and state, an fp32 discriminator with random weights
+    (DINO frozen) over the 8 tail latent frames at 22×40: 1 warm-up and 2
+    timed steps with the counts set to 0 just before and read just after
+    (K10 60 times a step); DINO must not change. Then the discriminator's
+    share of a step: one profiled step by range and kernel family, and its
+    two parts alone (the hinge update: two passes forward and back and
+    AdamW; the GAN term: a pass forward and its input gradient), timed by
+    CUDA events."""
+    from yume_tpu_torch.training.distill import (_disc_hinge_update, _frames, disc_optimizer,
+                                                 generator_gan_term, init_disc_state,
+                                                 make_distill_train_step)
+    from yume_tpu_torch.training.train_step import draw_step
+
+    d_opt = disc_optimizer()
+    disc, disc_state = init_disc_state(d_opt, z_dim=model.cfg.out_dim, device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(7))
+    n_disc = sum(p.numel() for p in disc.parameters())
+    dino0 = [p.detach().clone() for p in disc.dino.parameters()]
+    step = make_distill_train_step(model, tc, disc, d_opt)
+
+    def distill(st, b, draws):
+        st, _, metrics = step(st, disc_state, b, draws)
+        return st, metrics
+
+    out = run(f"5B ADD distillation step ({n_disc / 1e6:.1f}M-param fp32 discriminator, "
+              f"{TRAIN_LFZ} tail frames)", distill, state, 3,
+              k10_per_step=K10_PER_DISTILL_STEP)
+    out["median_step_s"] = statistics.median(out["step_s"][1:])
+    require(all(torch.equal(p, q) for p, q in zip(disc.dino.parameters(), dino0)),
+            "distill: the frozen DINO weights changed")
+    b = batch(5)
+    draws = draw_step(b, tc, torch.Generator(device="cuda").manual_seed(205))
+    out["trace"] = device_breakdown("ADD distillation step", lambda: distill(state, b, draws),
+                                    DISTILL_RANGES, "backward passes")
+    out["syncs_per_step"] = count_syncs(lambda: distill(state, b, draws))
+    real = _frames(b["latents"][:, -TRAIN_LFZ:].float())
+    fake = real + 0.5 * torch.randn(real.shape, generator=torch.Generator(device="cuda")
+                                    .manual_seed(8), device="cuda")
+
+    def gan_term():
+        dt = fake.detach().requires_grad_()
+        torch.autograd.grad(generator_gan_term(disc, dt), dt)
+
+    parts = {"d_update_ms": median_ms(lambda: _disc_hinge_update(disc, d_opt, disc_state,
+                                                                  real, fake), reps=5),
+             "gan_term_ms": median_ms(gan_term, reps=5)}
+    parts["share_of_step"] = (parts["d_update_ms"] + parts["gan_term_ms"]) / (
+        out["median_step_s"] * 1e3)
+    out["discriminator"] = parts
+    log(f"  distill: median step {out['median_step_s']:.4f} s (steps 2-3); discriminator alone: "
+        f"hinge update {parts['d_update_ms']:.2f} ms, GAN term {parts['gan_term_ms']:.2f} ms, "
+        f"{100 * parts['share_of_step']:.1f}% of the median step; host-device synchronisations "
+        f"in one step: {out['syncs_per_step']}; DINO unchanged")
+    del disc, disc_state, step, dino0, real, fake
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1076,6 +1229,7 @@ def _sp_rank_run(rank: int, world: int, init_file: str) -> dict:
     sys.path.insert(0, REPO)
     from yume_tpu_torch.configs import ti2v_5b
     from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.ops import bias_act as ba
     from yume_tpu_torch.ops import fused_adaln as fa
     from yume_tpu_torch.ops import flash_attention as fl
     from yume_tpu_torch.ops import quant_matmul as qm
@@ -1089,7 +1243,7 @@ def _sp_rank_run(rank: int, world: int, init_file: str) -> dict:
     groups = {"ulysses": sp, "ring": sp, "usp": make_usp_groups(2, world // 2)}
     counters = [fl.flash_attention, fl.flash_attention_partial, fa.adaln_norm,
                 fa.adaln_residual, fa.qk_norm_rope, fa.rms_norm, qm.q8_dot,
-                fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv]
+                fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv, ba.bias_act]
     out = {"rank": rank, "times_s": {}, "launches": {}, "rel_l2": {}}
 
     def same_on_every_rank(what, value) -> bool:
@@ -1261,8 +1415,8 @@ def sp_phase() -> dict:
             f"rank 0 {per_rank[0]}")
         require(rel <= SP_REL_TOL, f"SP {path}: relative L2 {rel} exceeds {SP_REL_TOL}")
         require(k7 == {30 * K7_PER_LAYER[kind]}, f"SP {path}: K7 launches {k7}")
-        require(all(c["flash_attention"] > 0 and c["q8_dot"] == 0 for c in per_rank),
-                f"SP {path}: K1 did not launch or K6 did")
+        require(all(c["flash_attention"] > 0 and c["q8_dot"] == 0 and c["bias_act"] == 0
+                    for c in per_rank), f"SP {path}: K1 did not launch, or K6 or K10 did")
     rel = r0["rel_l2"]["ring euler"]
     log(f"  ring euler ({SP_EULER_STEPS} steps): tail relative L2 vs the unsharded segment "
         f"{rel:.3e}  tol {SP_REL_TOL:.0e}  {'ok' if rel <= SP_REL_TOL else 'FAIL'}; latents "
@@ -1275,9 +1429,10 @@ def sp_phase() -> dict:
     want_k7 = (n_full * 30 + (SP_TEACACHE_STEPS - n_full) * 14) * SP_WORLD
     log(f"  ring W8A8 + adaptive TeaCache @{HEADLINE_THRESHOLD}, {SP_TEACACHE_STEPS} steps: "
         f"n_full {n_full} on every rank, latents identical on every rank; launches {tc}")
-    require(tc["flash_attention_partial"] == want_k7 and tc["q8_dot"] > 0,
+    require(tc["flash_attention_partial"] == want_k7 and tc["q8_dot"] > 0
+            and tc["bias_act"] == 0,
             f"SP ring TeaCache: K7 launches {tc['flash_attention_partial']} != {want_k7}, "
-            f"or K6 did not launch")
+            f"or K6 did not launch, or K10 did")
     log("  per-rank wall times (s; four ranks time-share one card, transfers through host "
         "memory over gloo):")
     for r in range(SP_WORLD):
@@ -1298,6 +1453,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from yume_tpu_torch.ops import bias_act as ba
     from yume_tpu_torch.ops import fused_adaln as fa
     from yume_tpu_torch.ops import quant_matmul as qm
     from yume_tpu_torch.ops import flash_attention as fl
@@ -1326,6 +1482,8 @@ def main() -> int:
         # K7: K1's kernel launched per kv block by ring attention
         "flash_attention_partial": ("cuda", "yume_tpu_torch/csrc/flash_attention.cu",
                                     "yume_tpu/ops/flash_attention.py:393"),
+        # K10: launched by _forward_pallas (:100, pl.pallas_call at :113)
+        "bias_act": ("cuda", "yume_tpu_torch/csrc/bias_act.cu", "yume_tpu/ops/bias_act.py:88"),
     }
     results = {k: {"cases": []} for k in meta}
     log("kernels vs plain versions at the 5B segment shapes:")
@@ -1334,6 +1492,7 @@ def main() -> int:
     quant_matmul_kernel(results, gen)
     flash_backward_kernels(results, gen)
     partial_attention_kernel(results, gen)
+    bias_act_kernel(results, gen)
     torch.cuda.empty_cache()
     reference_phase()
     gradient_reference_phase()
@@ -1343,7 +1502,8 @@ def main() -> int:
     quality_phase()
     torch.cuda.empty_cache()
     counters = [flash_attention, fa.adaln_norm, fa.adaln_residual, fa.qk_norm_rope,
-                fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv]
+                fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv,
+                fl.flash_attention_partial, ba.bias_act]
     launches, euler_launches = pipeline_phase(counters)
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
@@ -1363,7 +1523,8 @@ def main() -> int:
                  "ms": head["ms"], "plain_ms": head["plain_ms"],
                  "bound_ms": head["bound_ms"],
                  "bound_by": r["cases"][0]["bound_by"],
-                 "library_ms": head["library_ms"], "cases": r["cases"]}
+                 "library_ms": head["library_ms"], "cases": r["cases"],
+                 "launches_train_distill": train_runs["distill"]["launches"][key]}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],
@@ -1375,9 +1536,12 @@ def main() -> int:
                          library="aten._scaled_dot_product_flash_attention, [B, N, L, D]")
             kernels.append(entry)
             continue
+        # the backward kernels' main path is the train phase's, K10's the
+        # distillation path's (3 steps); the others' the headline
+        main_path = (train_runs["distill"]["launches"] if name == "bias_act" else
+                     train_launches if backward else launches)
         entry.update({
-            # the backward kernels' main path is the train phase's
-            "launches": train_launches[key] if backward else launches[key],
+            "launches": main_path[key],
             "launches_euler_path": euler_launches[key],
             "launches_train": train_launches[key],
             "launches_train_mvdt": train_runs["mvdt"]["launches"][key],
@@ -1392,6 +1556,16 @@ def main() -> int:
             entry["timed_as"] = ("plain_ms and library_ms (the backward of "
                                  "F.scaled_dot_product_attention) compute dq, dk and dv "
                                  "together")
+        if name == "bias_act":
+            entry["launches_per_distill_step"] = K10_PER_DISTILL_STEP
+            # at the discriminator's size the events time the host's launch path;
+            # the profiled distillation step gives the kernel's own device time
+            entry["device_ms_per_launch_in_distill_trace"] = (
+                train_runs["distill"]["trace"]["families_ms"]["K10 bias_act"]
+                / K10_PER_DISTILL_STEP)
+            entry["timed_as"] = ("the discriminator's call with a bias, which no single "
+                                 "PyTorch call computes; F.leaky_relu(x, 0.2) times the "
+                                 "no-bias case")
         kernels.append(entry)
     train = {k: {f: v for f, v in r.items() if f != "launches"} for k, r in train_runs.items()}
     log("train: " + json.dumps(train))

@@ -28,7 +28,8 @@ import optax
 import pytest
 import torch
 
-from torch_parity import assert_close, perturb, port_config, to_np
+from torch_parity import (assert_close, close_rel, close_steps, jax_draws, perturb,
+                          port_config)
 from yume_tpu.configs import DiTConfig
 from yume_tpu.diffusion import transport as jtransport
 from yume_tpu.models.dit import WanDiT as JaxDiT
@@ -131,30 +132,14 @@ def _port_model(params, remat=False, cfg=CFG):
 
 
 def _draws(rng):
-    """The draws of the JAX loss_fn for key ``rng`` (its splits), in the
-    port's explicit form."""
-    flow_rng, mask_rng = jax.random.split(rng)
-    out = {}
-    for name, key in (("flow", flow_rng), ("masked", mask_rng)):
-        t_rng, n_rng, m_rng, mv_rng = jax.random.split(key, 4)
-        r_rng, nn_rng = jax.random.split(m_rng)
-        out[name] = {"t": _t(jax.random.normal(t_rng, (B,), dtype=jnp.float32)),
-                     "x0": _t(jax.random.normal(n_rng, (B, F, H, W, CFG.in_dim))),
-                     "hist": (_t(jax.random.uniform(r_rng, ())),
-                              _t(jax.random.normal(nn_rng, ())))}
-        out[name]["mvdt"] = _t(jax.random.uniform(mv_rng, (B, N_TOK)))
-    return out
+    """The draws of the JAX loss_fn for key ``rng``, in the port's explicit
+    form."""
+    return jax_draws(rng, (B, F, H, W, CFG.in_dim), N_TOK)
 
 
 def _tcs(**kw):
     kw.setdefault("latent_frame_zero", LFZ)
     return jts.TrainConfig(**kw), tts.TrainConfig(**kw)
-
-
-def _close_rel(got, want, rel, name=""):
-    want = to_np(want)
-    np.testing.assert_allclose(to_np(got), want, atol=rel * np.abs(want).max() + 1e-7,
-                               rtol=0, err_msg=name)
 
 
 _JAX_LOSS = {}
@@ -178,12 +163,12 @@ def test_loss_and_gradients_match_jax(setup, mvdt, remat):
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
                                 materialize_grads=True)
-    _close_rel(loss.detach(), loss_j, LOSS_REL)
-    _close_rel(tail.detach(), tail_j, LOSS_REL * 10)
+    close_rel(loss.detach(), loss_j, LOSS_REL)
+    close_rel(tail.detach(), tail_j, LOSS_REL * 10)
     want = convert.dit_state_dict(grads_j, CFG.num_layers)
     assert set(want) == set(names)
     for n, g in zip(names, grads):
-        _close_rel(g, want[n], GRAD_REL, n)
+        close_rel(g, want[n], GRAD_REL, n)
     if mvdt:  # the masked pass reaches the side block and the mask token
         assert grads[names.index("mask_token")].abs().sum() > 0
 
@@ -240,7 +225,7 @@ def test_optimizer_matches_optax(rng_np, opt, warmup):
         upd, st_j = opt_j.update({k: jnp.asarray(v) for k, v in g.items()}, st_j, p_j)
         p_j = optax.apply_updates(p_j, upd)
         norm = chain.update_(p_t, {k: _t(v) for k, v in g.items()}, st_t)
-        _close_rel(norm, optax.global_norm({k: jnp.asarray(v) for k, v in g.items()}), 1e-6)
+        close_rel(norm, optax.global_norm({k: jnp.asarray(v) for k, v in g.items()}), 1e-6)
         for k in shapes:
             assert_close(p_t[k], p_j[k], 1e-6)
         if opt == "adamw":
@@ -287,12 +272,6 @@ def test_adam8bit_state_converts(rng_np):
 # ---------------------------------------------------------------------------
 
 
-def _close_steps(got, want, lr, steps, name=""):
-    diff = np.abs(to_np(got) - to_np(want))
-    assert diff.max() <= 2 * lr * steps + 1e-6, (name, diff.max())
-    assert np.percentile(diff, 99) <= 1e-6, (name, np.percentile(diff, 99))
-
-
 def test_train_steps_match_jax(setup):
     """Two steps of clipped AdamW with warmup and EMA from the same start;
     then step 2 again from JAX's state after step 1 converted (params,
@@ -315,13 +294,13 @@ def test_train_steps_match_jax(setup):
     step = tts.make_train_step(model, tc_t)
     for i, r in enumerate(rngs):
         state, m = step(state, batch_t, _draws(r))
-        _close_rel(m["loss"], metrics_j[i]["loss"], LOSS_REL)
-        _close_rel(m["grad_norm"], metrics_j[i]["grad_norm"], 1e-5)
+        close_rel(m["loss"], metrics_j[i]["loss"], LOSS_REL)
+        close_rel(m["grad_norm"], metrics_j[i]["grad_norm"], 1e-5)
     assert state.step == 2 and state.opt_state["count"] == 2
     for tree, got in ((states_j[2].params, state.params),
                       (states_j[2].ema_params, state.ema_params)):
         for n, w in to_port(tree).items():
-            _close_steps(got[n], w, lr, 2, n)
+            close_steps(got[n], w, lr, 2, n)
 
     # mid-run: port from JAX's state after step 1
     model2 = _port_model(states_j[1].params)
@@ -333,9 +312,9 @@ def test_train_steps_match_jax(setup):
     state2.opt_state["mu"] = {n: _t(v) for n, v in state2.opt_state["mu"].items()}
     state2.opt_state["nu"] = {n: _t(v) for n, v in state2.opt_state["nu"].items()}
     state2, m = tts.make_train_step(model2, tc_t)(state2, batch_t, _draws(rngs[1]))
-    _close_rel(m["loss"], metrics_j[1]["loss"], LOSS_REL)
+    close_rel(m["loss"], metrics_j[1]["loss"], LOSS_REL)
     for n, w in to_port(states_j[2].params).items():
-        _close_steps(state2.params[n], w, lr, 1, n)
+        close_steps(state2.params[n], w, lr, 1, n)
 
 
 def test_lora_train_steps_match_jax(setup):
@@ -354,10 +333,10 @@ def test_lora_train_steps_match_jax(setup):
     for r in (jax.random.PRNGKey(21), jax.random.PRNGKey(22)):
         st_j, m_j = jstep(st_j, params, batch_j, r)
         state, m = step(state, batch_t, _draws(r))
-        _close_rel(m["loss"], m_j["loss"], LOSS_REL)
+        close_rel(m["loss"], m_j["loss"], LOSS_REL)
         assert m["grad_norm"] > 0
     for n, w in convert.lora_state_dict(st_j.params).items():
-        _close_steps(state.params[n], w, lr, 2, n)
+        close_steps(state.params[n], w, lr, 2, n)
     # the frozen base got no gradient; the merged weights equal JAX's merge
     assert all(p.grad is None and not p.requires_grad for p in model.parameters())
     merged = tlora.merge_lora(

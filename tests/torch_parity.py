@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package (tests/test_torch_*.py)."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -41,6 +42,42 @@ def assert_close(got, want, tol):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=tol, rtol=0)
 
 
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run with ``n`` intra-op threads. The tier-1 suite runs six workers
+    on one machine; a torch-heavy module at the default of one thread a
+    core oversubscribes the cores, and OpenMP's waiting threads then made
+    its CPU steps some 40× slower than alone."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def close_rel(got, want, rel, name=""):
+    """Within ``rel`` of the largest |want| (plus 1e-7), elementwise."""
+    want = to_np(want)
+    np.testing.assert_allclose(to_np(got), want, atol=rel * np.abs(want).max() + 1e-7,
+                               rtol=0, err_msg=name)
+
+
+def close_steps(got, want, lr, steps, name="", p99=1e-6):
+    """Parameters after ``steps`` Adam steps of rate ``lr`` from the same
+    start: a gradient that differs only in its last bits near 0 maps to
+    ±lr on a first step, so within 2·lr per step everywhere and ``p99``
+    at the 99th percentile."""
+    diff = np.abs(to_np(got) - to_np(want))
+    assert diff.max() <= 2 * lr * steps + 1e-6, (name, diff.max())
+    assert np.percentile(diff, 99) <= p99, (name, np.percentile(diff, 99))
+
+
+def rel_l2(got, want) -> float:
+    want = to_np(want)
+    return float(np.linalg.norm(to_np(got) - want) / max(np.linalg.norm(want), 1e-30))
+
+
 def port_config(cfg):
     """The port's copy of a JAX config dataclass (``yume_tpu.configs``),
     field for field, nested configs included; tuples stay tuples."""
@@ -52,11 +89,35 @@ def port_config(cfg):
     return cls(**kw)
 
 
+def jax_draws(rng, x_shape, n_tok):
+    """The draws of the JAX ``make_loss_fn`` for PRNG key ``rng`` (its
+    splits), in the port's explicit form (``training.train_step.draw_step``):
+    latents of ``x_shape`` [B, F, H, W, C], ``n_tok`` packed tokens for the
+    MVDT noise."""
+    import jax
+    import jax.numpy as jnp
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    flow_rng, mask_rng = jax.random.split(rng)
+    out = {}
+    for name, key in (("flow", flow_rng), ("masked", mask_rng)):
+        t_rng, n_rng, m_rng, mv_rng = jax.random.split(key, 4)
+        r_rng, nn_rng = jax.random.split(m_rng)
+        out[name] = {"t": t(jax.random.normal(t_rng, (x_shape[0],), dtype=jnp.float32)),
+                     "x0": t(jax.random.normal(n_rng, x_shape)),
+                     "hist": (t(jax.random.uniform(r_rng, ())), t(jax.random.normal(nn_rng, ()))),
+                     "mvdt": t(jax.random.uniform(mv_rng, (x_shape[0], n_tok)))}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # ranks of a sequence-parallel run on the CPU (tests/test_torch_sp.py)
 #
-# A spawned rank imports this module, never jax: the functions below run
-# the port on the rank's side of a gloo group.
+# A spawned rank imports this module, never jax (jax_draws imports it when
+# called): the functions below run the port on the rank's side of a gloo
+# group.
 # ---------------------------------------------------------------------------
 
 RANK_TIMEOUT_S = 120

@@ -51,6 +51,8 @@ _SIGNATURES = {
                                     + [_FLOAT, _VOID],
     # x, qw, w_scale, a_scale, out, M, N, K, x row stride, stream
     "yume_q8_matmul": [_VOID] * 5 + [_INT] * 3 + [_I64, _VOID],
+    # x, b (or null), y, n, C, inner, dtype, act, alpha, gain, clamp, stream
+    "yume_bias_act": [_VOID] * 3 + [_I64] * 3 + [_INT] * 2 + [_FLOAT] * 3 + [_VOID],
 }
 
 

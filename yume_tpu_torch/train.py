@@ -1,8 +1,9 @@
-"""Training entry point: flow-matching (+ MVDT, + LoRA) fine-tuning of the 5B DiT
-on one GPU (counterpart of yume_tpu/train.py).
+"""Training entry point: flow-matching (+ MVDT, + ADD distillation, + LoRA)
+fine-tuning of the 5B DiT on one GPU (counterpart of yume_tpu/train.py).
 
-    python -m yume_tpu_torch.train --smoke --device cpu    # tiny synthetic run
-    python -m yume_tpu_torch.train --lora_rank 16 --remat  # 5B LoRA on the card
+    python -m yume_tpu_torch.train --smoke --device cpu            # tiny synthetic run
+    python -m yume_tpu_torch.train --smoke --Distil --device cpu   # with the ADD discriminator
+    python -m yume_tpu_torch.train --lora_rank 16 --remat          # 5B LoRA on the card
 
 Same flags and smoke configs as the reference's train.py, plus ``--device``
 (default ``cuda``). Batches are synthetic latents made from a seed per step;
@@ -11,18 +12,24 @@ the DiT computes in bf16 (the attention kernels take bf16), on the CPU the
 smoke run computes in fp32 as the reference's does. Parameters are stored
 in fp32, as flax creates them.
 
+``--Distil`` adds the ADD discriminator (fp32, random weights, DINO frozen;
+``--dino_path`` loads DINO ViT-S/16 weights in timm's layout) and runs
+``make_distill_train_step``; it composes with ``--MVDT``. As in the
+reference, ``--resume`` restores the generator and starts a fresh
+discriminator.
+
 Not ported, and refused with the ROADMAP item that brings them:
 ``--data_dir`` (the VAE encoder and real videos, queue 1 item 3),
 ``--ckpt_dir`` and ``--export_torch_dir`` (a safetensors reader and writer,
-queue 1 item 7), ``--Distil`` (the ADD discriminator, queue 1 item 7),
-``--sp > 1`` (sequence-parallel training, queue 1 item 8; SP serving is
-ported) and ``--config i2v-14B`` (queue 1 item 6).
+queue 1 item 7), ``--sp > 1`` (sequence-parallel training, queue 1 item 8;
+SP serving is ported) and ``--config i2v-14B`` (queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import random
 import time
@@ -49,7 +56,9 @@ def build_argparser():
     p.add_argument("--validation_steps", type=int, default=0)
     p.add_argument("--MVDT", action="store_true")
     p.add_argument("--Distil", action="store_true")
-    p.add_argument("--dino_path", default=None)
+    p.add_argument("--dino_path", default=None,
+                   help="DINO ViT-S/16 weights (dino_deitsmall16_pretrain.pth, timm "
+                        "layout) for the frozen discriminator projector")
     p.add_argument("--num_frames", type=int, default=33)
     p.add_argument("--height", type=int, default=352)
     p.add_argument("--width", type=int, default=640)
@@ -81,7 +90,6 @@ def _refuse_unported(args):
         (args.ckpt_dir, "--ckpt_dir needs a safetensors reader (ROADMAP queue 1, item 7)"),
         (args.export_torch_dir, "--export_torch_dir needs a safetensors writer "
                                 "(ROADMAP queue 1, item 7)"),
-        (args.Distil, "--Distil needs the ADD discriminator (ROADMAP queue 1, item 7)"),
         (args.sp > 1, "--sp > 1 is sequence-parallel training, which needs a "
                       "differentiable all-to-all and a ring backward that sends dK/dV "
                       "round the ring (ROADMAP queue 1, item 8); sequence-parallel "
@@ -200,7 +208,22 @@ def main(argv=None):
     else:
         state = init_train_state(trainable_params(model), tc)
         keeps = mvdt_keeps or [None]
-        step_fns = {k: make_train_step(model, tc, mvdt_keep=k) for k in set(keeps)}
+        if args.Distil:
+            # the ADD discriminator (reference train.py:237-266); its own
+            # clipped AdamW over every parameter but DINO's
+            from .training.distill import (disc_optimizer, init_disc_state,
+                                           make_distill_train_step)
+
+            d_opt = disc_optimizer()
+            disc, disc_state = init_disc_state(d_opt, z_dim=dit_cfg.out_dim,
+                                               dino_path=args.dino_path, device=device,
+                                               generator=_generator(device, args.seed + 1))
+            distill_fns = {k: make_distill_train_step(model, tc, disc, d_opt, mvdt_keep=k)
+                           for k in set(keeps)}
+            step_fns = {k: functools.partial(_distill_step, fn, disc_state)
+                        for k, fn in distill_fns.items()}
+        else:
+            step_fns = {k: make_train_step(model, tc, mvdt_keep=k) for k in set(keeps)}
 
         def step_fn(state, batch, draws, step):
             # a keep count per step, drawn from (seed, step) so a resumed
@@ -226,7 +249,7 @@ def main(argv=None):
 
     prof_lo, prof_hi = (int(s) for s in args.profile_steps.split(","))
     profiler = None
-    times, losses, grad_norms = [], [], []
+    times, losses, grad_norms, gan_losses, d_losses = [], [], [], [], []
     for step in range(start_step, args.max_train_steps):
         if args.profile_dir and step == prof_lo:
             profiler = torch.profiler.profile()
@@ -240,10 +263,15 @@ def main(argv=None):
         times.append(time.time() - t_start)
         losses.append(loss)
         grad_norms.append(grad_norm)
+        loss_str = f"loss={loss:.4f}"
+        if args.Distil:
+            gan_losses.append(float(metrics["gan_loss"]))
+            d_losses.append(float(metrics["d_loss"]))
+            loss_str += f" gan_loss={gan_losses[-1]:.4f} d_loss={d_losses[-1]:.4f}"
         if profiler is not None and step == prof_hi:
             _stop_profile(profiler, args.profile_dir)
             profiler = None
-        print(f"step {step + 1}/{args.max_train_steps} loss={loss:.4f} "
+        print(f"step {step + 1}/{args.max_train_steps} {loss_str} "
               f"grad_norm={grad_norm:.3f} step_time={np.mean(times[-100:]):.2f}s",
               flush=True)
         if args.checkpointing_steps and (step + 1) % args.checkpointing_steps == 0:
@@ -255,10 +283,19 @@ def main(argv=None):
         _stop_profile(profiler, args.profile_dir)
     main.last_run = {"losses": losses, "grad_norms": grad_norms, "step_times": times,
                      "trainable": sum(p.numel() for p in state.params.values())}
+    if args.Distil:
+        main.last_run.update(gan_losses=gan_losses, d_losses=d_losses)
     return 0
 
 
 main.last_run = None
+
+
+def _distill_step(fn, disc_state, state, batch, draws):
+    """A distillation step in the plain step's form; the discriminator's
+    state is updated in place."""
+    state, _, metrics = fn(state, disc_state, batch, draws)
+    return state, metrics
 
 
 def _stop_profile(profiler, profile_dir):

@@ -1,5 +1,6 @@
 """Train-state checkpoints as torch files (the save/restore part of
-yume_tpu/utils/checkpoint.py; Orbax is not ported).
+yume_tpu/utils/checkpoint.py; Orbax is not ported), and the reader of
+torch state dicts (:func:`load_torch_state_dict`).
 
 ``<output_dir>/checkpoint-<step>.pt`` holds the step, the trained tensors,
 the optimizer state and the EMA. :func:`restore_checkpoint` copies the
@@ -54,6 +55,16 @@ def _copy_into(dst, src, where: str):
                              f"{tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(src)
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A torch ``.pth``/``.pt`` state dict as fp32 CPU tensors, unwrapped
+    from a ``state_dict`` or ``model`` entry where the file has one."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return {k: v.float() for k, v in sd.items() if torch.is_tensor(v)}
 
 
 def restore_checkpoint(output_dir: str, state: TrainState) -> TrainState:

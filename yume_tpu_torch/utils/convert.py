@@ -9,6 +9,9 @@ produce the same reference-named state dicts, as float32 numpy arrays:
 * :func:`t5_state_dict` inverts ``convert_t5_state_dict``;
 * :func:`vae22_state_dict` inverts ``convert_vae22_state_dict`` (encoder
   included, with the reference's tensor shapes);
+* :func:`disc_state_dict` / :func:`disc_tree` map the ADD discriminator's
+  parameters and spectral vectors both ways, and :func:`dino_state_dict`
+  selects a timm DINO checkpoint's projector tensors;
 * :func:`lora_state_dict` / :func:`lora_tree` map LoRA adapters both ways,
   and :func:`adamw_state` / :func:`adam8bit_state` optimizer states, so a
   test can start both packages from the same mid-run training state.
@@ -221,6 +224,106 @@ def vae22_state_dict(params: Mapping, num_res_blocks: int = 2) -> Dict[str, np.n
     return sd
 
 
+# ---------------------------------------------------------------------------
+# the ADD discriminator
+# ---------------------------------------------------------------------------
+
+# flax layout → the port's, per kind of leaf (each its own inverse but conv2d)
+_TO_PORT = {
+    None: lambda a: a,
+    "dense": lambda a: a.T,                           # (I, O) → Linear (O, I)
+    "conv2d": lambda a: a.transpose(3, 2, 0, 1),      # HWIO → OIHW
+    "conv1d": lambda a: a.transpose(2, 1, 0),         # (k, I, O) → Conv1d (O, I, k)
+}
+_TO_JAX = dict(_TO_PORT, conv2d=lambda a: a.transpose(2, 3, 1, 0))
+_DISC_HEADS = 5
+
+
+def _dino_leaves(depth: int):
+    """(JAX path, port key, kind) of every DinoViT parameter."""
+    out = [("cls_token", "cls_token", None), ("pos_embed", "pos_embed", None),
+           ("patch_embed/kernel", "patch_embed.proj.weight", "conv2d"),
+           ("patch_embed/bias", "patch_embed.proj.bias", None)]
+    for i in range(depth):
+        for src, dst, kind in (("norm1/scale", "norm1.weight", None),
+                               ("norm1/bias", "norm1.bias", None),
+                               ("qkv/kernel", "attn.qkv.weight", "dense"),
+                               ("qkv/bias", "attn.qkv.bias", None),
+                               ("proj/kernel", "attn.proj.weight", "dense"),
+                               ("proj/bias", "attn.proj.bias", None),
+                               ("norm2/scale", "norm2.weight", None),
+                               ("norm2/bias", "norm2.bias", None),
+                               ("mlp_0/kernel", "mlp.fc1.weight", "dense"),
+                               ("mlp_0/bias", "mlp.fc1.bias", None),
+                               ("mlp_2/kernel", "mlp.fc2.weight", "dense"),
+                               ("mlp_2/bias", "mlp.fc2.bias", None)):
+            out.append((f"blocks_{i}/{src}", f"blocks.{i}.{dst}", kind))
+    return out
+
+
+def _disc_leaves(depth: int = 12):
+    """(collection, JAX path, port key, kind) of every leaf of the
+    ProjectedDiscriminator: its parameters and the spectral vectors."""
+    out = [("params", "up_conv/kernel", "up_conv.weight", "conv2d"),
+           ("params", "up_conv/bias", "up_conv.bias", None)]
+    out += [("params", f"dino/{a}", f"dino.{b}", k) for a, b, k in _dino_leaves(depth)]
+    for head in ("head", "head_f"):
+        for i in range(_DISC_HEADS):
+            convs = [f"{head}_{i}/block{j}/conv" for j in (0, 1)] + [f"{head}_{i}/cls"]
+            for conv in convs:
+                dst = _module_name(conv.split("/"))
+                out += [("params", f"{conv}/kernel", f"{dst}.weight", "conv1d"),
+                        ("params", f"{conv}/bias", f"{dst}.bias", None),
+                        ("spectral", f"{conv}/u", f"{dst}.u", None)]
+            for j in (0, 1):
+                norm = f"{head}_{i}/block{j}/norm"
+                dst = _module_name(norm.split("/"))
+                out += [("params", f"{norm}/scale", f"{dst}.weight", None),
+                        ("params", f"{norm}/bias", f"{dst}.bias", None)]
+    return out
+
+
+def disc_state_dict(params: Mapping, spectral: Mapping = None) -> Dict[str, np.ndarray]:
+    """The JAX ProjectedDiscriminator's ``params`` and ``spectral`` trees →
+    the port's ``ProjectedDiscriminator`` state dict (the spectral vectors
+    are its ``u`` buffers). Leaves the trees lack, or hold no array for,
+    are left out: the spectral vectors without ``spectral``, DINO's in the
+    moments of an optimizer that masks it (optax's ``MaskedNode``)."""
+    trees = {"params": _root(params),
+             "spectral": {} if spectral is None else spectral.get("spectral", spectral)}
+    out = {}
+    for col, src, dst, kind in _disc_leaves():
+        leaf = get_in(trees[col], src) if _has(trees[col], src) else None
+        if hasattr(leaf, "shape"):
+            out[dst] = _TO_PORT[kind](_f32(leaf))
+    return out
+
+
+def disc_tree(sd: Mapping):
+    """Inverse of :func:`disc_state_dict`: a port state dict (tensors or
+    arrays) → JAX ``(params, spectral)`` trees of numpy arrays. Keys the
+    state dict lacks (e.g. DINO's, for an optimizer moment) are left out."""
+    trees: Dict[str, Dict] = {"params": {}, "spectral": {}}
+    for col, src, dst, kind in _disc_leaves():
+        if dst in sd:
+            val = np.asarray(torch.as_tensor(sd[dst]).detach().float().cpu())
+            *path, leaf = src.split("/")
+            node = trees[col]
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = _TO_JAX[kind](val)
+    return trees["params"], trees["spectral"]
+
+
+def dino_state_dict(sd: Mapping, depth: int = 12) -> Dict[str, torch.Tensor]:
+    """DINO ViT-S/16 weights in timm's layout
+    (``dino_deitsmall16_pretrain.pth``) → the port's ``DinoViT`` state dict
+    (the counterpart of ``convert_dino_state_dict``). The port keeps timm's
+    names, so this selects the projector's tensors: the final ``norm`` and
+    ``head`` are unused (the hooks read raw block activations)."""
+    return {key: torch.as_tensor(sd[key]).float() for _, key, _ in _dino_leaves(depth)}
+
+
 @torch.no_grad()
 def load_state_dict(module: nn.Module, sd: Mapping, *, allow_unused: bool = False):
     """Copy a state dict (numpy arrays or tensors) into ``module``, casting
@@ -298,11 +401,14 @@ def lora_tree(lora_sd: Mapping) -> Dict:
 
 def _adam_leaves(opt_state, kind: str):
     """The first ScaleByAdamState (``kind='adam'``) or Adam8bitState
-    (``kind='adam8bit'``) inside an optax chain state."""
+    (``kind='adam8bit'``) inside an optax chain state (or the per-label
+    states of ``multi_transform``)."""
     if kind == "adam" and hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
         return opt_state
     if kind == "adam8bit" and hasattr(opt_state, "leaves") and hasattr(opt_state, "count"):
         return opt_state
+    if isinstance(opt_state, Mapping):
+        opt_state = list(opt_state.values())
     if isinstance(opt_state, (tuple, list)):
         for s in opt_state:
             found = _adam_leaves(s, kind)
