@@ -91,3 +91,28 @@ def test_slice_matches_jax(pipelines):
     # history frames stay frozen, the tail moved away from its noise
     np.testing.assert_array_equal(tlat[:, :3].numpy(), history)
     assert np.abs(tlat[:, -2:].numpy() - noises[1]).max() > 1e-2
+
+
+def test_bf16_history_promotes_tail_to_fp32(pipelines):
+    """A bf16 history with fp32 tail noise: jnp.concatenate promotes the
+    latent to fp32, so the tail integrates in fp32 on both sides. Both get
+    the same bf16 history values; the port must not round the noise (and
+    every step of the tail) to bf16."""
+    jpipe, tpipe = pipelines
+    rng = np.random.default_rng(15)
+    history = torch.from_numpy(rng.standard_normal((1, 3, 4, 4, 8)).astype(np.float32))
+    history = history.to(torch.bfloat16)
+    noises = [rng.standard_normal((1, 2, 4, 4, 8)).astype(np.float32) for _ in range(2)]
+    ctx = rng.standard_normal((1, 16, 16)).astype(np.float32)
+
+    jlat = jnp.asarray(history.float().numpy()).astype(jnp.bfloat16)
+    tlat = history
+    for noise in noises:
+        jlat = jpipe.generate_segment(jlat, jnp.asarray(ctx), steps=2,
+                                      noise=jnp.asarray(noise))
+        tlat = tpipe.generate_segment(tlat, torch.from_numpy(ctx), steps=2,
+                                      noise=torch.from_numpy(noise))
+        assert jlat.dtype == jnp.float32
+        assert tlat.dtype == torch.float32
+        assert_close(tlat, jlat, LATENT_TOL)
+    np.testing.assert_array_equal(tlat[:, :3].numpy(), history.float().numpy())

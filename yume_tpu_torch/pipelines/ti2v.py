@@ -251,7 +251,10 @@ class TI2VPipeline:
             gen = torch.Generator(device=device).manual_seed(seed)
             noise = torch.randn((b, lfz, h, w, c), generator=gen, device=device,
                                 dtype=torch.float32)
-        latent = torch.cat([history_latents, noise.to(history_latents.dtype)], dim=1)
+        # jnp.concatenate promotes: a bf16 history with fp32 noise is an fp32
+        # latent, so the tail integrates in fp32
+        dtype = torch.promote_types(history_latents.dtype, noise.dtype)
+        latent = torch.cat([history_latents.to(dtype), noise.to(dtype)], dim=1)
         history_t = torch.zeros((b, f_hist), dtype=torch.float32, device=device)
         if sampler == "teacache":
             out, self.last_teacache_n_full = self._sample_segment_teacache(
