@@ -9,7 +9,8 @@ result line:
 1. device: the card's name and power limit from nvidia-smi, torch and CUDA
    versions;
 2. build: compile the CUDA kernels from yume_tpu_torch/csrc (one nvcc per
-   source, in parallel);
+   source, in parallel); print the flash forward kernel's registers, spills
+   and shared memory from the compiler's log;
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4+K5, the
    W8A8 int8 matmul K6, the partial flash attention of ring attention K7,
@@ -22,8 +23,10 @@ result line:
    stated tolerance, median times of the kernel, of its plain version and
    of one PyTorch library call where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the published peak of their type, whichever is larger); then K7's
-   ring invariant against K1 and its VJP with an lse cotangent;
+   over the published peak of their type, whichever is larger), and for K1
+   and K7 the achieved TFLOP/s and the share of the bound (K1 also at the
+   unpacked 121-frame stream's 27,280 tokens); then K7's ring invariant
+   against K1 and its VJP with an lse cotangent;
 4. reference: a 2-layer full-width DiT on the card (kernels, bf16) against
    the same weights on the CPU (plain versions, fp32), once in bf16 matmuls
    and once with W8A8, at a small input; then the gradient of a flow loss
@@ -166,6 +169,14 @@ def attn_bound(q, kv_rows: int):
                     4 * b * n * lq * kv_rows * d, "bf16")
 
 
+def attn_rate(q, kv_rows: int, ms: float, bound) -> dict:
+    """Achieved TFLOP/s of a flash forward (the two products over the live
+    keys) and the share of its bound it reaches."""
+    b, lq, n, d = q.shape
+    return {"tflops": round(4 * b * n * lq * kv_rows * d / ms / 1e9, 1),
+            "bound_share": round(bound[0] / ms, 4)}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -185,9 +196,24 @@ def build_phase():
     from yume_tpu_torch import _build
 
     t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {os.path.relpath(_build.build(), REPO)} built and loaded in "
+    lib = _build.library()
+    path = _build.build()
+    log(f"build: {os.path.relpath(path, REPO)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    # the flash forward kernel's registers, spills and shared memory (ptxas
+    # -v reports the kernel's register count at entry; the consumers raise
+    # theirs to 240 with setmaxnreg)
+    with open(f"{path}.log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "flash_fwd_kernel" in line:
+            d = int(line.split("flash_fwd_kernelILi")[1].split("E")[0])
+            info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                    if "spill" in x or "registers" in x]
+            log(f"build: flash_fwd_kernel<{d}>: {'; '.join(info)}; dynamic shared memory "
+                f"{lib.yume_flash_attention_fwd_smem(d)} bytes a CTA")
+    serialized = [x for x in lines if "C7515" in x and "flash_fwd_kernel" in x]
+    log(f"build: flash_fwd_kernel wgmma serialization warnings (C7515): {len(serialized)}")
 
 
 def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
@@ -220,33 +246,47 @@ def attention_and_glue_kernels(results, gen):
                                               v.transpose(1, 2))
 
     # K1 flash attention --------------------------------------------------
-    q, k, v = _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D)
-    hs = 4  # the fp32 plain version at L = 12,095 fits only a few heads at a time
-    out = flash_attention(q, k, v)
-    err = max_err(out[:, :, :hs], plain_attention(q[:, :, :hs], k[:, :, :hs], v[:, :, :hs]))
+    def k1_record(case, q, k, v, rows, err, plain_fn, lib_fn=None, kv_len=None,
+                  reps=10, plain_reps=10):
+        ms = median_ms(lambda: flash_attention(q, k, v, kv_len=kv_len), reps=reps)
+        bound = attn_bound(q, rows)
+        _record(results, "flash_attention", case, err, K1_TOL, ms,
+                median_ms(plain_fn, reps=plain_reps), bound,
+                None if lib_fn is None else median_ms(lib_fn, reps=reps),
+                **attn_rate(q, rows, ms, bound))
 
-    def plain_self():
+    def plain_by_heads(q, k, v, hs):
+        # the fp32 plain version at these lengths fits only a few heads at a time
         for h in range(0, N, hs):
             plain_attention(q[:, :, h:h + hs], k[:, :, h:h + hs], v[:, :, h:h + hs])
 
-    _record(results, "flash_attention", "self [1,12095,24,128]", err, K1_TOL,
-            median_ms(lambda: flash_attention(q, k, v), reps=5),
-            median_ms(plain_self, reps=3), attn_bound(q, L),
-            median_ms(lambda: sdpa(q, k, v), reps=5))
+    q, k, v = _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D), _randn(gen, 1, L, N, D)
+    hs = 4
+    out = flash_attention(q, k, v)
+    err = max_err(out[:, :, :hs], plain_attention(q[:, :, :hs], k[:, :, :hs], v[:, :, :hs]))
+    k1_record("self [1,12095,24,128]", q, k, v, L, err, lambda: plain_by_heads(q, k, v, hs),
+              lambda: sdpa(q, k, v), reps=5, plain_reps=3)
     kc, vc = _randn(gen, 1, TEXT_LEN, N, D), _randn(gen, 1, TEXT_LEN, N, D)
     err = max_err(flash_attention(q, kc, vc), plain_attention(q, kc, vc))
-    _record(results, "flash_attention", "cross Lk=512", err, K1_TOL,
-            median_ms(lambda: flash_attention(q, kc, vc)),
-            median_ms(lambda: plain_attention(q, kc, vc)), attn_bound(q, TEXT_LEN),
-            median_ms(lambda: sdpa(q, kc, vc)))
+    k1_record("cross Lk=512", q, kc, vc, TEXT_LEN, err, lambda: plain_attention(q, kc, vc),
+              lambda: sdpa(q, kc, vc))
     kv_len = torch.tensor([300], dtype=torch.int32, device="cuda")
     err = max_err(flash_attention(q, kc, vc, kv_len=kv_len),
                   plain_attention(q, kc, vc, kv_len=kv_len))
-    _record(results, "flash_attention", "cross kv_len=300<512", err, K1_TOL,
-            median_ms(lambda: flash_attention(q, kc, vc, kv_len=kv_len)),
-            median_ms(lambda: plain_attention(q, kc, vc, kv_len=kv_len)),
-            attn_bound(q, 300))
+    k1_record("cross kv_len=300<512", q, kc, vc, 300, err,
+              lambda: plain_attention(q, kc, vc, kv_len=kv_len), kv_len=kv_len)
     del q, k, v, kc, vc, out
+    # the unpacked 121-frame stream: 31 x 22 x 40 = 27,280 tokens (the first
+    # segment of a t2v rollout, ROADMAP queue 1), held to the plain version
+    # on two heads
+    lu, hs = 31 * 22 * 40, 2
+    q, k, v = _randn(gen, 1, lu, N, D), _randn(gen, 1, lu, N, D), _randn(gen, 1, lu, N, D)
+    out = flash_attention(q, k, v)
+    err = max_err(out[:, :, :hs], plain_attention(q[:, :, :hs], k[:, :, :hs], v[:, :, :hs]))
+    k1_record(f"self unpacked [1,{lu},24,128]", q, k, v, lu, err,
+              lambda: plain_by_heads(q, k, v, hs), lambda: sdpa(q, k, v), reps=5,
+              plain_reps=1)
+    del q, k, v, out
 
     # K2 adaln_norm, K3 adaln_residual, K4 + K5 ----------------------------
     x, y = _randn(gen, 1, L, DIM), _randn(gen, 1, L, DIM)
@@ -430,10 +470,11 @@ def partial_attention_kernel(results, gen):
             require(torch.equal(merged, o_live.float()) and torch.equal(merged_lse, lse_live),
                     f"K7 {case}: the masked block changed a merge")
             extra["merges_to_zero_weight"] = True
-        _record(results, "flash_attention_partial", case, max_err(out, want), K7_TOL,
-                median_ms(lambda: fl.flash_attention_partial(q, k, v, kv_len=kl)),
+        ms = median_ms(lambda: fl.flash_attention_partial(q, k, v, kv_len=kl))
+        bound = attn_bound(q, rows)
+        _record(results, "flash_attention_partial", case, max_err(out, want), K7_TOL, ms,
                 median_ms(lambda: fl.plain_attention_partial(q, k, v, kv_len=kl), reps=3),
-                attn_bound(q, rows), lib_ms, **extra)
+                bound, lib_ms, **extra, **attn_rate(q, rows, ms, bound))
         del q, k, v, out, lse, want, want_lse
 
     # the ring invariant at sp = 4: the last shard's q (3,023 tokens and a pad)

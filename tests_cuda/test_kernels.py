@@ -4,7 +4,11 @@ lengths, per-batch kv_len (including 0), strided views, head dim 64, batch
 > 1 with per-batch modulation tables, and the wrappers' input checks; the
 partial attention K7 (ring attention's block) at ragged Lq and Lk, kv_len
 0, 1 and Lk, head dims 16, 64 and 128, and a q that is a strided view, as
-an all-to-all's output may be.
+an all-to-all's output may be. The forward's tiling edges: Lq and Lk
+either side of its 128-row q block and 128-key tile, kv_len either side of
+a tile and 0, every head dim, the full 5B grid, the W8A8 split's v view
+and a V that exposes a wrong P-register layout, each run three times and
+bit-identical between runs.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -65,6 +69,91 @@ def test_flash_attention_strided_views(gen):
     assert not q.is_contiguous()
     err = (flash_attention(q, k, v).float() - plain_attention(q, k, v).float()).abs().max()
     assert err.item() <= K1_TOL
+
+
+def _fwd_repeated(q, k, v, kl=None):
+    """flash_attention's (out, lse) three times: the runs must agree bit
+    for bit (no atomics, no order that changes between launches)."""
+    runs = [flash_attention(q, k, v, kv_len=kl, return_lse=True) for _ in range(3)]
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+    return runs[0]
+
+
+def _check_fwd(out, lse, want, want_lse, rows=None):
+    rows = slice(None) if rows is None else rows
+    err = (out[rows].float() - want[rows].float()).abs().max().item()
+    assert err <= K1_TOL, err
+    torch.testing.assert_close(lse[rows], want_lse[rows], atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("lq,lk", [(127, 127), (128, 128), (129, 129), (255, 255),
+                                   (127, 255), (255, 129), (129, 128), (128, 127)])
+def test_flash_forward_tile_edges(gen, lq, lk, d):
+    """Lq and Lk either side of the q block and key tile (128), ragged both."""
+    q, k, v = _randn(gen, 2, lq, 3, d), _randn(gen, 2, lk, 3, d), _randn(gen, 2, lk, 3, d)
+    out, lse = _fwd_repeated(q, k, v)
+    _check_fwd(out, lse, *plain_attention(q, k, v, return_lse=True))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_forward_kv_len_edges(gen, d):
+    """kv_len either side of a key tile (127, 128, 129), past two tiles, and
+    0 (output 0, lse MASKED_LSE), one per batch, over 300 keys."""
+    kv_len = (127, 128, 129, 0, 257)
+    b = len(kv_len)
+    q, k, v = _randn(gen, b, 200, 2, d), _randn(gen, b, 300, 2, d), _randn(gen, b, 300, 2, d)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = _fwd_repeated(q, k, v, kl)
+    want, want_lse = plain_attention_partial(q, k, v, kv_len=kl)
+    live = [i for i in range(b) if kv_len[i] > 0]
+    _check_fwd(out, lse, want, want_lse, live)
+    assert out[3].abs().max().item() == 0.0 and lse[3].max().item() == MASKED_LSE
+
+
+def test_flash_forward_full_grid(gen):
+    """B·N = 2×24 at the 5B segment's 12,095 tokens: every q block of every
+    head runs; four heads of each batch are held to the plain version (the
+    fp32 plain version of all 48 would take ~28 GB)."""
+    b, l, n, d = 2, 12095, 24, 128
+    q, k, v = _randn(gen, b, l, n, d), _randn(gen, b, l, n, d), _randn(gen, b, l, n, d)
+    out, lse = _fwd_repeated(q, k, v)
+    for hs in (slice(0, 3), slice(23, 24)):
+        want, want_lse = plain_attention(q[:, :, hs], k[:, :, hs], v[:, :, hs],
+                                         return_lse=True)
+        _check_fwd(out[:, :, hs], lse[:, hs], want, want_lse)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_w8a8_v_view(gen, d):
+    """v as the W8A8 split makes it: a [B, L, N, D] view of one [B, L, 3·dim]
+    projection, row stride 3·dim (models/dit.py), with q and k contiguous."""
+    b, l, n = 1, 300, 4
+    qkv = _randn(gen, b, l, 3 * n * d)
+    q, k, v = (t.reshape(b, l, n, d) if i < 2 else t.view(b, l, n, d)
+               for i, t in enumerate(qkv.split(n * d, -1)))
+    q, k = q.contiguous(), k.contiguous()
+    assert v.stride(1) == 3 * n * d
+    out, lse = _fwd_repeated(q, k, v)
+    _check_fwd(out, lse, *plain_attention(q, k, v, return_lse=True))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_forward_identity_v(gen, d):
+    """V far from uniform: key j carries a one-hot row at column j mod D,
+    scaled by 1 + (j // D) / (Lk / D) (in [1, 2), so one bf16 ulp stays
+    below 2^-7), so output column c is the weighted softmax mass of the
+    keys ≡ c (mod D). A P register read against the wrong keys moves mass
+    between columns, which N(0, 1) inputs average away."""
+    lq, lk, n = 130, 384, 2
+    q, k = _randn(gen, 1, lq, n, d, scale=2.0), _randn(gen, 1, lk, n, d)
+    j = torch.arange(lk, device="cuda")
+    v = torch.zeros(1, lk, n, d, device="cuda")
+    v[0, j, :, j % d] = (1.0 + (j // d) / (lk // d)).float()[:, None]
+    v = v.to(torch.bfloat16)
+    out, lse = _fwd_repeated(q, k, v)
+    _check_fwd(out, lse, *plain_attention(q, k, v, return_lse=True))
 
 
 def test_flash_attention_rejects_unsupported(gen):

@@ -135,6 +135,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.yume_flash_attention_fwd_smem.argtypes = [_INT]
+    lib.yume_flash_attention_fwd_smem.restype = ctypes.c_int
     lib.yume_error_string.argtypes = [_INT]
     lib.yume_error_string.restype = ctypes.c_char_p
     return lib

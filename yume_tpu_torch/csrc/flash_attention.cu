@@ -12,241 +12,531 @@
 // Differences from the TPU kernel, on purpose:
 //  * The softmax scale multiplies the fp32 scores (the TPU wrapper folds it
 //    into q in fp32 and rounds q back to bf16 first). This is the plain
-//    reference's arithmetic (ops/attention.py::plain_attention).
-//  * q, k, v and out are read and written through their [B, L, N, D]
-//    strides: no fold/transpose to [B*N, L, D] and no padding to a block
-//    multiple. The ragged q and kv edges are handled here (rows past the end
-//    are zero-filled in shared memory and masked).
+//    reference's arithmetic (ops/attention.py::plain_attention); it is
+//    folded into the exp2 as one FFMA, s·scale·log2(e) − m.
+//  * q, k and v are read through their [B, L, N, D] strides by TMA tensor
+//    maps over (D, L, N, B): no fold/transpose to [B*N, L, D] and no padding
+//    to a block multiple. TMA zero-fills rows past Lq and Lk; keys at or
+//    past min(kv_len, Lk) are masked to -inf inside the last tile.
 //  * Key tiles past kv_len are skipped instead of masked.
 //
 // What bounds it on the H100: at the 5B self-attention shape (L = 12,095,
 // 24 heads, D = 128) the two matrix products are ~1.8e12 FLOP per layer
-// against ~0.2 GB of q/k/v/out traffic, so it is compute bound: the tensor
-// cores must do the products. Design: one block of 4 warps per
-// (batch*head, 64-row q tile); each warp owns 16 q rows. K/V tiles of 64 rows
-// are staged in shared memory; S = Q K^T and O += P V run on the tensor
-// cores as nvcuda::wmma bf16 16x16x16 fragments (mma.sync) with fp32
-// accumulation. The online softmax is warp-local (a warp owns whole rows),
-// so only the K/V staging needs block barriers. The fp32 accumulator lives
-// in shared memory and is rescaled in place each tile. wgmma, TMA and
-// double-buffered loads are later work.
+// against ~0.2 GB of q/k/v/out traffic, so it is bound by tensor-core FLOPs
+// (1.8 ms at 989 TFLOP/s). The design keeps the tensor cores fed:
+//  * One CTA of three warpgroups per (128 q rows, batch·head), q blocks
+//    fastest so one head's K/V stays in L2. Warpgroup 0 is the producer: it
+//    gives up registers (setmaxnreg 24) and one thread issues TMA loads.
+//    Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 q rows each.
+//  * Q is loaded once; K and V go through a ring of STAGES 128-key tiles
+//    with mbarriers: full barriers (TMA byte counts; K and V apart) and
+//    empty barriers (one arrival per consumer warpgroup, after the P·V that
+//    read the stage has completed). At D = 128 the ring and Q take 230 KB,
+//    one CTA an SM.
+//  * S = Q·Kᵀ is wgmma m64n128k16 with Q and K K-major in shared memory;
+//    the fp32 scores stay in registers. The online softmax runs on them in
+//    place: a thread holds parts of two rows, so a row's max takes two quad
+//    shuffles and its sum is reduced once, at the end.
+//  * O += P·V is wgmma m64nDk16 with P converted to bf16 in registers as
+//    the A operand (the m64n128 accumulator layout, 16 keys at a time, is
+//    the register A layout) and V read MN-major (transposed) from shared
+//    memory. O lives in registers for the whole kv loop and is rescaled
+//    there. P·V of one tile and Q·Kᵀ of the next are issued together.
+//  * The two consumers take turns issuing their products through two named
+//    barriers (FA3's ping-pong), so one's softmax runs while the other's
+//    products hold the tensor cores.
+//  * Shared memory holds TMA's 128-byte-swizzled tiles (64-column boxes; a
+//    D = 128 row is two boxes, D = 16 uses 32-byte swizzle), which the
+//    wgmma descriptors read without bank conflicts.
+//  * The epilogue normalises O in registers and writes bf16 out
+//    ([B, Lq, N, D], contiguous) and the fp32 natural-log lse ([B, N, Lq]),
+//    skipping rows >= Lq.
+// The tensor maps are encoded on the host for each launch through the
+// driver's cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so
+// that the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per block
-constexpr int BK = 64;          // kv rows per tile
-constexpr int THREADS = 128;    // 4 warps, 16 q rows each
+constexpr int BQ = 128;        // q rows per CTA: two consumer warpgroups of 64
+constexpr int BK = 128;        // keys per K/V tile
+constexpr int STAGES = 3;      // K/V ring depth
+constexpr int THREADS = 384;   // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 // lse of a row with no live key (the TPU kernel's masked value)
 constexpr float MASKED_LSE = -0.7f * FLT_MAX;
 
-// Shared-memory carve-up. Row pitches are padded against bank conflicts;
-// every wmma fragment pointer stays 32-byte aligned.
+// Shared-memory carve-up for head dim D. A tile of R rows is stored as
+// D·2/SW boxes of [R rows × SW bytes], each swizzled by TMA in SW-byte rows
+// (SW = 128, or 32 for D = 16); every box starts on 1024 bytes.
 template <int D>
-struct Smem {
-  static constexpr int LDH = D + 8;   // bf16 Q/K/V pitch
-  static constexpr int LDS = BK + 4;  // fp32 S pitch
-  static constexpr int LDP = BK + 8;  // bf16 P pitch
-  static constexpr int LDO = D + 4;   // fp32 O pitch
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + size_t(BQ) * LDH * 2;
-  static constexpr size_t v = k + size_t(BK) * LDH * 2;
-  static constexpr size_t s = v + size_t(BK) * LDH * 2;
-  static constexpr size_t p = s + size_t(BQ) * LDS * 4;
-  static constexpr size_t o = p + size_t(BQ) * LDP * 2;
-  static constexpr size_t stats = o + size_t(BQ) * LDO * 4;
-  static constexpr size_t bytes = stats + 3 * BQ * 4;
+struct Layout {
+  static constexpr int SW = 2 * D < 128 ? 2 * D : 128;  // swizzle span, bytes
+  static constexpr int SWE = SW / 2;                     // box width, elements
+  static constexpr int BOXES = 2 * D / SW;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t KV_BYTES = BK * D * 2;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = Q_BYTES;                         // + s * KV_BYTES
+  static constexpr uint32_t v = k + STAGES * KV_BYTES;           // + s * KV_BYTES
+  static constexpr uint32_t bars = v + STAGES * KV_BYTES;
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr uint32_t bytes = bars + 8 * (1 + 3 * STAGES) + 1024;  // + alignment
+  static constexpr uint64_t LAYOUT_TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "box alignment");
 };
 
-// Copy `rows_valid` rows of a [64, D] bf16 tile (row stride in elements,
-// unit stride inside a row) into shared memory; zero the remaining rows.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int rows_valid,
-                                          int tid) {
-  constexpr int VEC = 8;  // 8 bf16 = 16 bytes per load
-  constexpr int PER_ROW = D / VEC;
-  constexpr int LDH = Smem<D>::LDH;
-  for (int i = tid; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+// ---------------------------------------------------------------------------
+// PTX wrappers: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// Named barriers 1 and 2 over the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory;
+// acc = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n16(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ kv_len,
-                 int N, int Lq, int Lk,
-                 long long qsb, long long qsl, long long qsn,
-                 long long ksb, long long ksl, long long ksn,
-                 long long vsb, long long vsl, long long vsn,
-                 long long osb, long long osl, long long osn,
-                 float scale_log2) {
-  using L = Smem<D>;
-  constexpr int LDH = L::LDH, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sk = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sv = reinterpret_cast<bf16*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* sp = reinterpret_cast<bf16*>(smem + L::p);
-  float* so = reinterpret_cast<float*>(smem + L::o);
-  float* m_s = reinterpret_cast<float*>(smem + L::stats);  // running max (log2 units)
-  float* l_s = m_s + BQ;                                   // running sum
-  float* a_s = l_s + BQ;                                   // this tile's rescale
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b) {
+  if constexpr (D == 128) wgmma_rs_m64n128(o, a, b);
+  else if constexpr (D == 64) wgmma_rs_m64n64(o, a, b);
+  else wgmma_rs_m64n16(o, a, b);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 bf16* __restrict__ out, float* __restrict__ lse,
+                 const int* __restrict__ kv_len, int N, int Lq, int Lk,
+                 long long osb, long long osl, long long osn, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int SW = L::SW;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u)
+                        & ~1023u;
+  const uint32_t sq = base + L::q;
+  const uint32_t bar_q = base + L::bars;
+  const uint32_t bar_k = bar_q + 8;                 // + 8 s
+  const uint32_t bar_v = bar_k + 8 * STAGES;        // + 8 s
+  const uint32_t bar_e = bar_v + 8 * STAGES;        // + 8 s
+
   const int bn = blockIdx.y;
   const int b = bn / N;
   const int n = bn % N;
   const int q0 = blockIdx.x * BQ;
   int klen = kv_len != nullptr ? min(kv_len[b], Lk) : Lk;
   klen = max(klen, 0);
+  const int ntiles = (klen + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  const bf16* qb = q + b * qsb + n * qsn + q0 * qsl;
-  const bf16* kb = k + b * ksb + n * ksn;
-  const bf16* vb = v + b * vsb + n * vsn;
-
-  load_tile<D>(sq, qb, qsl, min(BQ, Lq - q0), tid);
-  for (int i = tid; i < BQ * LDO; i += THREADS) so[i] = 0.f;
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int row0 = warp * 16;
-  for (int kv0 = 0; kv0 < klen; kv0 += BK) {
-    const int kv_rows = min(BK, klen - kv0);
-    load_tile<D>(sk, kb + kv0 * ksl, ksl, kv_rows, tid);
-    load_tile<D>(sv, vb + kv0 * vsl, vsl, kv_rows, tid);
-    __syncthreads();
-
-    // S[row0:row0+16, :] = Q K^T on the tensor cores
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0 && ntiles > 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+      for (int c = 0; c < L::BOXES; ++c)
+        tma_load(sq + c * BQ * SW, &tm_q, bar_q, c * L::SWE, q0, n, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        const uint32_t ph = (t / STAGES) & 1;
+        mbar_wait(bar_e + 8 * s, ph ^ 1);  // the stage's previous tile is consumed
+        const uint32_t sk = base + L::k + s * L::KV_BYTES;
+        const uint32_t sv = base + L::v + s * L::KV_BYTES;
+        mbar_expect_tx(bar_k + 8 * s, L::KV_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sq + row0 * LDH + kk, LDH);
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load(sk + c * BK * SW, &tm_k, bar_k + 8 * s, c * L::SWE, t * BK, n, b);
+        mbar_expect_tx(bar_v + 8 * s, L::KV_BYTES);
 #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          // K^T as a column-major 16x16 operand: (d, key) at sk[key*LDH + d]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, sk + (j * 16) * LDH + kk, LDH);
-          wmma::mma_sync(acc[j], a, bk, acc[j]);
-        }
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load(sv + c * BK * SW, &tm_v, bar_v + 8 * s, c * L::SWE, t * BK, n, b);
       }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int quad_col = 2 * (lane % 4);   // first of this thread's 2 columns in each 8
+    const int row = 16 * warp + lane / 4;  // this thread's rows: row and row + 8
+
+    float sacc[BK / 2];   // S: m64n128 accumulator
+    float o[D / 2];       // O: m64nD accumulator
+    uint32_t p[BK / 4];   // P in bf16: the A operand of BK/16 k16 steps
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running row max of the raw scores
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+
+    // S = Q Kᵀ for the tile in stage s: D/16 k16 steps
+    auto issue_s = [&](int s) {
+      const uint32_t sk = base + L::k + s * L::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = (kk * 32) / SW, off = (kk * 32) % SW;
+        const uint64_t da = smem_desc(sq + box * BQ * SW + cw * 64 * SW + off, 16, 8 * SW,
+                                      L::LAYOUT_TYPE);
+        const uint64_t db = smem_desc(sk + box * BK * SW + off, 16, 8 * SW, L::LAYOUT_TYPE);
+        wgmma_ss_m64n128(sacc, da, db, kk > 0);
+      }
+    };
+
+    // O += P V for the tile in stage s: BK/16 k16 steps
+    auto issue_pv = [&](int s) {
+      const uint32_t sv = base + L::v + s * L::KV_BYTES;
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
-        wmma::store_matrix_sync(ss + row0 * LDS + j * 16, acc[j], LDS,
-                                wmma::mem_row_major);
+        const uint64_t dv = smem_desc(sv + j * 16 * SW, BK * SW, 8 * SW, L::LAYOUT_TYPE);
+        wgmma_pv<D>(o, p + 4 * j, dv);
       }
-    }
-    __syncwarp();
+    };
 
-    // online softmax over this warp's 16 rows; each lane holds 2 columns
-    for (int r = row0; r < row0 + 16; ++r) {
-      const float s0 = lane < kv_rows ? ss[r * LDS + lane] * scale_log2 : -INFINITY;
-      const float s1 = lane + 32 < kv_rows ? ss[r * LDS + lane + 32] * scale_log2 : -INFINITY;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = exp2f(s0 - m_use);
-      const float p1 = exp2f(s1 - m_use);
-      const float sum = warp_sum(p0 + p1);
-      sp[r * LDP + lane] = __float2bfloat16(p0);
-      sp[r * LDP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_use);
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
-        a_s[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // rescale this warp's accumulator rows by the tile's alpha
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = row0 + i / D;
-      so[r * LDO + (i % D)] *= a_s[r];
-    }
-    __syncwarp();
-
-    // O[row0:row0+16, :] += P V on the tensor cores
+    // Mask tile t's scores at keys >= klen, update the running max and sums,
+    // write P, and rescale O's two rows by exp2(old max − new max).
+    auto softmax = [&](int t) {
+      const int live = klen - t * BK;  // only the last tile can hold dead keys
+      if (live < BK) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, so + row0 * LDO + j * 16, LDO, wmma::mem_row_major);
+        for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sp + row0 * LDP + kk, LDP);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, sv + kk * LDH + j * 16, LDH);
-        wmma::mma_sync(acc, a, bv, acc);
+          for (int e = 0; e < 2; ++e) {
+            if (8 * i + quad_col + e >= live) {
+              sacc[4 * i + e] = -INFINITY;
+              sacc[4 * i + 2 + e] = -INFINITY;
+            }
+          }
+        }
       }
-      wmma::store_matrix_sync(so + row0 * LDO + j * 16, acc, LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // K/V are overwritten by the next tile
-  }
-  __syncwarp();
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float ms0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+      const float ms1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+      const float alpha0 = ex2(m0 * scale_log2 - ms0);
+      const float alpha1 = ex2(m1 * scale_log2 - ms1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const float p0 = ex2(fmaf(sacc[4 * i], scale_log2, -ms0));
+        const float p1 = ex2(fmaf(sacc[4 * i + 1], scale_log2, -ms0));
+        const float p2 = ex2(fmaf(sacc[4 * i + 2], scale_log2, -ms1));
+        const float p3 = ex2(fmaf(sacc[4 * i + 3], scale_log2, -ms1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        // keys 8i..8i+7 are half of the k16 step i/2, whose A registers
+        // are (row, first 8), (row + 8, first 8), (row, last 8), (row + 8,
+        // last 8): so register 2i holds row's pair and 2i + 1 row + 8's
+        p[2 * i] = pack_bf16(p0, p1);
+        p[2 * i + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha0;
+        o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1;
+        o[4 * i + 3] *= alpha1;
+      }
+    };
 
-  // epilogue: normalise, write bf16 out and the fp32 lse
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = row0 + i / D;
-    const int c = i % D;
-    const int qi = q0 + r;
-    if (qi < Lq) {
-      const float l = l_s[r];
-      const float inv = l == 0.f ? 0.f : 1.f / l;
-      out[b * osb + n * osn + qi * osl + c] = __float2bfloat16(so[r * LDO + c] * inv);
+    if (ntiles > 0) {
+      mbar_wait(bar_q, 0);
+      mbar_wait(bar_k, 0);
+      wgmma_fence();
+      issue_s(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(sacc);
+    }
+    // The consumers take turns to issue their products (named barriers 1 and
+    // 2), so one's softmax runs while the other's products hold the tensor
+    // cores; the first consumer goes first.
+    if (cw == 1) named_arrive(1);
+
+    // Tile t: softmax, then P·V of t and Q Kᵀ of t + 1 go out together. The
+    // last tile is peeled off, so no product is issued under a condition.
+    auto tile = [&](int t, bool more) {
+      const int s = t % STAGES;
+      softmax(t);
+      mbar_wait(bar_v + 8 * s, (t / STAGES) & 1);
+      if (more) mbar_wait(bar_k + 8 * ((t + 1) % STAGES), ((t + 1) / STAGES) & 1);
+      named_sync(1 + cw);
+      fence_regs<D / 2>(o);
+      wgmma_fence();
+      issue_pv(s);
+      if (more) issue_s((t + 1) % STAGES);
+      wgmma_commit();
+      named_arrive(2 - cw);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      fence_regs<BK / 2>(sacc);
+      if (tid == 0) mbar_arrive(bar_e + 8 * s);  // K and V of stage s are consumed
+    };
+    for (int t = 0; t + 1 < ntiles; ++t) tile(t, true);
+    if (ntiles > 0) tile(ntiles - 1, false);
+
+    // epilogue: normalise, write bf16 out and the fp32 lse
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const int r0 = q0 + 64 * cw + row;
+    const int r1 = r0 + 8;
+    bf16* ob = out + b * osb + n * osn;
+    if (r0 < Lq) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(ob + r0 * osl + quad_col);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) dst[4 * i] = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    }
+    if (r1 < Lq) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(ob + r1 * osl + quad_col);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        dst[4 * i] = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    }
+    if (lane % 4 == 0) {
+      float* lb = lse + static_cast<long long>(bn) * Lq;
+      if (r0 < Lq) lb[r0] = l0 == 0.f ? MASKED_LSE : m0 * scale_log2 * LN2 + logf(l0);
+      if (r1 < Lq) lb[r1] = l1 == 0.f ? MASKED_LSE : m1 * scale_log2 * LN2 + logf(l1);
     }
   }
-  if (lane < 16) {
-    const int r = row0 + lane;
-    const int qi = q0 + r;
-    if (qi < Lq) {
-      const float l = l_s[r];
-      lse[static_cast<long long>(bn) * Lq + qi] =
-          l == 0.f ? MASKED_LSE : m_s[r] * LN2 + logf(l);
-    }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps and launch
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// A bf16 [B, L, N, D] tensor with element strides (sb, sl, sn) as a 4-D map
+// over (D, L, N, B), read in boxes of [rows × SWE] with the kernel's swizzle.
+template <int D>
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int Lrows, int N,
+            long long sb, long long sl, long long sn, int rows) {
+  using L = Layout<D>;
+  // a dimension of extent 1 is never stepped: give it any valid stride
+  auto stride = [](long long s, int extent) {
+    return static_cast<cuuint64_t>(extent == 1 ? 2 * D : 2 * s);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Lrows),
+                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride(sl, Lrows), stride(sn, N), stride(sb, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::SWE), static_cast<cuuint32_t>(rows),
+                             1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
@@ -257,18 +547,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    long long vsb, long long vsl, long long vsn,
                    long long osb, long long osl, long long osn, float scale,
                    cudaStream_t stream) {
-  constexpr size_t bytes = Smem<D>::bytes;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q{}, tm_k{}, tm_v{};  // k and v stay unused (zero) when Lk = 0
+  if (!encode<D>(fn, &tm_q, q, B, Lq, N, qsb, qsl, qsn, BQ)) return cudaErrorInvalidValue;
+  if (Lk > 0 && !(encode<D>(fn, &tm_k, k, B, Lk, N, ksb, ksl, ksn, BK) &&
+                  encode<D>(fn, &tm_v, v, B, Lk, N, vsb, vsl, vsn, BK)))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = static_cast<int>(Layout<D>::bytes);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BQ - 1) / BQ, B * N);
   flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), static_cast<const int*>(kv_len), N, Lq, Lk,
-      qsb, qsl, qsn, ksb, ksl, ksn, vsb, vsl, vsn, osb, osl, osn,
-      scale * LOG2E);
+      tm_q, tm_k, tm_v, static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<const int*>(kv_len), N, Lq, Lk, osb, osl, osn, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -293,6 +586,17 @@ extern "C" int yume_flash_attention_fwd(
 #undef YUME_FWD
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a CTA of the forward kernel asks for at head dim D
+// (0 for an unsupported D).
+extern "C" int yume_flash_attention_fwd_smem(int D) {
+  switch (D) {
+    case 16: return static_cast<int>(Layout<16>::bytes);
+    case 64: return static_cast<int>(Layout<64>::bytes);
+    case 128: return static_cast<int>(Layout<128>::bytes);
+    default: return 0;
   }
 }
 

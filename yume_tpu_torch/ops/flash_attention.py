@@ -9,10 +9,14 @@ Replaces yume_tpu/ops/flash_attention.py: ``_fwd_kernel`` (via ``_fwd`` and
 (:class:`FlashAttention`), and ``flash_attention_partial`` with its
 ``_flash_partial`` custom VJP (:class:`FlashAttentionPartial`). On the
 H100 the kernels are bound by tensor-core FLOPs at the DiT shapes
-(self-attention over 2,805 to 12,095 tokens, 24 heads, D = 128); their
-designs (wmma bf16 tiles, fp32 softmax statistics,
-strided [B, L, N, D] reads, in-kernel ragged edges; the backward as two
-kernels without atomics) are described in the sources.
+(self-attention over 2,805 to 12,095 tokens, 24 heads, D = 128: 1.8e12
+FLOP a 5B layer's forward). The forward is built for Hopper: TMA loads of
+q, k and v through their [B, L, N, D] strides into a ring of swizzled
+shared-memory tiles, a producer warpgroup and two consumer warpgroups that
+take turns on the tensor cores, Q·Kᵀ and P·V as ``wgmma`` with S, P and the
+fp32 output accumulator in registers, and the online softmax on the
+registers. The backward is two wmma kernels without atomics. Both designs
+are described in their sources.
 
 K7 is K1's kernel launched for one kv block of ring attention: it returns
 the block-normalized output with its fp32 logsumexp, so that blocks held
@@ -174,6 +178,8 @@ def _fwd(q, k, v, kv_len, scale, counter):
     from .. import _build
 
     _check(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the kernel takes a positive scale, got {scale}")
     b, lq, n, d = q.shape
     lk = k.shape[1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
