@@ -4,14 +4,13 @@ against variants of its own source on one NVIDIA GPU:
 
     python3 scripts/torch_flash_fwd_variants.py
 
-Variants, made by editing a copy of the source: ``as_is``; ``stages2`` (a
-two-stage K/V ring instead of three); ``no_pingpong`` (the consumer
-warpgroups issue their products without taking turns); ``stages2_no_pingpong``.
-Each is built with the package's nvcc flags into its own library under
-build/flash_fwd_variants/, checked against the plain version on a ragged
-case, and timed by CUDA events at K1's self-attention and cross-attention
-shapes and a K7 ring hop. Prints the card's name and power limit, then one
-JSON line per variant.
+Variants, made by editing a copy of the source: ``as_is`` and ``stages2`` (a
+two-stage K/V ring instead of three). Each is built with the package's nvcc
+flags into its own library under build/flash_fwd_variants/, checked against
+the plain version on a ragged case, and timed by CUDA events at K1's
+self-attention and cross-attention shapes and a K7 ring hop, beside SDPA on
+the same inputs. Prints the card's name and power limit, then one JSON line
+per variant.
 """
 
 from __future__ import annotations
@@ -32,8 +31,6 @@ from yume_tpu_torch import _build  # noqa: E402
 from yume_tpu_torch.ops import flash_attention as fl  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "flash_fwd_variants")
-PINGPONG_LINES = ("    if (cw == 1) named_arrive(1);\n", "      named_sync(1 + cw);\n",
-                  "      named_arrive(2 - cw);\n")
 
 
 def variant_sources() -> dict:
@@ -41,15 +38,7 @@ def variant_sources() -> dict:
         src = f.read()
     two = src.replace("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")
     assert two != src, "STAGES not found"
-
-    def no_pingpong(s):
-        for line in PINGPONG_LINES:
-            assert line in s, line
-            s = s.replace(line, "")
-        return s
-
-    return {"as_is": src, "stages2": two, "no_pingpong": no_pingpong(src),
-            "stages2_no_pingpong": no_pingpong(two)}
+    return {"as_is": src, "stages2": two}
 
 
 def build(sources: dict) -> dict:

@@ -165,6 +165,8 @@ def test_flash_attention_rejects_unsupported(gen):
     with pytest.raises(ValueError):
         x = _randn(gen, 1, 8, 2, 96)
         flash_attention(x, x, x)
+    with pytest.raises(ValueError):  # the kernel folds the scale into its running max
+        flash_attention(q, q, q, scale=-0.1)
 
 
 def test_flash_attention_counts_launches(gen):

@@ -35,12 +35,15 @@ _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
 _FLOAT = ctypes.c_float
 
-# C signatures of the entry points in csrc/ (restype int = cudaError_t)
+# C signatures of the entry points in csrc/ (restype int: cudaError_t, but
+# for the shared-memory query)
 _SIGNATURES = {
     # q, k, v, out, lse, kv_len, B, Lq, Lk, N, D,
     # q strides (b, l, n), k strides, v strides, out strides, scale, stream
     "yume_flash_attention_fwd": [_VOID] * 6 + [_INT] * 5 + [_I64] * 12
                                 + [_FLOAT, _VOID],
+    # D -> bytes of dynamic shared memory a forward CTA asks for (0: no such D)
+    "yume_flash_attention_fwd_smem": [_INT],
     # q, k, v, dout, lse, delta, kv_len, dq, B, Lq, Lk, N, D,
     # q/k/v/dout/dq strides (b, l, n), scale, stream
     "yume_flash_attention_bwd_dq": [_VOID] * 8 + [_INT] * 5 + [_I64] * 15
@@ -135,8 +138,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.yume_flash_attention_fwd_smem.argtypes = [_INT]
-    lib.yume_flash_attention_fwd_smem.restype = ctypes.c_int
     lib.yume_error_string.argtypes = [_INT]
     lib.yume_error_string.restype = ctypes.c_char_p
     return lib

@@ -41,10 +41,9 @@
 //    the A operand (the m64n128 accumulator layout, 16 keys at a time, is
 //    the register A layout) and V read MN-major (transposed) from shared
 //    memory. O lives in registers for the whole kv loop and is rescaled
-//    there. P·V of one tile and Q·Kᵀ of the next are issued together.
-//  * The two consumers take turns issuing their products through two named
-//    barriers (FA3's ping-pong), so one's softmax runs while the other's
-//    products hold the tensor cores.
+//    there. P·V of one tile and Q·Kᵀ of the next are issued together; the
+//    two consumers interleave, one's softmax running under the other's
+//    products.
 //  * Shared memory holds TMA's 128-byte-swizzled tiles (64-column boxes; a
 //    D = 128 row is two boxes, D = 16 uses 32-byte swizzle), which the
 //    wgmma descriptors read without bank conflicts.
@@ -167,14 +166,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-// Named barriers 1 and 2 over the two consumer warpgroups (256 threads).
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -243,7 +234,6 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
-
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b) {
@@ -429,11 +419,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs<BK / 2>(sacc);
     }
-    // The consumers take turns to issue their products (named barriers 1 and
-    // 2), so one's softmax runs while the other's products hold the tensor
-    // cores; the first consumer goes first.
-    if (cw == 1) named_arrive(1);
-
     // Tile t: softmax, then P·V of t and Q Kᵀ of t + 1 go out together. The
     // last tile is peeled off, so no product is issued under a condition.
     auto tile = [&](int t, bool more) {
@@ -441,13 +426,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       softmax(t);
       mbar_wait(bar_v + 8 * s, (t / STAGES) & 1);
       if (more) mbar_wait(bar_k + 8 * ((t + 1) % STAGES), ((t + 1) / STAGES) & 1);
-      named_sync(1 + cw);
       fence_regs<D / 2>(o);
       wgmma_fence();
       issue_pv(s);
       if (more) issue_s((t + 1) % STAGES);
       wgmma_commit();
-      named_arrive(2 - cw);
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       fence_regs<BK / 2>(sacc);

@@ -12,11 +12,10 @@ H100 the kernels are bound by tensor-core FLOPs at the DiT shapes
 (self-attention over 2,805 to 12,095 tokens, 24 heads, D = 128: 1.8e12
 FLOP a 5B layer's forward). The forward is built for Hopper: TMA loads of
 q, k and v through their [B, L, N, D] strides into a ring of swizzled
-shared-memory tiles, a producer warpgroup and two consumer warpgroups that
-take turns on the tensor cores, Q·Kᵀ and P·V as ``wgmma`` with S, P and the
-fp32 output accumulator in registers, and the online softmax on the
-registers. The backward is two wmma kernels without atomics. Both designs
-are described in their sources.
+shared-memory tiles, a producer warpgroup and two consumer warpgroups,
+Q·Kᵀ and P·V as ``wgmma`` with S, P and the fp32 output accumulator in
+registers, and the online softmax on the registers. The backward is two
+wmma kernels without atomics. Both designs are described in their sources.
 
 K7 is K1's kernel launched for one kv block of ring attention: it returns
 the block-normalized output with its fp32 logsumexp, so that blocks held
