@@ -50,9 +50,9 @@
 //  * The epilogue normalises O in registers and writes bf16 out
 //    ([B, Lq, N, D], contiguous) and the fp32 natural-log lse ([B, N, Lq]),
 //    skipping rows >= Lq.
-// The tensor maps are encoded on the host for each launch through the
-// driver's cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so
-// that the library needs no -lcuda.
+// The tensor maps are encoded on the host for each launch by
+// cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so that the
+// library needs no -lcuda.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -478,7 +478,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, or null.
+// cuTensorMapEncodeTiled from the CUDA library, or null.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
