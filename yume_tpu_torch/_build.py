@@ -35,15 +35,12 @@ _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
 _FLOAT = ctypes.c_float
 
-# C signatures of the entry points in csrc/ (restype int: cudaError_t, but
-# for the shared-memory query)
+# C signatures of the entry points in csrc/ (restype int = cudaError_t)
 _SIGNATURES = {
     # q, k, v, out, lse, kv_len, B, Lq, Lk, N, D,
     # q strides (b, l, n), k strides, v strides, out strides, scale, stream
     "yume_flash_attention_fwd": [_VOID] * 6 + [_INT] * 5 + [_I64] * 12
                                 + [_FLOAT, _VOID],
-    # D -> bytes of dynamic shared memory a forward CTA asks for (0: no such D)
-    "yume_flash_attention_fwd_smem": [_INT],
     # q, k, v, dout, lse, delta, kv_len, dq, B, Lq, Lk, N, D,
     # q/k/v/dout/dq strides (b, l, n), scale, stream
     "yume_flash_attention_bwd_dq": [_VOID] * 8 + [_INT] * 5 + [_I64] * 15

@@ -41,9 +41,10 @@
 //    the A operand (the m64n128 accumulator layout, 16 keys at a time, is
 //    the register A layout) and V read MN-major (transposed) from shared
 //    memory. O lives in registers for the whole kv loop and is rescaled
-//    there. P·V of one tile and Q·Kᵀ of the next are issued together; the
-//    two consumers interleave, one's softmax running under the other's
-//    products.
+//    there. P·V of one tile and Q·Kᵀ of the next are issued together. The
+//    two consumers run unsynchronised with each other: an explicit
+//    ping-pong (FA3's, one's softmax under the other's products) measured
+//    within noise of this on the H100 and was removed.
 //  * Shared memory holds TMA's 128-byte-swizzled tiles (64-column boxes; a
 //    D = 128 row is two boxes, D = 16 uses 32-byte swizzle), which the
 //    wgmma descriptors read without bank conflicts.
@@ -569,17 +570,6 @@ extern "C" int yume_flash_attention_fwd(
 #undef YUME_FWD
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-// Dynamic shared memory a CTA of the forward kernel asks for at head dim D
-// (0 for an unsupported D).
-extern "C" int yume_flash_attention_fwd_smem(int D) {
-  switch (D) {
-    case 16: return static_cast<int>(Layout<16>::bytes);
-    case 64: return static_cast<int>(Layout<64>::bytes);
-    case 128: return static_cast<int>(Layout<128>::bytes);
-    default: return 0;
   }
 }
 
