@@ -9,13 +9,13 @@ result line:
 1. device: the card's name and power limit from nvidia-smi, torch and CUDA
    versions;
 2. build: compile the CUDA kernels from yume_tpu_torch/csrc (one nvcc per
-   source, in parallel); print the flash forward kernel's registers, spills
-   and shared memory from the compiler's log;
+   source, in parallel); print the registers, spills and shared memory of
+   the flash forward and of K6's two kernels from the compiler's log;
 3. kernels: every hand-written kernel of the main paths (flash attention
-   K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4+K5, the
-   W8A8 int8 matmul K6, the partial flash attention of ring attention K7,
-   the flash-attention backward K8 (dQ) and K9 (dK, dV), the fused bias +
-   activation K10) against its plain PyTorch version on the same seeded
+   K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4, the
+   RMSNorm kernel K5, the W8A8 int8 matmul K6, the partial flash attention
+   of ring attention K7, the flash-attention backward K8 (dQ) and K9 (dK,
+   dV), the fused bias + activation K10) against its plain PyTorch version on the same seeded
    inputs at the 5B segment's shapes (K7 at its ring shapes: sp 4, sp 8,
    USP 2 x 2, a block with no live key; K8/K9 and K4's batched-table case
    at the trainer's; K10 at the ADD discriminator's, every activation, bf16,
@@ -23,8 +23,9 @@ result line:
    stated tolerance, median times of the kernel, of its plain version and
    of one PyTorch library call where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the published peak of their type, whichever is larger), and for K1
-   and K7 the achieved TFLOP/s and the share of the bound (K1 also at the
+   over the published peak of their type, whichever is larger), and for K1,
+   K6 and K7 the achieved rate and the share of the bound (K6 equal to its
+   plain version bit for bit, with its pre-pass timed apart; K1 also at the
    unpacked 121-frame stream's 27,280 tokens; K1's self cases hold out to
    two bf16 ulps of the largest |out| and the lse to ``K7_LSE_TOL``, on a
    few heads); then K7's ring invariant
@@ -44,7 +45,8 @@ result line:
    a. bf16 Euler ``generate_long`` (4 steps, one caption): K1–K5 must launch;
    b. the headline: the W8A8 DiT sharing the bf16 weights, 50 steps of
       adaptive TeaCache at threshold 0.1, then ``decode_auto`` of the tail:
-      K1–K6 must launch.
+      K1–K6 must launch; then its first full and cached step once more
+      under the profiler (device time by kernel family).
    Each tail video must be finite [1, 29, 704, 1280, 3].
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
@@ -137,6 +139,39 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _event_ms(e, total=False) -> float:
+    """A profiler event's device time in ms (self, or with its children)."""
+    names = (("device_time_total", "cuda_time_total") if total else
+             ("self_device_time_total", "self_cuda_time_total"))
+    return next((getattr(e, n) for n in names if hasattr(e, n)), 0.0) / 1e3
+
+
+def device_ms(fn, names=None, reps: int = 10) -> dict:
+    """Device time a call of ``fn`` by kernel, from a torch.profiler trace
+    of ``reps`` calls after a warm-up: CUPTI's kernel durations, without the
+    host's launch path that CUDA events around one call also count. Keys:
+    each of ``names`` (the kernels whose name contains it) and "all" (every
+    kernel of the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*(names or ()), "all"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        out["all"] += _event_ms(e) / reps
+        for n in names or ():
+            if n in e.key:
+                out[n] += _event_ms(e) / reps
+    return out
+
+
 def require(ok: bool, what: str):
     """Fail the run (exit code 1, no result line) unless ``ok``."""
     if not ok:
@@ -214,26 +249,44 @@ def build_phase():
     path = _build.build()
     log(f"build: {os.path.relpath(path, REPO)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    # the flash forward kernel's registers, spills and shared memory (ptxas
-    # -v reports the kernel's register count at entry; the consumers raise
-    # theirs to 240 with setmaxnreg). Its dynamic shared memory is its
-    # Layout<D>::bytes, from the tile constants of the source: Q, STAGES K
-    # and V tiles, 1 + 3·STAGES mbarriers and 1 KB for alignment.
-    with open(os.path.join(REPO, "yume_tpu_torch", "csrc", "flash_attention.cu")) as f:
-        tiles = dict(re.findall(r"constexpr int (BQ|BK|STAGES) = (\d+);", f.read()))
-    bq, bk, stages = (int(tiles[x]) for x in ("BQ", "BK", "STAGES"))
+    # the wgmma kernels' registers, spills and shared memory (ptxas -v
+    # reports the register count at entry; the consumers raise theirs with
+    # setmaxnreg). Dynamic shared memory from the tile constants of each
+    # source: the flash forward's Layout<D>::bytes (Q, STAGES K and V tiles,
+    # 1 + 3·STAGES mbarriers, 1 KB for alignment) and K6's GEMM's SMEM_BYTES
+    # (STAGES xq and qw tiles, two 64 x BN/2 bf16 output buffers, 2·STAGES
+    # mbarriers, 1 KB); K6's pre-pass has none.
+    def constants(src, names):
+        with open(os.path.join(REPO, "yume_tpu_torch", "csrc", src)) as f:
+            found = dict(re.findall(rf"constexpr int ({names}) = (\d+);", f.read()))
+        return {k: int(v) for k, v in found.items()}
+
+    fa_c = constants("flash_attention.cu", "BQ|BK|STAGES")
+    qm_c = constants("quant_matmul.cu", "BM|BN|BK|STAGES")
     with open(f"{path}.log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "flash_fwd_kernel" in line:
+        if "Compiling entry function" not in line:
+            continue
+        info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "spill" in x or "registers" in x]
+        if "flash_fwd_kernel" in line:
             d = int(line.split("flash_fwd_kernelILi")[1].split("E")[0])
-            info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                    if "spill" in x or "registers" in x]
-            smem = (bq + 2 * stages * bk) * d * 2 + 8 * (1 + 3 * stages) + 1024
-            log(f"build: flash_fwd_kernel<{d}>: {'; '.join(info)}; dynamic shared memory "
-                f"{smem} bytes a CTA")
-    serialized = [x for x in lines if "C7515" in x and "flash_fwd_kernel" in x]
-    log(f"build: flash_fwd_kernel wgmma serialization warnings (C7515): {len(serialized)}")
+            name = f"flash_fwd_kernel<{d}>"
+            smem = ((fa_c["BQ"] + 2 * fa_c["STAGES"] * fa_c["BK"]) * d * 2
+                    + 8 * (1 + 3 * fa_c["STAGES"]) + 1024)
+        elif "q8_gemm_kernel" in line:
+            name = "q8_gemm_kernel (K6)"
+            smem = (qm_c["STAGES"] * (qm_c["BM"] + qm_c["BN"]) * qm_c["BK"]
+                    + 2 * 64 * qm_c["BN"] + 16 * qm_c["STAGES"] + 1024)
+        elif "quantize_rows_kernel" in line:
+            name, smem = "quantize_rows_kernel (K6 pre-pass)", 0
+        else:
+            continue
+        log(f"build: {name}: {'; '.join(info)}; dynamic shared memory {smem} bytes a CTA")
+    for kernel in ("flash_fwd_kernel", "q8_gemm_kernel"):
+        serialized = [x for x in lines if "C7515" in x and kernel in x]
+        log(f"build: {kernel} wgmma serialization warnings (C7515): {len(serialized)}")
 
 
 def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
@@ -321,7 +374,7 @@ def attention_and_glue_kernels(results, gen):
               lambda: sdpa(q, k, v), reps=5, plain_reps=1, tol=tol, lse_max_abs_err=lse_err)
     del q, k, v
 
-    # K2 adaln_norm, K3 adaln_residual, K4 + K5 ----------------------------
+    # K2 adaln_norm, K3 adaln_residual, K4 qk_norm_rope, K5 rms_norm -------
     x, y = _randn(gen, 1, L, DIM), _randn(gen, 1, L, DIM)
     s_tab = _randn(gen, 1, 2, DIM, dtype=torch.float32, scale=0.1)
     t_tab = _randn(gen, 1, 2, DIM, dtype=torch.float32, scale=0.1)
@@ -335,6 +388,7 @@ def attention_and_glue_kernels(results, gen):
     require(cos.shape == (L, D // 2), f"RoPE tables {tuple(cos.shape)}")
     wq = 1.0 + _randn(gen, DIM, dtype=torch.float32, scale=0.1)
     wk = 1.0 + _randn(gen, DIM, dtype=torch.float32, scale=0.1)
+    wq_lib = wq.to(x.dtype)  # F.rms_norm takes the weight in x's dtype
     tabs = nbytes(s_tab, t_tab, idx)
     act = nbytes(x)                       # one [1, 12095, 3072] bf16 pass
     elems = x.numel()
@@ -360,10 +414,10 @@ def attention_and_glue_kernels(results, gen):
          lambda: fa.qk_norm_rope(x, y, wq, wk, cos, sin, N, eps=1e-6),
          lambda: fa._qk_norm_rope_ref(x, y, wq, wk, cos, sin, N, 1e-6),
          None, 4 * act + nbytes(wq, wk, cos, sin), 2 * 8 * elems),
-        ("rms_norm", "cross q, RoPE off (K5)",
+        ("rms_norm", "cross q (K5)",
          lambda: fa.rms_norm(x, wq, eps=1e-6),
          lambda: fa._rms_ref(x, wq, 1e-6),
-         lambda: F.rms_norm(x, (DIM,), wq.to(x.dtype), eps=1e-6),
+         lambda: F.rms_norm(x, (DIM,), wq_lib, eps=1e-6),
          2 * act + nbytes(wq), 4 * elems),
     ]
     def flat(out):  # K4 writes q and k: compare both
@@ -382,11 +436,14 @@ def attention_and_glue_kernels(results, gen):
          None, 4 * nbytes(qm_) + nbytes(wq, wk, bcos, bsin), 2 * 8 * qm_.numel()))
     for kernel, case, run, plain, lib, n_bytes, ops in glue:
         want = flat(plain())
+        extra = {"device_ms": round(device_ms(run, reps=20)["all"], 4)}
+        if lib is not None:
+            extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
         _record(results, kernel, case, max_err(flat(run()), want),
                 REL_TOL * want.float().abs().max().item(),
                 median_ms(run, reps=20), median_ms(plain, reps=20),
                 bound_ms(n_bytes, ops, "fp32"),
-                None if lib is None else median_ms(lib, reps=20))
+                None if lib is None else median_ms(lib, reps=20), **extra)
 
 
 def flash_backward_kernels(results, gen):
@@ -624,13 +681,23 @@ K6_SHAPES = [  # (case, K, N, launches per layer)
 def quant_matmul_kernel(results, gen):
     """K6 against its plain version at the four W8A8 projection shapes of
     one 5B block (M = 12,095 tokens), on N(0, 1) bf16 activations and
-    weights. The library yardsticks: ``torch._int_mm`` (the s8×s8→s32
-    product alone, without the activation quantization and the rescale)
-    and the bf16 ``torch.matmul`` of the same projection."""
+    weights: the output must equal the plain version's bit for bit
+    (``differing`` 0), and so must the pre-pass's int8 rows and scales
+    (``q8_quantize``). Per shape and per layer: the call's time by CUDA
+    events (``ms``) and its kernels' device time from the profiler
+    (``device_ms``: the pre-pass and the GEMM apart), TOP/s and the share
+    of the bound, the pre-pass against its own bound (x read once, xq and
+    a_scale written once). The library yardsticks: ``torch._int_mm`` (the
+    s8×s8→s32 product alone, on the pre-pass's int8 rows) and the bf16
+    ``torch.matmul`` of the same projection, by events and on the device."""
     from yume_tpu_torch.ops import quant_matmul as qm
 
-    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-             "bf16_matmul_ms": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bf16_matmul_ms", "device_ms",
+            "prepass_ms", "gemm_ms", "prepass_bound_ms", "library_device_ms",
+            "bf16_matmul_device_ms")
+    layer = dict.fromkeys(keys, 0.0)
+    layer_ops = 0.0
+    kernels = ("quantize_rows_kernel", "q8_gemm_kernel")
     for case, k, n, per_layer in K6_SHAPES:
         x = _randn(gen, L, k)
         w_bf16 = _randn(gen, n, k)
@@ -638,23 +705,41 @@ def quant_matmul_kernel(results, gen):
         got = qm.q8_dot(x, w)
         want = qm._q8_matmul_ref(x, w.q, w.scale, torch.bfloat16)
         n_diff = int((got != want).sum().item())
-        a_scale = qm._absmax_scale(x)
-        qa = torch.clamp(torch.round(x.float() / a_scale), -127, 127).to(torch.int8)
+        require(n_diff == 0, f"K6 {case}: {n_diff} outputs differ from the plain version")
+        xq, a_scale = qm.q8_quantize(x)
+        want_q, want_s = qm._quantize_act(x)
+        require(torch.equal(xq, want_q) and torch.equal(a_scale, want_s),
+                f"K6 {case}: the pre-pass differs from the plain quantization")
+        del want_q, want_s
         qw_t = w.q.t()
-        lib = median_ms(lambda: torch._int_mm(qa, qw_t))
-        bf16_ms = median_ms(lambda: torch.matmul(x, w_bf16.t()))
-        bound = bound_ms(nbytes(x, w.q, w.scale, got), 2.0 * L * k * n, "int8")
+        ops = 2.0 * L * k * n
+        bound = bound_ms(nbytes(x, w.q, w.scale, got), ops, "int8")
+        pre_bound = bound_ms(nbytes(x, xq, a_scale), 0.0, "fp32")[0]
         ms = median_ms(lambda: qm.q8_dot(x, w))
+        dev = device_ms(lambda: qm.q8_dot(x, w), kernels)
+        lib = median_ms(lambda: torch._int_mm(xq, qw_t))
+        lib_dev = device_ms(lambda: torch._int_mm(xq, qw_t))["all"]
+        bf16_ms = median_ms(lambda: torch.matmul(x, w_bf16.t()))
+        bf16_dev = device_ms(lambda: torch.matmul(x, w_bf16.t()))["all"]
         plain_ms = median_ms(lambda: qm._q8_matmul_ref(x, w.q, w.scale, torch.bfloat16), reps=3)
+        vals = (ms, plain_ms, bound[0], lib, bf16_ms, dev["all"], dev[kernels[0]],
+                dev[kernels[1]], pre_bound, lib_dev, bf16_dev)
         _record(results, "quant_matmul", case, max_err(got, want),
                 REL_TOL * want.float().abs().max().item(), ms, plain_ms, bound, lib,
-                differing=n_diff, bf16_matmul_ms=round(bf16_ms, 4),
-                tops=round(2.0 * L * k * n / ms / 1e9, 1))
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound[0]),
-                         ("library_ms", lib), ("bf16_matmul_ms", bf16_ms)):
+                differing=n_diff, tops=round(ops / dev["all"] / 1e9, 1),
+                bound_share=round(bound[0] / dev["all"], 4),
+                gemm_tops=round(ops / dev[kernels[1]] / 1e9, 1),
+                int_mm_tops=round(ops / lib_dev / 1e9, 1),
+                **{key: round(v, 4) for key, v in zip(keys[4:], vals[4:])})
+        for key, val in zip(keys, vals):
             layer[key] += per_layer * val
-        del x, w_bf16, w, got, want, qa, qw_t
-    log(f"  quant_matmul per 5B layer (qkv + 3 x 3072^2 + ffn.0 + ffn.2): "
+        layer_ops += per_layer * ops
+        del x, w_bf16, w, got, want, xq, a_scale, qw_t
+    layer.update(tops=round(layer_ops / layer["device_ms"] / 1e9, 1),
+                 bound_share=round(layer["bound_ms"] / layer["device_ms"], 4),
+                 gemm_tops=round(layer_ops / layer["gemm_ms"] / 1e9, 1),
+                 int_mm_tops=round(layer_ops / layer["library_device_ms"] / 1e9, 1))
+    log("  quant_matmul per 5B layer (qkv + 3 x 3072^2 + ffn.0 + ffn.2): "
         + ", ".join(f"{k} {v:.3f}" for k, v in layer.items()))
     results["quant_matmul"]["per_layer"] = layer
 
@@ -844,7 +929,7 @@ def pipeline_phase(counters):
 
     times = {"t5": [], "dit_step": [], "decode": [], "full_step": [],
              "cached_step": [], "headline_decode": []}
-    step_launches = {}
+    step_launches, step_calls = {}, {}
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -858,13 +943,17 @@ def pipeline_phase(counters):
 
     def timed_dit(fn):
         """A DiT forward timed as a full or a cached TeaCache step, with
-        the kernel launches of the first of each kind."""
+        the kernel launches and the arguments of the first of each kind
+        (a cached step's without its block cache: holding that would keep
+        an old cache alive and raise the peak memory)."""
         def wrapper(*a, **kw):
             kind = "full_step" if kw.get("return_cache") else "cached_step"
             before = {c.__name__: c.launches for c in counters}
             out = timed(kind, fn)(*a, **kw)
             step_launches.setdefault(kind, {
                 c.__name__: c.launches - before[c.__name__] for c in counters})
+            step_calls.setdefault(kind, (fn, a, {k: v for k, v in kw.items()
+                                                 if k != "block_cache"}))
             return out
         return wrapper
 
@@ -953,6 +1042,19 @@ def pipeline_phase(counters):
         if ts:
             log(f"  stage {name:<11} n={len(ts):2d}  median {statistics.median(ts) * 1e3:10.1f} ms"
                 f"  all {[round(t * 1e3, 1) for t in ts]}")
+    # the first full and cached step once more, under the profiler: device
+    # time by kernel family and the longest kernels; the cached step reads
+    # the cache the profiled full step returns
+    with torch.no_grad():
+        fn, a, kw = step_calls["full_step"]
+        held = {}
+        device_breakdown("headline full step", lambda: held.update(out=fn(*a, **kw)),
+                         ranges_named=(), rest="dit_forward")
+        cache = held.pop("out")[1]
+        fn, a, kw = step_calls["cached_step"]
+        device_breakdown("headline cached step", lambda: fn(*a, **kw, block_cache=cache),
+                         ranges_named=(), rest="dit_forward")
+        del cache
     return launches, euler_launches
 
 
@@ -961,7 +1063,9 @@ KERNEL_FAMILIES = [
     ("K1 flash fwd", ("flash_fwd_kernel",)),
     ("K8 dQ", ("flash_bwd_dq_kernel",)),
     ("K9 dK dV", ("flash_bwd_dkv_kernel",)),
-    ("K2-K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_rope_kernel")),
+    ("K2-K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_rope_kernel",
+                           "rms_norm_kernel")),
+    ("K6 W8A8", ("q8_gemm_kernel", "quantize_rows_kernel")),
     ("K10 bias_act", ("bias_act_kernel",)),
     ("conv", ("conv", "cudnn")),
     ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -985,11 +1089,6 @@ def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_ms(e, total=False):
-        names = (("device_time_total", "cuda_time_total") if total else
-                 ("self_device_time_total", "self_cuda_time_total"))
-        return next((getattr(e, n) for n in names if hasattr(e, n)), 0.0) / 1e3
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1001,16 +1100,16 @@ def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
     for e in prof.key_averages():
         if e.key in ranges_named:
             if e.device_type == DeviceType.CUDA:
-                spans[e.key] = dev_ms(e)
+                spans[e.key] = _event_ms(e)
             elif e.key != rest:
-                ranges[e.key] = dev_ms(e, total=True)
+                ranges[e.key] = _event_ms(e, total=True)
         elif e.device_type == DeviceType.CUDA:
             fam = next((n for n, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)),
                        "other")
-            families[fam] += dev_ms(e)
-            kernels.append((dev_ms(e), e.count, e.key[:90]))
+            families[fam] += _event_ms(e)
+            kernels.append((_event_ms(e), e.count, e.key[:90]))
         elif e.key in ("optimizer", "ema"):
-            ranges[e.key] = dev_ms(e, total=True)
+            ranges[e.key] = _event_ms(e, total=True)
     busy = sum(families.values())
     log(f"  trace of one {what}: wall {wall:.1f} ms under the profiler, device busy "
         f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
@@ -1542,7 +1641,6 @@ def main() -> int:
                        "yume_tpu/ops/fused_adaln.py:94"),
         "adaln_residual": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
                            "yume_tpu/ops/fused_adaln.py:251"),
-        # K4 and K5 are one Triton kernel (rms_rope_kernel), ROPE on and off
         "qk_norm_rope": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
                          "yume_tpu/ops/fused_adaln.py:340"),
         "rms_norm": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
@@ -1623,9 +1721,14 @@ def main() -> int:
             "launches_sp_ring_forward": sp_launches["ring forward"][key]})
         if name == "quant_matmul":
             entry["timed_as"] = ("per 5B layer: qkv + 3 x (3072->3072) + ffn.0 + ffn.2; "
+                                 "ms by CUDA events around each call, device_ms from the "
+                                 "profiler (pre-pass prepass_ms + GEMM gemm_ms); "
                                  "library_ms is torch._int_mm, the s8 x s8 -> s32 "
                                  "product alone")
-            entry["bf16_matmul_ms"] = head["bf16_matmul_ms"]
+            for key in ("device_ms", "prepass_ms", "gemm_ms", "prepass_bound_ms",
+                        "library_device_ms", "bf16_matmul_ms", "bf16_matmul_device_ms",
+                        "tops", "gemm_tops", "int_mm_tops", "bound_share"):
+                entry[key] = head[key]
         if backward:
             entry["timed_as"] = ("plain_ms and library_ms (the backward of "
                                  "F.scaled_dot_product_attention) compute dq, dk and dv "

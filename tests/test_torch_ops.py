@@ -144,6 +144,44 @@ def test_rms_norm_matches_jax(rng_np):
     assert_close(got, want, TOL)
 
 
+# one ulp of the largest |out| in the output dtype: the fp32 sums of XLA
+# and ATen differ in order, which may move a rounding by one ulp
+ULP_REL = {"float32": TOL, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [33, 64, 3072])
+def test_rms_norm_dtypes_and_widths_match_jax(rng_np, dtype, d):
+    """K5's contract on the plain path: any D (odd included, as K5's own
+    kernel takes it), the output shape and dtype of x, fp32 math."""
+    x = rng_np.standard_normal((2, 5, d)).astype(np.float32) * 2 + 0.5
+    w = 1.0 + 0.1 * rng_np.standard_normal(d).astype(np.float32)
+    jx = jnp.asarray(x, dtype)
+    want = jfused.rms_norm(jx, jnp.asarray(w), eps=1e-6)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = tfused.rms_norm(tx, torch.from_numpy(w), eps=1e-6)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    want = np.asarray(want.astype(jnp.float32))
+    tol = ULP_REL[dtype] * (np.abs(want).max() if dtype != "float32" else 1.0)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_rms_norm_tile_wastes_no_lane_at_model_widths():
+    """K5's kernel walks D in chunks of at most 1,024 columns with 16-byte
+    loads: at the 5B and 14B widths every chunk is full."""
+    for d in (3072, 5120):
+        chunk, warps = tfused._rms_tile(d)
+        assert chunk == 1024 and d % chunk == 0
+        assert tfused._RMS_ROWS * chunk == warps * 32 * 8  # 8 bf16 a thread
+    assert tfused._rms_tile(33)[0] == 64  # a narrow row: one masked chunk
+
+
+def test_rms_norm_launch_refuses_host_tensors(rng_np):
+    x = torch.from_numpy(rng_np.standard_normal((1, 3, 64)).astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused._rms_norm_launch(x, torch.ones(64), 1e-6)
+
+
 def test_qk_norm_rope_matches_jax(rng_np):
     x, y, s, t, _ = _glue_inputs(rng_np, l=12)
     wq, wk = 1.0 + s[0, 0], 1.0 + t[0, 0]

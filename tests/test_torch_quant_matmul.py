@@ -132,8 +132,39 @@ def test_cached_weight_quantization_is_per_call_quantization(rng_np):
     assert owner._q8_cache["qkv"][1] is not cached
 
 
+def _jax_quantize_act(a):
+    """The activation quantization of JAX's q8_dot
+    (yume_tpu/ops/quant_matmul.py, the lines that compute a_scale and qa)."""
+    a = a.astype(jnp.float32)
+    a_scale = jnp.maximum(jnp.max(jnp.abs(a), axis=-1, keepdims=True), 1e-8) / 127.0
+    return jnp.clip(jnp.round(a / a_scale), -127, 127).astype(jnp.int8), a_scale
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_prepass_plain_matches_jax_quantization(rng_np, dtype):
+    """K6's pre-pass (``q8_quantize`` on the CPU: its plain version) against
+    JAX's: int8 rows and fp32 scales bit for bit, with a zero row (the 1e-8
+    floor) and rows of exact .5 ties; then the same bits through JAX's own
+    q8_dot with an identity weight (acc = qa, w_scale = 1)."""
+    k = 96
+    x, _ = _inputs(rng_np, 11, k, 8, ties=True)
+    x[7] = 0.0
+    jx, tx = _pair(x.reshape(1, 11, k), dtype)
+    want_q, want_s = _jax_quantize_act(jx)
+    got_q, got_s = tqm.q8_quantize(tx)
+    assert got_q.dtype == torch.int8 and got_q.shape == (1, 11, k)
+    assert got_s.dtype == torch.float32 and got_s.shape == (1, 11)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s)[..., 0])
+    assert (got_q.numpy()[0, 7] == 0).all() and np.abs(got_q.numpy()).max() == 127
+    eye = jqm.Q8(q=jnp.eye(k, dtype=jnp.int8), scale=jnp.ones((1, k), jnp.float32))
+    through_jax = jqm.q8_dot(jx, eye, jnp.float32)
+    np.testing.assert_array_equal(_np(got_q.float() * got_s[..., None]), _np(through_jax))
+
+
 def test_cpu_path_launches_no_kernel(rng_np):
     x, w = _inputs(rng_np, 4, 32, 8, ties=False)
-    before = tqm.q8_dot.launches
+    before = tqm.q8_dot.launches, tqm.q8_quantize.launches
     tqm.int8_dot_general(torch.from_numpy(x), torch.from_numpy(w.T.copy()))
-    assert tqm.q8_dot.launches == before
+    tqm.q8_quantize(torch.from_numpy(x))
+    assert (tqm.q8_dot.launches, tqm.q8_quantize.launches) == before

@@ -269,6 +269,22 @@ def test_qk_norm_rope_and_rms_norm_batched(gen, heads, head_dim):
     _glue_check(fa.rms_norm(q, wq, eps=1e-6), fa._rms_ref(q, wq, 1e-6))
 
 
+@pytest.mark.parametrize("d", [33, 1500, 3072, 5120])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_rms_norm_edges(gen, d, dtype):
+    """K5's own kernel: an odd D, a D that ends inside a 1,024-wide chunk,
+    the 5B and 14B widths, a row count that is not a multiple of the rows a
+    program takes, every activation dtype."""
+    x = _randn(gen, 3, 37, d, dtype=dtype, scale=3.0)
+    w = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
+    before = fa.rms_norm.launches
+    got = fa.rms_norm(x, w, eps=1e-6)
+    assert fa.rms_norm.launches == before + 1
+    want = fa._rms_ref(x, w, 1e-6)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _glue_check(got, want)
+
+
 def test_glue_rejects_non_contiguous(gen):
     x = _randn(gen, 2, 8, 128).transpose(0, 1)
     s = _randn(gen, 1, 1, 128, dtype=torch.float32)

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA C++ kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
-interface, which :func:`library` loads with ``ctypes``: one ``nvcc -c`` per
-source, all started together, then one link. No PyTorch header is
-included, so a build takes seconds rather than the minutes
-``torch.utils.cpp_extension`` needs. The library lands under
-``<checkout>/build/yume_tpu_torch/``, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+``csrc/*.cu`` (and the header they share, ``csrc/hopper.cuh``) compile
+with ``nvcc`` into one shared library with a plain C interface, which
+:func:`library` loads with ``ctypes``: one ``nvcc -c`` per source, all
+started together, then one link. No PyTorch header is included, so a build
+takes seconds rather than the minutes ``torch.utils.cpp_extension`` needs.
+The library lands under ``<checkout>/build/yume_tpu_torch/``, named by a
+hash of the sources, headers and flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 
 Nothing is built at import time: the first kernel launch calls
 :func:`library`. Pointers and the stream are passed as ``ctypes.c_void_p``;
@@ -49,8 +50,10 @@ _SIGNATURES = {
     # q/k/v/dout/dk/dv strides (b, l, n), scale, stream
     "yume_flash_attention_bwd_dkv": [_VOID] * 9 + [_INT] * 5 + [_I64] * 18
                                     + [_FLOAT, _VOID],
-    # x, qw, w_scale, a_scale, out, M, N, K, x row stride, stream
-    "yume_q8_matmul": [_VOID] * 5 + [_INT] * 3 + [_I64, _VOID],
+    # x, qw, w_scale, a_scale, xq (scratch), out, M, N, K, x row stride, stream
+    "yume_q8_matmul": [_VOID] * 6 + [_INT] * 3 + [_I64, _VOID],
+    # x, a_scale, xq, M, K, x row stride, stream
+    "yume_q8_quantize": [_VOID] * 3 + [_INT] * 2 + [_I64, _VOID],
     # x, b (or null), y, n, C, inner, dtype, act, alpha, gain, clamp, stream
     "yume_bias_act": [_VOID] * 3 + [_I64] * 3 + [_INT] * 2 + [_FLOAT] * 3 + [_VOID],
 }
@@ -72,8 +75,9 @@ def _sources():
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in sorted(_sources() + glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

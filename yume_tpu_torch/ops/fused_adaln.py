@@ -8,18 +8,21 @@ plain PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
 * :func:`qk_norm_rope`   — RMSNorm(q)·w_q and RMSNorm(k)·w_k over the full
   model dim, an x.dtype round-trip, then the interleaved-pair RoPE of both
   (replaces ``_qk_norm_rope_kernel``).
-* :func:`rms_norm`       — fp32 RMSNorm·w (replaces ``_rms_kernel``); the
-  same Triton kernel as :func:`qk_norm_rope` with its ``ROPE`` flag off.
+* :func:`rms_norm`       — fp32 RMSNorm·w (replaces ``_rms_kernel``).
 
 What bounds them on the H100: each is one pass of row reductions plus a few
 FLOPs per element over [B, L, D] bf16 activations (D = 3072), i.e. HBM
-bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. Design: one
-Triton program per token row with the whole row (BLOCK = next power of two
-of D, masked) in registers, so every input byte is read once and every
-output byte written once. The per-token modulation row is loaded directly
-from the compact [B, K, D] fp32 table by ``idx`` (the TPU kernel's one-hot
-dot was a Mosaic workaround). For RoPE the even and odd lanes load as two
-strided vectors; the RMS sum of squares covers both. Any batch size works.
+bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. Design of
+K2–K4: one Triton program per token row with the whole row (BLOCK = next
+power of two of D, masked) in registers, so every input byte is read once
+and every output byte written once. The per-token modulation row is loaded
+directly from the compact [B, K, D] fp32 table by ``idx`` (the TPU
+kernel's one-hot dot was a Mosaic workaround). For RoPE the even and odd
+lanes load as two strided vectors; the RMS sum of squares covers both. K5
+reads its rows contiguously: a program takes ``_RMS_ROWS`` rows and walks
+D in chunks of at most 1,024 columns (three at D = 3,072, so no lane is
+masked), 16-byte loads, twice: the sum of squares, then the scaled row
+(the second read hits the cache). Any batch size works.
 
 Each wrapper runs its plain version on CPU tensors and launches its kernel
 (or raises) on CUDA tensors. When an input requires grad, the launch goes
@@ -45,6 +48,9 @@ triton = None
 tl = None
 
 _MAX_D = 16384
+# K5's tile: rows a program and the widest D chunk (16-byte loads of bf16
+# across num_warps = ROWS·CHUNK/256 warps)
+_RMS_ROWS, _RMS_CHUNK = 2, 1024
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +155,8 @@ def _kernels():
     @triton.jit
     def rms_rope_kernel(q_ptr, wq_ptr, oq_ptr, k_ptr, wk_ptr, ok_ptr,
                         cos_ptr, sin_ptr, L, D, HALF, tab_bstride, eps,
-                        ROPE: tl.constexpr, NUM: tl.constexpr,
                         BLOCK_H: tl.constexpr):
-        # NUM = 2: the row of q, then the row of k; NUM = 1: q only.
+        # the row of q, then the row of k.
         # tab_bstride: 0 for [L, HALF] RoPE tables, L·HALF for batched
         # [B, L, HALF] tables (per-sample positions under MVDT masking)
         row = tl.program_id(0).to(tl.int64)
@@ -161,7 +166,7 @@ def _kernels():
         j = tl.arange(0, BLOCK_H)
         mask = j < D // 2
         base = row * D + 2 * j
-        for which in tl.static_range(NUM):
+        for which in tl.static_range(2):
             if which == 0:
                 x_ptr = q_ptr
                 w_ptr = wq_ptr
@@ -178,23 +183,43 @@ def _kernels():
             wo = tl.load(w_ptr + 2 * j + 1, mask=mask, other=0.0)
             ne = xe * r * we
             no = xo * r * wo
-            if ROPE:
-                # the norm's output is rounded to x.dtype before the rotation
-                ne = ne.to(o_ptr.dtype.element_ty).to(tl.float32)
-                no = no.to(o_ptr.dtype.element_ty).to(tl.float32)
-                p = tab + j % HALF
-                c = tl.load(cos_ptr + p, mask=mask, other=0.0)
-                s = tl.load(sin_ptr + p, mask=mask, other=0.0)
-                re = ne * c - no * s
-                im = ne * s + no * c
-                ne = re
-                no = im
-            tl.store(o_ptr + base, ne.to(o_ptr.dtype.element_ty), mask=mask)
-            tl.store(o_ptr + base + 1, no.to(o_ptr.dtype.element_ty), mask=mask)
+            # the norm's output is rounded to x.dtype before the rotation
+            ne = ne.to(o_ptr.dtype.element_ty).to(tl.float32)
+            no = no.to(o_ptr.dtype.element_ty).to(tl.float32)
+            p = tab + j % HALF
+            c = tl.load(cos_ptr + p, mask=mask, other=0.0)
+            s = tl.load(sin_ptr + p, mask=mask, other=0.0)
+            re = ne * c - no * s
+            im = ne * s + no * c
+            tl.store(o_ptr + base, re.to(o_ptr.dtype.element_ty), mask=mask)
+            tl.store(o_ptr + base + 1, im.to(o_ptr.dtype.element_ty), mask=mask)
+
+    @triton.jit
+    def rms_norm_kernel(x_ptr, w_ptr, o_ptr, R, D, eps,
+                        ROWS: tl.constexpr, CHUNK: tl.constexpr):
+        # ROWS rows a program, D walked in CHUNK-wide contiguous pieces
+        rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        rmask = (rows < R)[:, None]
+        base = rows[:, None] * D
+        cols = tl.arange(0, CHUNK)
+        sq = tl.zeros((ROWS, CHUNK), dtype=tl.float32)
+        for c0 in range(0, D, CHUNK):
+            c = c0 + cols
+            m = rmask & (c < D)[None, :]
+            x = tl.load(x_ptr + base + c[None, :], mask=m, other=0.0).to(tl.float32)
+            sq += x * x
+        r = tl.rsqrt(tl.sum(sq, axis=1) / D + eps)[:, None]
+        for c0 in range(0, D, CHUNK):
+            c = c0 + cols
+            m = rmask & (c < D)[None, :]
+            x = tl.load(x_ptr + base + c[None, :], mask=m, other=0.0).to(tl.float32)
+            w = tl.load(w_ptr + c, mask=c < D, other=0.0)[None, :]
+            tl.store(o_ptr + base + c[None, :], (x * r * w).to(o_ptr.dtype.element_ty),
+                     mask=m)
 
     return types.SimpleNamespace(
         adaln_norm=adaln_norm_kernel, adaln_residual=adaln_residual_kernel,
-        rms_rope=rms_rope_kernel)
+        rms_rope=rms_rope_kernel, rms_norm=rms_norm_kernel)
 
 
 def _block(n: int) -> int:
@@ -203,6 +228,13 @@ def _block(n: int) -> int:
 
 def _warps(block: int) -> int:
     return max(1, min(16, block // 256))
+
+
+def _rms_tile(d: int):
+    """K5's D chunk and warps for width d: chunks of at most ``_RMS_CHUNK``
+    columns; at the model widths a thread loads 8 bf16 (16 bytes) a chunk."""
+    chunk = min(_RMS_CHUNK, _block(d))
+    return chunk, _warps(_RMS_ROWS * chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -313,16 +345,15 @@ def _rms_norm_launch(x, w, eps):
     _check_act("rms_norm x", x)
     w = _weight("rms_norm w", w, x)
     b, l, d = x.shape
-    if d % 2:
-        raise ValueError("rms_norm: the kernel needs an even D")
     out = torch.empty_like(x)
-    if b * l == 0:
+    rows = b * l
+    if rows == 0:
         return out
-    block = _block(d // 2)
+    chunk, warps = _rms_tile(d)
     with torch.cuda.device(x.device):
-        _kernels().rms_rope[(b * l,)](
-            x, w, out, x, w, out, w, w, l, d, 1, 0, float(eps),
-            ROPE=False, NUM=1, BLOCK_H=block, num_warps=_warps(block))
+        _kernels().rms_norm[(-(-rows // _RMS_ROWS),)](
+            x, w, out, rows, d, float(eps), ROWS=_RMS_ROWS, CHUNK=chunk,
+            num_warps=warps)
     rms_norm.launches += 1
     return out
 
@@ -348,7 +379,7 @@ def _qk_norm_rope_launch(q, k, w_q, w_k, cos, sin, num_heads, eps):
     with torch.cuda.device(q.device):
         _kernels().rms_rope[(b * l,)](
             q, w_q, oq, k, w_k, ok, cos, sin, l, d, half, tab_bstride, float(eps),
-            ROPE=True, NUM=2, BLOCK_H=block, num_warps=_warps(block))
+            BLOCK_H=block, num_warps=_warps(block))
     qk_norm_rope.launches += 1
     return oq, ok
 
@@ -437,8 +468,7 @@ def adaln_residual(x, y, scale_tab, idx):
 
 
 def rms_norm(x, w, *, eps=1e-5):
-    """fp32 RMSNorm with learned scale over the last axis (K5: the Triton
-    kernel of :func:`qk_norm_rope` with ``ROPE`` off)."""
+    """fp32 RMSNorm with learned scale over the last axis (K5)."""
     if not x.is_cuda:
         return _rms_ref(x, w, eps)
     return _run(_rms_norm_launch, _rms_ref, (x, w), (eps,))
