@@ -9,23 +9,27 @@ result line:
 1. device: the card's name and power limit from nvidia-smi, torch and CUDA
    versions;
 2. build: compile the CUDA kernels from yume_tpu_torch/csrc (one nvcc per
-   source, in parallel); print the registers, spills and shared memory of
-   the flash forward and of K6's two kernels from the compiler's log;
+   source, in parallel); print the registers, spills, wgmma serialization
+   warnings and shared memory of the flash forward, of K6's two kernels and
+   of the flash backward's K8 and K9 from the compiler's log;
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4, the
    RMSNorm kernel K5, the W8A8 int8 matmul K6, the partial flash attention
    of ring attention K7, the flash-attention backward K8 (dQ) and K9 (dK,
    dV), the fused bias + activation K10) against its plain PyTorch version on the same seeded
    inputs at the 5B segment's shapes (K7 at its ring shapes: sp 4, sp 8,
-   USP 2 x 2, a block with no live key; K8/K9 and K4's batched-table case
-   at the trainer's; K10 at the ADD discriminator's, every activation, bf16,
-   and an NCHW ``dim=1`` call of ``filtered_lrelu``): error against a
+   USP 2 x 2, a block with no live key; K8/K9 at the trainer's self, cross
+   and MVDT shapes, each three times and bit-identical, by events and on
+   the device, with the pair against a fused backward's 5-product bound;
+   K4's batched-table case at the trainer's; K10 at the ADD
+   discriminator's, every activation, bf16, and an NCHW ``dim=1`` call of
+   ``filtered_lrelu``): error against a
    stated tolerance, median times of the kernel, of its plain version and
    of one PyTorch library call where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the published peak of their type, whichever is larger), and for K1,
-   K6 and K7 the achieved rate and the share of the bound (K6 equal to its
-   plain version bit for bit, with its pre-pass timed apart; K1 also at the
+   over the published peak of their type, whichever is larger), and for
+   K1, K6, K7, K8 and K9 the achieved rate and the share of the bound (K6
+   equal to its plain version bit for bit, with its pre-pass timed apart; K1 also at the
    unpacked 121-frame stream's 27,280 tokens; K1's self cases hold out to
    two bf16 ulps of the largest |out| and the lse to ``K7_LSE_TOL``, on a
    few heads); then K7's ring invariant
@@ -151,25 +155,30 @@ def device_ms(fn, names=None, reps: int = 10) -> dict:
     of ``reps`` calls after a warm-up: CUPTI's kernel durations, without the
     host's launch path that CUDA events around one call also count. Keys:
     each of ``names`` (the kernels whose name contains it) and "all" (every
-    kernel of the call)."""
+    kernel of the call). A trace that recorded no kernel at all (CUPTI
+    dropped one now and then on the H100 in a run of many short traces) is
+    taken again, at most three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys([*(names or ()), "all"], 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        out["all"] += _event_ms(e) / reps
-        for n in names or ():
-            if n in e.key:
-                out[n] += _event_ms(e) / reps
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys([*(names or ()), "all"], 0.0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            out["all"] += _event_ms(e) / reps
+            for n in names or ():
+                if n in e.key:
+                    out[n] += _event_ms(e) / reps
+        if out["all"] > 0:
+            return out
+    require(False, "device_ms: three profiler traces recorded no kernel")
 
 
 def require(ok: bool, what: str):
@@ -253,9 +262,11 @@ def build_phase():
     # reports the register count at entry; the consumers raise theirs with
     # setmaxnreg). Dynamic shared memory from the tile constants of each
     # source: the flash forward's Layout<D>::bytes (Q, STAGES K and V tiles,
-    # 1 + 3·STAGES mbarriers, 1 KB for alignment) and K6's GEMM's SMEM_BYTES
+    # 1 + 3·STAGES mbarriers, 1 KB for alignment), K6's GEMM's SMEM_BYTES
     # (STAGES xq and qw tiles, two 64 x BN/2 bf16 output buffers, 2·STAGES
-    # mbarriers, 1 KB); K6's pre-pass has none.
+    # mbarriers, 1 KB), K8's and K9's layouts (the held tiles, the ring of
+    # streamed tiles, K9's with each q tile's lse and delta); K6's pre-pass
+    # has none.
     def constants(src, names):
         with open(os.path.join(REPO, "yume_tpu_torch", "csrc", src)) as f:
             found = dict(re.findall(rf"constexpr int ({names}) = (\d+);", f.read()))
@@ -263,6 +274,14 @@ def build_phase():
 
     fa_c = constants("flash_attention.cu", "BQ|BK|STAGES")
     qm_c = constants("quant_matmul.cu", "BM|BN|BK|STAGES")
+    bw_c = constants("flash_attention_bwd.cu", "BQ|BQT|SMEM_LIMIT")
+
+    def bwd_smem(held, stage, limit):
+        # flash_attention_bwd.cu's Dq/DkvLayout: the held tiles, 2-4 ring
+        # stages (as many as fit under the limit), 1 + 2·STAGES mbarriers, 1 KB
+        stages = min(4, max(2, (limit - 1024 - held) // stage))
+        return held + stages * stage + 8 * (1 + 2 * stages) + 1024, stages
+
     with open(f"{path}.log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
@@ -281,10 +300,21 @@ def build_phase():
                     + 2 * 64 * qm_c["BN"] + 16 * qm_c["STAGES"] + 1024)
         elif "quantize_rows_kernel" in line:
             name, smem = "quantize_rows_kernel (K6 pre-pass)", 0
+        elif "flash_bwd_dq_kernel" in line:  # <D, keys per K/V tile>
+            d, bkv = map(int, re.search(r"flash_bwd_dq_kernelILi(\d+)ELi(\d+)E", line).groups())
+            smem, stages = bwd_smem(2 * bw_c["BQ"] * d * 2, 2 * bkv * d * 2, bw_c["SMEM_LIMIT"])
+            name = f"flash_bwd_dq_kernel<{d}, {bkv}> (K8, {stages} stages)"
+        elif "flash_bwd_dkv_kernel" in line:  # <D, consumer warpgroups>
+            d, nc = map(int, re.search(r"flash_bwd_dkv_kernelILi(\d+)ELi(\d+)E", line).groups())
+            limit = bw_c["SMEM_LIMIT"] // (2 if nc == 1 else 1)  # one consumer: 2 CTAs an SM
+            smem, stages = bwd_smem(2 * 64 * nc * d * 2, 2 * bw_c["BQT"] * d * 2
+                                    + 2 * bw_c["BQT"] * 4, limit)
+            name = f"flash_bwd_dkv_kernel<{d}, {64 * nc} kv rows> (K9, {stages} stages)"
         else:
             continue
         log(f"build: {name}: {'; '.join(info)}; dynamic shared memory {smem} bytes a CTA")
-    for kernel in ("flash_fwd_kernel", "q8_gemm_kernel"):
+    for kernel in ("flash_fwd_kernel", "q8_gemm_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_kernel"):
         serialized = [x for x in lines if "C7515" in x and kernel in x]
         log(f"build: {kernel} wgmma serialization warnings (C7515): {len(serialized)}")
 
@@ -448,23 +478,28 @@ def attention_and_glue_kernels(results, gen):
 
 def flash_backward_kernels(results, gen):
     """K8 (dQ) and K9 (dK, dV) against ``plain_attention_bwd`` at the 5B
-    trainer's shapes: self-attention over its 2,805 packed tokens and
-    cross-attention over 512 text rows. Tolerance: 2e-2 of the largest
-    plain gradient (the kernels round P and dS to bf16 before their
-    products and write bf16; about 3 bf16 ulps of the largest entry). The
-    plain version and the library yardstick (``F.scaled_dot_product_attention``'s
-    backward, timed as forward + backward less the forward) each compute
-    dQ, dK and dV together, so K8 and K9 report the same plain and library
-    times."""
+    trainer's shapes: self-attention over its 2,805 packed tokens, cross-
+    attention over 512 text rows and MVDT's self-attention over the 1,963
+    kept tokens. Tolerance: 2e-2 of the largest plain gradient (the kernels
+    round P and dS to bf16 before their products and write bf16; about 3
+    bf16 ulps of the largest entry). Each kernel runs three times on the same
+    inputs and must give the same bits (no atomics). Times by CUDA events
+    and by the profiler's device time, TFLOP/s and the share of each
+    kernel's bound; the pair against the bound of a fused backward's 5
+    products. The plain version and the library yardstick
+    (``F.scaled_dot_product_attention``'s backward, timed as forward +
+    backward less the forward) each compute dQ, dK and dV together, so K8
+    and K9 report the same plain and library times (on the device: the
+    profiled backward alone)."""
     from yume_tpu_torch.ops import flash_attention as fl
 
-    for case, lk in ((f"self [1,{TRAIN_L},24,128]", TRAIN_L), ("cross Lk=512", TEXT_LEN)):
-        q, do = _randn(gen, 1, TRAIN_L, N, D), _randn(gen, 1, TRAIN_L, N, D)
+    for case, lq, lk in ((f"self [1,{TRAIN_L},24,128]", TRAIN_L, TRAIN_L),
+                         ("cross Lk=512", TRAIN_L, TEXT_LEN),
+                         (f"MVDT self [1,{TRAIN_KEEP},24,128]", TRAIN_KEEP, TRAIN_KEEP)):
+        q, do = _randn(gen, 1, lq, N, D), _randn(gen, 1, lq, N, D)
         k, v = _randn(gen, 1, lk, N, D), _randn(gen, 1, lk, N, D)
         out, lse = fl.flash_attention(q, k, v, return_lse=True)
         delta = fl.attention_delta(out, do)
-        dq = fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
         want = fl.plain_attention_bwd(q, k, v, out, lse, do)
         plain_ms = median_ms(lambda: fl.plain_attention_bwd(q, k, v, out, lse, do), reps=3)
 
@@ -479,22 +514,48 @@ def flash_backward_kernels(results, gen):
             torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do_t)
 
         lib_ms = median_ms(sdpa_fwd_bwd, reps=5) - median_ms(sdpa_fwd, reps=5)
-        flops = 2.0 * N * TRAIN_L * lk * D  # one [Lq, Lk, D] product, all heads
+        # on the device: the backward alone, on a kept graph (a difference of
+        # two profiled calls read 0 at the cross shape on the H100)
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        lib_dev = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                        retain_graph=True))["all"]
+        del lib_out
+        flops = 2.0 * N * lq * lk * D  # one [Lq, Lk, D] product, all heads
         stats = nbytes(lse, delta)
-        for kernel, got, ref, run, ops, out_bytes in (
-                ("flash_attention_bwd_dq", (dq,), want[:1],
-                 lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-                 3 * flops, nbytes(dq)),
-                ("flash_attention_bwd_dkv", (dk, dv), want[1:],
-                 lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-                 4 * flops, nbytes(dk, dv))):
+        pair = {}
+        for kernel, ref, run, ops in (
+                ("flash_attention_bwd_dq", want[:1],
+                 lambda: (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),), 3 * flops),
+                ("flash_attention_bwd_dkv", want[1:],
+                 lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta), 4 * flops)):
+            got = run()
+            same = all(torch.equal(a, b) for _ in range(2) for a, b in zip(got, run()))
+            require(same, f"{kernel} {case}: a repeat run gave other bits")
             err = max(max_err(g, w) for g, w in zip(got, ref))
             tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in ref)
-            ms = median_ms(run, reps=5)
-            _record(results, kernel, case, err, tol, ms, plain_ms,
-                    bound_ms(nbytes(q, k, v, do) + stats + out_bytes, ops, "bf16"), lib_ms,
-                    tflops=round(ops / ms / 1e9, 1))
-        del q, k, v, do, out, lse, delta, dq, dk, dv, want, leaves, do_t
+            ms = median_ms(run, reps=10)
+            dev = device_ms(run)["all"]
+            bound = bound_ms(nbytes(q, k, v, do, *got) + stats, ops, "bf16")
+            pair[kernel] = (ms, dev)
+            _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms,
+                    device_ms=round(dev, 4), library_device_ms=round(lib_dev, 4),
+                    tflops=round(ops / ms / 1e9, 1),
+                    device_tflops=round(ops / dev / 1e9, 1),
+                    bound_share=round(bound[0] / ms, 4),
+                    device_bound_share=round(bound[0] / dev, 4), three_runs_identical=same)
+            del got
+        # a fused backward (FA2/FA3) computes dQ, dK and dV in 5 products
+        fused = bound_ms(nbytes(q, k, v, do, *want) + stats, 5 * flops, "bf16")
+        ms = sum(t[0] for t in pair.values())
+        dev = sum(t[1] for t in pair.values())
+        log(f"  K8 + K9 pair              {case:<26} {ms:.3f} ms by events, {dev:.3f} ms on "
+            f"the device; 5-product bound {fused[0]:.4f} ms ({fused[1]}), "
+            f"{fused[0] / dev:.1%} of it on the device; SDPA backward {lib_ms:.3f} ms, "
+            f"{lib_dev:.3f} ms on the device")
+        results["flash_attention_bwd_dq"].setdefault("pair", []).append({
+            "case": case, "ms": ms, "device_ms": dev, "fused_bound_ms": fused[0],
+            "library_ms": lib_ms, "library_device_ms": lib_dev})
+        del q, k, v, do, out, lse, delta, want, leaves, do_t
 
 
 # ring shapes of the 5B segment: 12,095 tokens padded to 12,096, so the
@@ -1732,7 +1793,9 @@ def main() -> int:
         if backward:
             entry["timed_as"] = ("plain_ms and library_ms (the backward of "
                                  "F.scaled_dot_product_attention) compute dq, dk and dv "
-                                 "together")
+                                 "together; pair: K8 + K9 against a fused backward's "
+                                 "5-product bound")
+            entry["pair"] = results["flash_attention_bwd_dq"]["pair"]
         if name == "bias_act":
             entry["launches_per_distill_step"] = K10_PER_DISTILL_STEP
             # at the discriminator's size the events time the host's launch path;

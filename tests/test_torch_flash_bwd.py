@@ -47,12 +47,20 @@ def _attn_inputs(rng, b, lq, lk, n, d):
             for s in ((b, lq, n, d), (b, lk, n, d), (b, lk, n, d), (b, lq, n, d))]
 
 
-@pytest.mark.parametrize("lq,lk,kv_len", [
-    (100, 150, None),
-    (70, 200, (37, 200)),
+@pytest.mark.parametrize("lq,lk,kv_len,d", [
+    pytest.param(100, 150, None, 64, id="100-150-None"),
+    pytest.param(70, 200, (37, 200), 64, id="70-200-kv_len1"),
+    # either side of the kernels' 64- and 128-row tiles
+    pytest.param(129, 127, None, 64, id="129-127-None"),
+    # a batch with no live key: the reference's finite mask value spreads
+    # its softmax over the masked keys, the port (like K1) gives out 0,
+    # lse MASKED_LSE and zero gradients; only the live batch is compared
+    pytest.param(65, 64, (0, 64), 64, id="65-64-kv_len0"),
+    pytest.param(63, 65, (50, 65), 16, id="63-65-d16"),
+    pytest.param(64, 129, (100, 129), 128, id="64-129-d128"),
 ])
-def test_plain_attention_bwd_matches_pallas_vjp(rng_np, lq, lk, kv_len):
-    q, k, v, g = _attn_inputs(rng_np, 2, lq, lk, 2, 64)
+def test_plain_attention_bwd_matches_pallas_vjp(rng_np, lq, lk, kv_len, d):
+    q, k, v, g = _attn_inputs(rng_np, 2, lq, lk, 2, d)
     jl = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
     tl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
     with pltpu.force_tpu_interpret_mode():
@@ -60,13 +68,19 @@ def test_plain_attention_bwd_matches_pallas_vjp(rng_np, lq, lk, kv_len):
                          jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         want = vjp(jnp.asarray(g))
     tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
-    out, lse = tflash.plain_attention(tq, tk, tv, kv_len=tl, return_lse=True)
+    live = [i for i in range(2) if kv_len is None or kv_len[i] > 0]
+    if len(live) < 2:  # the kernel's forward on an empty batch
+        out, lse = tflash.plain_attention_partial(tq, tk, tv, kv_len=tl)
+    else:
+        out, lse = tflash.plain_attention(tq, tk, tv, kv_len=tl, return_lse=True)
     got = tflash.plain_attention_bwd(tq, tk, tv, out, lse, tg, kv_len=tl)
     for a, w in zip(got, want):
-        _rel_close(a, w, ATTN_REL)
+        _rel_close(a[live], np.asarray(w)[live], ATTN_REL)
     if kv_len is not None:  # masked keys get exactly zero gradient
         for i, n_live in enumerate(kv_len):
             assert not got[1][i, n_live:].any() and not got[2][i, n_live:].any()
+            if n_live == 0:  # and a query with no live key zero dq
+                assert not got[0][i].any()
     # the split wrappers (K8 and K9 on the card) give the same on the CPU
     delta = tflash.attention_delta(out, tg)
     assert torch.equal(tflash.flash_attention_bwd_dq(tq, tk, tv, tg, lse, delta, kv_len=tl),

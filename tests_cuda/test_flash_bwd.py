@@ -2,7 +2,13 @@
 :func:`plain_attention_bwd` on the card: head dims 16, 64 and 128, batch > 1, q and
 kv lengths that are not multiples of 64, Lk < 64, kv_len including 0, a
 non-contiguous dout, the gradients of the ``attention`` autograd path, and
-K7's VJP (``flash_attention_partial``) with a cotangent on its lse.
+K7's VJP (``flash_attention_partial``) with a cotangent on its lse. Then the
+tiles of the Hopper kernels (K8: 128 q rows a CTA, 64- or 128-key K/V tiles;
+K9: 64 or 128 kv rows a CTA, 64-row q tiles): lengths either side of 64,
+128 and 192 at every head dim, kv_len inside the last kv tile, at 0 and at
+Lk, Lq = 2,805 (an lse/delta row that is no multiple of 16 bytes), the 5B
+trainer's grid (24 heads, more CTAs than SMs), strided q/k/v views and the
+cross-attention shape; each case runs three times and must be bit-identical.
 
 Tolerance: the kernels round P and dS to bf16 before their tensor-core
 products and write bf16; the plain version computes in fp32 from the same
@@ -134,3 +140,70 @@ def test_partial_attention_vjp_with_dlse(gen, kv_len):
             before[0] + kernel, before[1] + kernel)
     for g, w in zip(*grads):
         _close(g, w)
+
+
+def _inputs(gen, b, lq, lk, n, d, kv_len=None, strided=False):
+    if strided:  # [B, N, L, D] tensors seen as [B, L, N, D]
+        q, k, v = (_randn(gen, b, n, l, d).transpose(1, 2) for l in (lq, lk, lk))
+    else:
+        q, k, v = _randn(gen, b, lq, n, d), _randn(gen, b, lk, n, d), _randn(gen, b, lk, n, d)
+    dout = _randn(gen, b, lq, n, d)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = flash_attention(q, k, v, kv_len=kl, return_lse=True)
+    return q, k, v, dout, kl, out, lse
+
+
+def _check_three_runs(q, k, v, dout, kl, out, lse, tiles=(64, 128)):
+    """K8 and K9 three times (bit-identical) against the plain version."""
+    delta = attention_delta(out, dout)
+    runs = []
+    for _ in range(3):
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=kl, tile=tiles[0])
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=kl, tile=tiles[1])
+        runs.append((dq, dk, dv))
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(a, b)
+    want = plain_attention_bwd(q, k, v, out, lse, dout, kv_len=kl)
+    for g, w in zip(runs[0], want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close(g, w)
+    return runs[0]
+
+
+_TILE_EDGES = [(63, 65), (64, 64), (65, 63), (127, 129), (128, 128), (129, 127),
+               (191, 193), (192, 192), (193, 191)]
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("lq,lk", _TILE_EDGES)
+def test_flash_bwd_tile_edges(gen, lq, lk, d):
+    _check_three_runs(*_inputs(gen, 2, lq, lk, 2, d))
+
+
+@pytest.mark.parametrize("tiles", [(64, 128), (128, 128), (64, 64), (128, 64)])
+@pytest.mark.parametrize("lq,lk,d,kv_len", [
+    (129, 193, 128, (150, 193)),    # kv_len inside the last 64- and 128-key tile
+    (65, 127, 64, (0, 127)),        # no live key; kv_len = Lk
+    (191, 63, 16, (63, 1)),
+])
+def test_flash_bwd_tiles_and_kv_len(gen, tiles, lq, lk, d, kv_len):
+    q, k, v, dout, kl, out, lse = _inputs(gen, 2, lq, lk, 3, d, kv_len)
+    dq, dk, dv = _check_three_runs(q, k, v, dout, kl, out, lse, tiles)
+    for i, n_live in enumerate(kv_len):
+        assert not dk[i, n_live:].any() and not dv[i, n_live:].any()
+        if n_live == 0:
+            assert not dq[i].any()
+
+
+@pytest.mark.parametrize("case,b,lq,lk,n,kv_len,strided", [
+    ("odd lse/delta pitch", 1, 2805, 300, 2, None, False),
+    ("5B trainer grid", 1, 2805, 2805, 24, None, False),
+    ("cross Lk=512", 1, 2805, 512, 24, None, False),
+    ("strided q, k, v", 2, 300, 257, 4, (257, 100), True),
+])
+def test_flash_bwd_trainer_shapes(gen, case, b, lq, lk, n, kv_len, strided):
+    q, k, v, dout, kl, out, lse = _inputs(gen, b, lq, lk, n, 128, kv_len, strided)
+    if strided:
+        assert not q.is_contiguous() and not k.is_contiguous()
+    _check_three_runs(q, k, v, dout, kl, out, lse)
