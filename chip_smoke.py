@@ -264,9 +264,9 @@ def build_phase():
     # source: the flash forward's Layout<D>::bytes (Q, STAGES K and V tiles,
     # 1 + 3·STAGES mbarriers, 1 KB for alignment), K6's GEMM's SMEM_BYTES
     # (STAGES xq and qw tiles, two 64 x BN/2 bf16 output buffers, 2·STAGES
-    # mbarriers, 1 KB), K8's and K9's layouts (the held tiles, the ring of
-    # streamed tiles, K9's with each q tile's lse and delta); K6's pre-pass
-    # has none.
+    # mbarriers, 1 KB), K8's Dq/K9's DkvLayout<D>::bytes (the held tiles,
+    # STAGES streamed tiles, K9's with each q tile's lse and delta,
+    # 1 + 2·STAGES mbarriers, 1 KB); K6's pre-pass has none.
     def constants(src, names):
         with open(os.path.join(REPO, "yume_tpu_torch", "csrc", src)) as f:
             found = dict(re.findall(rf"constexpr int ({names}) = (\d+);", f.read()))
@@ -274,13 +274,7 @@ def build_phase():
 
     fa_c = constants("flash_attention.cu", "BQ|BK|STAGES")
     qm_c = constants("quant_matmul.cu", "BM|BN|BK|STAGES")
-    bw_c = constants("flash_attention_bwd.cu", "BQ|BQT|SMEM_LIMIT")
-
-    def bwd_smem(held, stage, limit):
-        # flash_attention_bwd.cu's Dq/DkvLayout: the held tiles, 2-4 ring
-        # stages (as many as fit under the limit), 1 + 2·STAGES mbarriers, 1 KB
-        stages = min(4, max(2, (limit - 1024 - held) // stage))
-        return held + stages * stage + 8 * (1 + 2 * stages) + 1024, stages
+    bw_c = constants("flash_attention_bwd.cu", "BQ|BK|BKV|BQT|STAGES")
 
     with open(f"{path}.log") as f:
         lines = f.read().splitlines()
@@ -300,16 +294,16 @@ def build_phase():
                     + 2 * 64 * qm_c["BN"] + 16 * qm_c["STAGES"] + 1024)
         elif "quantize_rows_kernel" in line:
             name, smem = "quantize_rows_kernel (K6 pre-pass)", 0
-        elif "flash_bwd_dq_kernel" in line:  # <D, keys per K/V tile>
-            d, bkv = map(int, re.search(r"flash_bwd_dq_kernelILi(\d+)ELi(\d+)E", line).groups())
-            smem, stages = bwd_smem(2 * bw_c["BQ"] * d * 2, 2 * bkv * d * 2, bw_c["SMEM_LIMIT"])
-            name = f"flash_bwd_dq_kernel<{d}, {bkv}> (K8, {stages} stages)"
-        elif "flash_bwd_dkv_kernel" in line:  # <D, consumer warpgroups>
-            d, nc = map(int, re.search(r"flash_bwd_dkv_kernelILi(\d+)ELi(\d+)E", line).groups())
-            limit = bw_c["SMEM_LIMIT"] // (2 if nc == 1 else 1)  # one consumer: 2 CTAs an SM
-            smem, stages = bwd_smem(2 * 64 * nc * d * 2, 2 * bw_c["BQT"] * d * 2
-                                    + 2 * bw_c["BQT"] * 4, limit)
-            name = f"flash_bwd_dkv_kernel<{d}, {64 * nc} kv rows> (K9, {stages} stages)"
+        elif "flash_bwd_dq_kernel" in line:
+            d = int(line.split("flash_bwd_dq_kernelILi")[1].split("E")[0])
+            name = f"flash_bwd_dq_kernel<{d}> (K8)"
+            smem = ((2 * bw_c["BQ"] + 2 * bw_c["STAGES"] * bw_c["BK"]) * d * 2
+                    + 8 * (1 + 2 * bw_c["STAGES"]) + 1024)
+        elif "flash_bwd_dkv_kernel" in line:
+            d = int(line.split("flash_bwd_dkv_kernelILi")[1].split("E")[0])
+            name = f"flash_bwd_dkv_kernel<{d}> (K9)"
+            smem = ((2 * bw_c["BKV"] + 2 * bw_c["STAGES"] * bw_c["BQT"]) * d * 2
+                    + bw_c["STAGES"] * 2 * bw_c["BQT"] * 4 + 8 * (1 + 2 * bw_c["STAGES"]) + 1024)
         else:
             continue
         log(f"build: {name}: {'; '.join(info)}; dynamic shared memory {smem} bytes a CTA")

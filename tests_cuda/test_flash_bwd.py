@@ -3,8 +3,8 @@
 kv lengths that are not multiples of 64, Lk < 64, kv_len including 0, a
 non-contiguous dout, the gradients of the ``attention`` autograd path, and
 K7's VJP (``flash_attention_partial``) with a cotangent on its lse. Then the
-tiles of the Hopper kernels (K8: 128 q rows a CTA, 64- or 128-key K/V tiles;
-K9: 64 or 128 kv rows a CTA, 64-row q tiles): lengths either side of 64,
+tiles of the Hopper kernels (K8: 128 q rows a CTA, 64-key K/V tiles; K9: 128
+kv rows a CTA, 64-row q tiles): lengths either side of 64,
 128 and 192 at every head dim, kv_len inside the last kv tile, at 0 and at
 Lk, Lq = 2,805 (an lse/delta row that is no multiple of 16 bytes), the 5B
 trainer's grid (24 heads, more CTAs than SMs), strided q/k/v views and the
@@ -153,13 +153,13 @@ def _inputs(gen, b, lq, lk, n, d, kv_len=None, strided=False):
     return q, k, v, dout, kl, out, lse
 
 
-def _check_three_runs(q, k, v, dout, kl, out, lse, tiles=(64, 128)):
+def _check_three_runs(q, k, v, dout, kl, out, lse):
     """K8 and K9 three times (bit-identical) against the plain version."""
     delta = attention_delta(out, dout)
     runs = []
     for _ in range(3):
-        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=kl, tile=tiles[0])
-        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=kl, tile=tiles[1])
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=kl)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=kl)
         runs.append((dq, dk, dv))
     for again in runs[1:]:
         for a, b in zip(runs[0], again):
@@ -181,15 +181,15 @@ def test_flash_bwd_tile_edges(gen, lq, lk, d):
     _check_three_runs(*_inputs(gen, 2, lq, lk, 2, d))
 
 
-@pytest.mark.parametrize("tiles", [(64, 128), (128, 128), (64, 64), (128, 64)])
 @pytest.mark.parametrize("lq,lk,d,kv_len", [
-    (129, 193, 128, (150, 193)),    # kv_len inside the last 64- and 128-key tile
+    (129, 193, 128, (150, 193)),    # kv_len inside K8's last key tile and K9's last CTA
+    (129, 193, 64, (100, 193)),     # K9's second CTA lies wholly past kv_len
     (65, 127, 64, (0, 127)),        # no live key; kv_len = Lk
     (191, 63, 16, (63, 1)),
 ])
-def test_flash_bwd_tiles_and_kv_len(gen, tiles, lq, lk, d, kv_len):
+def test_flash_bwd_kv_len_edges(gen, lq, lk, d, kv_len):
     q, k, v, dout, kl, out, lse = _inputs(gen, 2, lq, lk, 3, d, kv_len)
-    dq, dk, dv = _check_three_runs(q, k, v, dout, kl, out, lse, tiles)
+    dq, dk, dv = _check_three_runs(q, k, v, dout, kl, out, lse)
     for i, n_live in enumerate(kv_len):
         assert not dk[i, n_live:].any() and not dv[i, n_live:].any()
         if n_live == 0:

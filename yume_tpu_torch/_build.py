@@ -42,13 +42,13 @@ _SIGNATURES = {
     # q strides (b, l, n), k strides, v strides, out strides, scale, stream
     "yume_flash_attention_fwd": [_VOID] * 6 + [_INT] * 5 + [_I64] * 12
                                 + [_FLOAT, _VOID],
-    # q, k, v, dout, lse, delta, kv_len, dq, B, Lq, Lk, N, D, tile,
+    # q, k, v, dout, lse, delta, kv_len, dq, B, Lq, Lk, N, D,
     # q/k/v/dout/dq strides (b, l, n), scale, stream
-    "yume_flash_attention_bwd_dq": [_VOID] * 8 + [_INT] * 6 + [_I64] * 15
+    "yume_flash_attention_bwd_dq": [_VOID] * 8 + [_INT] * 5 + [_I64] * 15
                                    + [_FLOAT, _VOID],
-    # q, k, v, dout, lse, delta, kv_len, dk, dv, B, Lq, Lk, N, D, tile,
+    # q, k, v, dout, lse, delta, kv_len, dk, dv, B, Lq, Lk, N, D,
     # q/k/v/dout/dk/dv strides (b, l, n), scale, stream
-    "yume_flash_attention_bwd_dkv": [_VOID] * 9 + [_INT] * 6 + [_I64] * 18
+    "yume_flash_attention_bwd_dkv": [_VOID] * 9 + [_INT] * 5 + [_I64] * 18
                                     + [_FLOAT, _VOID],
     # x, qw, w_scale, a_scale, xq (scratch), out, M, N, K, x row stride, stream
     "yume_q8_matmul": [_VOID] * 6 + [_INT] * 3 + [_I64, _VOID],

@@ -82,12 +82,13 @@ constexpr float MASKED_LSE = -0.7f * FLT_MAX;
 
 // Shared-memory carve-up for head dim D. A tile of R rows is stored as
 // D·2/SW boxes of [R rows × SW bytes], each swizzled by TMA in SW-byte rows
-// (SW = 128, or 32 for D = 16); every box starts on 1024 bytes.
+// (SW = 128, or 32 for D = 16); every box starts on 1024 bytes. The swizzle
+// constants are hopper.cuh's, which the tensor maps are encoded with.
 template <int D>
 struct Layout {
-  static constexpr int SW = 2 * D < 128 ? 2 * D : 128;  // swizzle span, bytes
-  static constexpr int SWE = SW / 2;                     // box width, elements
-  static constexpr int BOXES = 2 * D / SW;
+  static constexpr int SW = Swizzle<D>::SW;        // swizzle span, bytes
+  static constexpr int SWE = Swizzle<D>::SWE;      // box width, elements
+  static constexpr int BOXES = Swizzle<D>::BOXES;
   static constexpr uint32_t Q_BYTES = BQ * D * 2;
   static constexpr uint32_t KV_BYTES = BK * D * 2;
   static constexpr uint32_t q = 0;
@@ -96,7 +97,7 @@ struct Layout {
   static constexpr uint32_t bars = v + STAGES * KV_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
   static constexpr uint32_t bytes = bars + 8 * (1 + 3 * STAGES) + 1024;  // + alignment
-  static constexpr uint64_t LAYOUT_TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr uint64_t LAYOUT_TYPE = Swizzle<D>::LAYOUT_TYPE;
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "box alignment");
 };
 

@@ -29,19 +29,19 @@
 // heads, D = 128) K8 does 3 and K9 4 matrix products of 2*Lq*Lk*D FLOP per
 // head (1.45e11 and 1.93e11 FLOP) against ~0.1 GB of traffic: tensor-core
 // bound (0.147 and 0.196 ms at 989 TFLOP/s). The design is K1's:
-//  * One CTA of three warpgroups (two in K9's 64-row variant). Warpgroup 0
-//    is the producer: it gives up registers (setmaxnreg 24) and issues TMA
-//    loads into an mbarrier ring (full barriers count TMA bytes, empty
-//    barriers one arrival per consumer warpgroup after the last wgmma that
-//    read the stage has been waited). The consumers (setmaxnreg 240) own 64
-//    rows of the held operand each.
+//  * One CTA of three warpgroups. Warpgroup 0 is the producer: it gives up
+//    registers (setmaxnreg 24) and issues TMA loads into a four-stage
+//    mbarrier ring (full barriers count TMA bytes, empty barriers one
+//    arrival per consumer warpgroup after the last wgmma that read the
+//    stage has been waited). The two consumers (setmaxnreg 240) own 64 rows
+//    of the held operand each.
 //  * K8: one CTA per (128 q rows, batch*head). Q and dO are loaded once, K
-//    and V stream through a ring of BKV-key tiles. S = Q K^T and dP = dO V^T
-//    are SS wgmma (m64n{BKV}k16, K-major operands as they lie, like K1's
+//    and V stream through a ring of 64-key tiles. S = Q K^T and dP = dO V^T
+//    are SS wgmma (m64n64k16, K-major operands as they lie, like K1's
 //    Q K^T); P and dS are formed in registers with the row's lse and delta
 //    in registers; dS goes to bf16 in registers as the A operand of
 //    dQ += dS K (RS wgmma m64nDk16, K read MN-major, like K1's V).
-//  * K9: one CTA per (64 * NC kv rows, batch*head). K and V are loaded
+//  * K9: one CTA per (128 kv rows, batch*head). K and V are loaded
 //    once; Q and dO stream through the ring in 64-row q tiles. The
 //    consumers compute the transposed products S^T = K Q^T and
 //    dP^T = V dO^T (SS m64n64k16), form P^T and dS^T in registers with
@@ -60,13 +60,12 @@
 //    tile t's accumulating products, and the last tile is peeled off, so
 //    no wgmma is issued under a condition (that serialised every wgmma in
 //    K1, ptxas C7515).
-//  * Tiles: K8's 64-key K/V tiles (four stages) beat 128-key ones (two
-//    stages fit) and K9's 128-row CTAs beat 64-row ones (one consumer, two
-//    CTAs an SM) at the trainer's self, cross and MVDT shapes on the H100
-//    (scripts/torch_flash_bwd_tiles.py, PERF.md); the wrappers launch those
-//    and keep the others selectable for that script. An FA3-style ping-pong
-//    of the two consumers, Q and dO held as K8's register A operands, and a
-//    double-buffered S/dP in K8 were each slower or within noise.
+//  * Tiles: K8's 64-key K/V tiles beat 128-key ones (two stages fit) and
+//    K9's 128-row CTAs beat 64-row ones (one consumer, two CTAs an SM) at
+//    the trainer's self, cross and MVDT shapes on the H100 (PERF.md). An
+//    FA3-style ping-pong of the two consumers, Q and dO held as K8's
+//    register A operands, and a double-buffered S/dP in K8 were each slower
+//    or within noise.
 // The tensor maps are encoded on the host for each launch by
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so that the
 // library needs no -lcuda.
@@ -84,25 +83,22 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 128;        // K8: q rows per CTA, two consumer warpgroups of 64
+// Each CTA: two consumer warpgroups of 64 rows of the held operand.
+constexpr int BQ = 128;        // K8: q rows per CTA
+constexpr int BK = 64;         // K8: keys per streamed K/V tile
+constexpr int BKV = 128;       // K9: kv rows per CTA
 constexpr int BQT = 64;        // K9: q rows per streamed tile
+constexpr int STAGES = 4;      // ring depth of both kernels
 constexpr int PRODUCER_REGS = 24;
-constexpr int SMEM_LIMIT = 230400;  // a CTA's dynamic shared memory on the H100, less 2 KB
+constexpr int SMEM_MAX = 232448;  // a CTA's dynamic shared memory on the H100
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ring depth: as many stages as fit beside the held tiles, 2 to 4
-constexpr int stages(int held, int stage, int limit) {
-  const int fit = (limit - held) / stage;
-  return fit < 2 ? 2 : fit > 4 ? 4 : fit;
-}
-
 // K8's shared memory: Q and dO (BQ rows, loaded once), then STAGES K and V
-// tiles of BKV rows, then the barriers q_full, full[STAGES], empty[STAGES].
-template <int D, int BKV>
+// tiles of BK rows, then the barriers q_full, full[STAGES], empty[STAGES].
+template <int D>
 struct DqLayout {
   static constexpr uint32_t Q_BYTES = BQ * D * 2;
-  static constexpr uint32_t KV_BYTES = BKV * D * 2;
-  static constexpr int STAGES = stages(2 * Q_BYTES, 2 * KV_BYTES, SMEM_LIMIT - 1024);
+  static constexpr uint32_t KV_BYTES = BK * D * 2;
   static constexpr uint32_t q = 0;
   static constexpr uint32_t dout = Q_BYTES;
   static constexpr uint32_t k = 2 * Q_BYTES;                      // + s * KV_BYTES
@@ -110,20 +106,17 @@ struct DqLayout {
   static constexpr uint32_t bars = v + STAGES * KV_BYTES;
   static constexpr uint32_t bytes = bars + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "box alignment");
+  static_assert(bytes <= SMEM_MAX, "shared memory");
 };
 
-// K9's shared memory: K and V (BKV = 64·NC rows, loaded once), then STAGES
-// Q and dO tiles of BQT rows, the stages' lse·log2(e) and delta (BQT floats
-// each), then the barriers kv_full, full[STAGES], empty[STAGES]. With one
-// consumer (NC = 1) two CTAs share an SM, so each takes at most half.
-template <int D, int NC>
+// K9's shared memory: K and V (BKV rows, loaded once), then STAGES Q and dO
+// tiles of BQT rows, the stages' lse·log2(e) and delta (BQT floats each),
+// then the barriers kv_full, full[STAGES], empty[STAGES].
+template <int D>
 struct DkvLayout {
-  static constexpr int BKV = 64 * NC;
   static constexpr uint32_t KV_BYTES = BKV * D * 2;
   static constexpr uint32_t QT_BYTES = BQT * D * 2;
   static constexpr uint32_t STATS_BYTES = 2 * BQT * 4;
-  static constexpr int STAGES = stages(2 * KV_BYTES, 2 * QT_BYTES + STATS_BYTES,
-                                       (NC == 1 ? SMEM_LIMIT / 2 : SMEM_LIMIT) - 1024);
   static constexpr uint32_t k = 0;
   static constexpr uint32_t v = KV_BYTES;
   static constexpr uint32_t q = 2 * KV_BYTES;                     // + s * QT_BYTES
@@ -132,14 +125,8 @@ struct DkvLayout {
   static constexpr uint32_t bars = stats + STAGES * STATS_BYTES;
   static constexpr uint32_t bytes = bars + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
   static_assert(KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0, "box alignment");
+  static_assert(bytes <= SMEM_MAX, "shared memory");
 };
-
-// D[64 x N] (+)= A B, both K-major in shared memory (N = 64 or 128)
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc) {
-  if constexpr (N == 128) wgmma_ss_m64n128(d, a, b, acc);
-  else wgmma_ss_m64n64(d, a, b, acc);
-}
 
 // D[64 x N] += A B, A in registers, B MN-major in shared memory (N = D)
 template <int N>
@@ -175,7 +162,7 @@ __device__ __forceinline__ void store_rows(const float* acc, bf16* out, long lon
 // K8: dQ
 // ---------------------------------------------------------------------------
 
-template <int D, int BKV>
+template <int D>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
@@ -184,10 +171,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ kv_len, bf16* __restrict__ dq, int N, int Lq,
                     int Lk, long long osb, long long osl, long long osn, float scale) {
-  using L = DqLayout<D, BKV>;
+  using L = DqLayout<D>;
   using S = Swizzle<D>;
   constexpr int SW = S::SW;
-  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = align_smem(smem_raw);
   const uint32_t sq = base + L::q;
@@ -202,7 +188,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = blockIdx.x * BQ;
   int klen = kv_len != nullptr ? min(kv_len[b], Lk) : Lk;
   klen = max(klen, 0);
-  const int ntiles = (klen + BKV - 1) / BKV;
+  const int ntiles = (klen + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -234,8 +220,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(bar_f + 8 * s, 2 * L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < S::BOXES; ++c) {
-          tma_load(sk + c * BKV * SW, &tm_k, bar_f + 8 * s, c * S::SWE, t * BKV, n, b);
-          tma_load(sv + c * BKV * SW, &tm_v, bar_f + 8 * s, c * S::SWE, t * BKV, n, b);
+          tma_load(sk + c * BK * SW, &tm_k, bar_f + 8 * s, c * S::SWE, t * BK, n, b);
+          tma_load(sv + c * BK * SW, &tm_v, bar_f + 8 * s, c * S::SWE, t * BK, n, b);
         }
       }
     }
@@ -258,10 +244,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float de0 = r0 < Lq ? db[r0] : 0.f;
     const float de1 = r0 + 8 < Lq ? db[r0 + 8] : 0.f;
 
-    float sacc[BKV / 2];   // S: m64n{BKV} accumulator
-    float dpacc[BKV / 2];  // dP
+    float sacc[BK / 2];   // S: m64n64 accumulator
+    float dpacc[BK / 2];  // dP
     float dqacc[D / 2];    // dQ: m64nD accumulator
-    uint32_t ds[BKV / 4];  // dS in bf16: the A operand of BKV/16 k16 steps
+    uint32_t ds[BK / 4];  // dS in bf16: the A operand of BK/16 k16 steps
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
 
@@ -273,30 +259,30 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t box = (kk * 32) / SW, off = (kk * 32) % SW;
         const uint32_t a_off = box * BQ * SW + cw * 64 * SW + off;
-        const uint32_t b_off = box * BKV * SW + off;
-        wgmma_ss<BKV>(sacc, smem_desc(sq + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
+        const uint32_t b_off = box * BK * SW + off;
+        wgmma_ss_m64n64(sacc, smem_desc(sq + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
                       smem_desc(sk + b_off, 16, 8 * SW, S::LAYOUT_TYPE), kk > 0);
-        wgmma_ss<BKV>(dpacc, smem_desc(sdo + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
+        wgmma_ss_m64n64(dpacc, smem_desc(sdo + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
                       smem_desc(sv + b_off, 16, 8 * SW, S::LAYOUT_TYPE), kk > 0);
       }
     };
 
-    // dQ += dS K for the tile in stage s: BKV/16 k16 steps
+    // dQ += dS K for the tile in stage s: BK/16 k16 steps
     auto issue_dq = [&](int s) {
       const uint32_t sk = base + L::k + s * L::KV_BYTES;
 #pragma unroll
-      for (int j = 0; j < BKV / 16; ++j)
+      for (int j = 0; j < BK / 16; ++j)
         wgmma_rs<D>(dqacc, ds + 4 * j,
-                    smem_desc(sk + j * 16 * SW, BKV * SW, 8 * SW, S::LAYOUT_TYPE));
+                    smem_desc(sk + j * 16 * SW, BK * SW, 8 * SW, S::LAYOUT_TYPE));
     };
 
     // P = exp2(S·scale·log2(e) − lse·log2(e)), 0 at keys >= klen;
     // dS = P∘(dP − delta)·scale, rounded to bf16
     auto grad = [&](int t) {
-      const int live = klen - t * BKV;  // only the last tile can hold dead keys
-      if (live < BKV) {
+      const int live = klen - t * BK;  // only the last tile can hold dead keys
+      if (live < BK) {
 #pragma unroll
-        for (int i = 0; i < BKV / 8; ++i) {
+        for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if (8 * i + quad_col + e >= live) {
@@ -307,7 +293,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i) {
+      for (int i = 0; i < BK / 8; ++i) {
         const float p0 = ex2(fmaf(sacc[4 * i], scale_log2, -l2_0));
         const float p1 = ex2(fmaf(sacc[4 * i + 1], scale_log2, -l2_0));
         const float p2 = ex2(fmaf(sacc[4 * i + 2], scale_log2, -l2_1));
@@ -327,8 +313,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_sdp(0);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<BKV / 2>(sacc);
-      fence_regs<BKV / 2>(dpacc);
+      fence_regs<BK / 2>(sacc);
+      fence_regs<BK / 2>(dpacc);
     }
     // Tile t: dS, then dQ += dS K of t and S, dP of t + 1 go out together.
     // The last tile is peeled off, so no product is issued under a condition.
@@ -343,8 +329,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<D / 2>(dqacc);
-      fence_regs<BKV / 2>(sacc);
-      fence_regs<BKV / 2>(dpacc);
+      fence_regs<BK / 2>(sacc);
+      fence_regs<BK / 2>(dpacc);
       if (tid == 0) mbar_arrive(bar_e + 8 * s);  // K and V of stage s are consumed
     };
     for (int t = 0; t + 1 < ntiles; ++t) tile(t, true);
@@ -358,8 +344,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 // K9: dK and dV
 // ---------------------------------------------------------------------------
 
-template <int D, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
+template <int D>
+__global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -369,13 +355,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      bf16* __restrict__ dv, int N, int Lq, int Lk, long long dksb,
                      long long dksl, long long dksn, long long dvsb, long long dvsl,
                      long long dvsn, float scale) {
-  using L = DkvLayout<D, NC>;
+  using L = DkvLayout<D>;
   using S = Swizzle<D>;
   constexpr int SW = S::SW;
-  constexpr int STAGES = L::STAGES;
-  constexpr int BKV = L::BKV;
-  // with one consumer two CTAs share the SM's registers: 24 + 232 = 2 x 128
-  constexpr int CONSUMER_REGS = NC == 1 ? 232 : 240;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = align_smem(smem_raw);
   float* const stats = reinterpret_cast<float*>(
@@ -401,7 +383,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar_kv, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_f + 8 * s, 32);  // the producer warp: TMA bytes and the stats
-      mbar_init(bar_e + 8 * s, NC);  // one arrival per consumer warpgroup
+      mbar_init(bar_e + 8 * s, 2);   // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -450,7 +432,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumers: 64 kv rows each --------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240));
     const int cw = wg - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
@@ -480,9 +462,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t box = (kk * 32) / SW, off = (kk * 32) % SW;
         const uint32_t a_off = box * BKV * SW + cw * 64 * SW + off;
         const uint32_t b_off = box * BQT * SW + off;
-        wgmma_ss<BQT>(sacc, smem_desc(sk + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
+        wgmma_ss_m64n64(sacc, smem_desc(sk + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
                       smem_desc(sq + b_off, 16, 8 * SW, S::LAYOUT_TYPE), kk > 0);
-        wgmma_ss<BQT>(dpacc, smem_desc(sv + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
+        wgmma_ss_m64n64(dpacc, smem_desc(sv + a_off, 16, 8 * SW, S::LAYOUT_TYPE),
                       smem_desc(sdo + b_off, 16, 8 * SW, S::LAYOUT_TYPE), kk > 0);
       }
     };
@@ -591,35 +573,35 @@ cudaError_t encode_inputs(const Inputs& in, int q_rows, int kv_rows, CUtensorMap
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int BKV>
+template <int D>
 cudaError_t launch_dq(const Inputs& in, void* dq, Strides dqs, cudaStream_t stream) {
   CUtensorMap tm[4] = {};
-  cudaError_t err = encode_inputs<D>(in, BQ, BKV, tm);
+  cudaError_t err = encode_inputs<D>(in, BQ, BK, tm);
   if (err != cudaSuccess) return err;
-  constexpr int bytes = static_cast<int>(DqLayout<D, BKV>::bytes);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, BKV>,
+  constexpr int bytes = static_cast<int>(DqLayout<D>::bytes);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((in.Lq + BQ - 1) / BQ, in.B * in.N);
-  flash_bwd_dq_kernel<D, BKV><<<grid, 384, bytes, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, 384, bytes, stream>>>(
       tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(in.lse),
       static_cast<const float*>(in.delta), static_cast<const int*>(in.kv_len),
       static_cast<bf16*>(dq), in.N, in.Lq, in.Lk, dqs.b, dqs.l, dqs.n, in.scale);
   return cudaGetLastError();
 }
 
-template <int D, int NC>
+template <int D>
 cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv, Strides dks, Strides dvs,
                        cudaStream_t stream) {
   CUtensorMap tm[4] = {};
-  cudaError_t err = encode_inputs<D>(in, BQT, 64 * NC, tm);
+  cudaError_t err = encode_inputs<D>(in, BQT, BKV, tm);
   if (err != cudaSuccess) return err;
-  constexpr int bytes = static_cast<int>(DkvLayout<D, NC>::bytes);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, NC>,
+  constexpr int bytes = static_cast<int>(DkvLayout<D>::bytes);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((in.Lk + 64 * NC - 1) / (64 * NC), in.B * in.N);
-  flash_bwd_dkv_kernel<D, NC><<<grid, 128 * (NC + 1), bytes, stream>>>(
+  dim3 grid((in.Lk + BKV - 1) / BKV, in.B * in.N);
+  flash_bwd_dkv_kernel<D><<<grid, 384, bytes, stream>>>(
       tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(in.lse),
       static_cast<const float*>(in.delta), static_cast<const int*>(in.kv_len),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), in.N, in.Lq, in.Lk, dks.b, dks.l,
@@ -629,36 +611,28 @@ cudaError_t launch_dkv(const Inputs& in, void* dk, void* dv, Strides dks, Stride
 
 }  // namespace
 
-// tile: keys per K/V tile (64 or 128)
 extern "C" int yume_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* kv_len, void* dq, int B, int Lq, int Lk, int N,
-    int D, int tile, long long qsb, long long qsl, long long qsn, long long ksb,
-    long long ksl, long long ksn, long long vsb, long long vsl, long long vsn,
-    long long dosb, long long dosl, long long dosn, long long dqsb, long long dqsl,
-    long long dqsn, float scale, void* stream) {
+    int D, long long qsb, long long qsl, long long qsn, long long ksb, long long ksl,
+    long long ksn, long long vsb, long long vsl, long long vsn, long long dosb,
+    long long dosl, long long dosn, long long dqsb, long long dqsl, long long dqsn,
+    float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const Inputs in{q, k, v, dout, lse, delta, kv_len, B, Lq, Lk, N,
                   {qsb, qsl, qsn}, {ksb, ksl, ksn}, {vsb, vsl, vsn}, {dosb, dosl, dosn},
                   scale};
   const Strides dqs{dqsb, dqsl, dqsn};
-#define YUME_DQ(DIM, TILE) \
-  if (D == DIM && tile == TILE) return launch_dq<DIM, TILE>(in, dq, dqs, s);
-  YUME_DQ(16, 64)
-  YUME_DQ(16, 128)
-  YUME_DQ(64, 64)
-  YUME_DQ(64, 128)
-  YUME_DQ(128, 64)
-  YUME_DQ(128, 128)
-#undef YUME_DQ
+  if (D == 16) return launch_dq<16>(in, dq, dqs, s);
+  if (D == 64) return launch_dq<64>(in, dq, dqs, s);
+  if (D == 128) return launch_dq<128>(in, dq, dqs, s);
   return cudaErrorInvalidValue;
 }
 
-// tile: kv rows per CTA (64: one consumer warpgroup, 128: two)
 extern "C" int yume_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* kv_len, void* dk, void* dv, int B, int Lq, int Lk,
-    int N, int D, int tile, long long qsb, long long qsl, long long qsn, long long ksb,
+    int N, int D, long long qsb, long long qsl, long long qsn, long long ksb,
     long long ksl, long long ksn, long long vsb, long long vsl, long long vsn,
     long long dosb, long long dosl, long long dosn, long long dksb, long long dksl,
     long long dksn, long long dvsb, long long dvsl, long long dvsn, float scale,
@@ -668,14 +642,8 @@ extern "C" int yume_flash_attention_bwd_dkv(
                   {qsb, qsl, qsn}, {ksb, ksl, ksn}, {vsb, vsl, vsn}, {dosb, dosl, dosn},
                   scale};
   const Strides dks{dksb, dksl, dksn}, dvs{dvsb, dvsl, dvsn};
-#define YUME_DKV(DIM, TILE) \
-  if (D == DIM && tile == TILE) return launch_dkv<DIM, TILE / 64>(in, dk, dv, dks, dvs, s);
-  YUME_DKV(16, 64)
-  YUME_DKV(16, 128)
-  YUME_DKV(64, 64)
-  YUME_DKV(64, 128)
-  YUME_DKV(128, 64)
-  YUME_DKV(128, 128)
-#undef YUME_DKV
+  if (D == 16) return launch_dkv<16>(in, dk, dv, dks, dvs, s);
+  if (D == 64) return launch_dkv<64>(in, dk, dv, dks, dvs, s);
+  if (D == 128) return launch_dkv<128>(in, dk, dv, dks, dvs, s);
   return cudaErrorInvalidValue;
 }

@@ -15,8 +15,8 @@ q, k and v through their [B, L, N, D] strides into a ring of swizzled
 shared-memory tiles, a producer warpgroup and two consumer warpgroups,
 Q·Kᵀ and P·V as ``wgmma`` with S, P and the fp32 output accumulator in
 registers, and the online softmax on the registers. The backward is two
-kernels of the same build without atomics (K8 holds 128 q rows and streams
-K/V, K9 holds 64 or 128 kv rows and streams Q/dO), with the scores, their
+kernels of the same design without atomics (K8 holds 128 q rows and
+streams K/V, K9 holds 128 kv rows and streams Q/dO), with the scores, their
 gradients and the accumulators in registers. The designs are described in
 their sources.
 
@@ -338,23 +338,9 @@ def _dout_arg(dout):
     return dout if dout.dim() == 4 and _strides_ok(dout) else dout.contiguous()
 
 
-# the tiles the backward kernels take: K8's keys per K/V tile, K9's kv rows
-# per CTA. The wrappers' defaults won at the trainer's self- and
-# cross-attention shapes on the H100 (scripts/torch_flash_bwd_tiles.py).
-_BWD_TILES = (64, 128)
-
-
-def _tile_arg(tile):
-    if tile not in _BWD_TILES:
-        raise ValueError(f"flash_attention: backward tile {tile} not in {_BWD_TILES}")
-    return tile
-
-
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None,
-                           tile=64):
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None):
     """dQ of attention (K8) from the forward's lse [B, N, Lq] and delta
-    [B, N, Lq] (see :func:`plain_attention_bwd`). ``tile``: keys per K/V
-    tile on the card, 64 or 128."""
+    [B, N, Lq] (see :func:`plain_attention_bwd`)."""
     if not q.is_cuda:
         return plain_attention_bwd(q, k, v, None, lse, dout, kv_len=kv_len,
                                    scale=scale, delta=delta)[0]
@@ -364,7 +350,6 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None
     _check_bwd(q, k, v, dout, lse, delta)
     b, lq, n, d = q.shape
     scale = d ** -0.5 if scale is None else scale
-    tile = _tile_arg(tile)
     kv_len = _kv_len_arg(kv_len, b, q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if lq == 0:
@@ -376,7 +361,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None, dq.data_ptr(),
-            b, lq, k.shape[1], n, d, tile,
+            b, lq, k.shape[1], n, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dq.stride()[:3], ctypes.c_float(scale), stream)
     _build.check(err, "flash_attention_bwd_dq")
@@ -384,11 +369,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, kv_len=None, scale=None
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, kv_len=None, scale=None,
-                            tile=128):
-    """(dK, dV) of attention (K9); arguments as :func:`flash_attention_bwd_dq`,
-    ``tile`` the kv rows per CTA on the card, 64 (one consumer warpgroup) or
-    128 (two)."""
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, kv_len=None, scale=None):
+    """(dK, dV) of attention (K9); arguments as :func:`flash_attention_bwd_dq`."""
     if not q.is_cuda:
         return plain_attention_bwd(q, k, v, None, lse, dout, kv_len=kv_len,
                                    scale=scale, delta=delta)[1:]
@@ -399,7 +381,6 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, kv_len=None, scale=Non
     b, lq, n, d = q.shape
     lk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
-    tile = _tile_arg(tile)
     kv_len = _kv_len_arg(kv_len, b, q.device)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -412,7 +393,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, kv_len=None, scale=Non
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None,
-            dk.data_ptr(), dv.data_ptr(), b, lq, lk, n, d, tile,
+            dk.data_ptr(), dv.data_ptr(), b, lq, lk, n, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             ctypes.c_float(scale), stream)
