@@ -10,8 +10,8 @@ result line:
    versions;
 2. build: compile the CUDA kernels from yume_tpu_torch/csrc (one nvcc per
    source, in parallel); print the registers, spills, wgmma serialization
-   warnings and shared memory of the flash forward, of K6's two kernels and
-   of the flash backward's K8 and K9 from the compiler's log;
+   warnings and shared memory of the flash forward, of K6's two kernels, of
+   the flash backward's K8 and K9 and of K4 from the compiler's log;
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4, the
    RMSNorm kernel K5, the W8A8 int8 matmul K6, the partial flash attention
@@ -21,9 +21,11 @@ result line:
    USP 2 x 2, a block with no live key; K8/K9 at the trainer's self, cross
    and MVDT shapes, each three times and bit-identical, by events and on
    the device, with the pair against a fused backward's 5-product bound;
-   K4's batched-table case at the trainer's; K10 at the ADD
+   K4 also on the W8A8 block's qkv views, with its batched-table case at
+   the trainer's, the differing elements, the share of its bound on the
+   device and the other work unit's device time; K10 at the ADD
    discriminator's, every activation, bf16, and an NCHW ``dim=1`` call of
-   ``filtered_lrelu``): error against a
+   ``filtered_lrelu``, with device times): error against a
    stated tolerance, median times of the kernel, of its plain version and
    of one PyTorch library call where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -50,7 +52,8 @@ result line:
    b. the headline: the W8A8 DiT sharing the bf16 weights, 50 steps of
       adaptive TeaCache at threshold 0.1, then ``decode_auto`` of the tail:
       K1–K6 must launch; then its first full and cached step once more
-      under the profiler (device time by kernel family).
+      under the profiler (device time and launches by kernel family, copy
+      kernels; the trace's K4 launches must equal the counter's).
    Each tail video must be finite [1, 29, 704, 1280, 3].
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
@@ -307,6 +310,25 @@ def build_phase():
         else:
             continue
         log(f"build: {name}: {'; '.join(info)}; dynamic shared memory {smem} bytes a CTA")
+    # K4: a staged and a row kernel per dtype and vector width W; the staged
+    # kernel's dynamic shared memory holds w_q and w_k (8·D bytes) and two
+    # row buffers for each of its warps (16 at D = 3,072 bf16)
+    k4 = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"qk_norm_rope_(staged|rows)I(\w+?)Li(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            dtype = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}.get(
+                m.group(2), m.group(2))
+            block = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.findall(r"(\d+) bytes spill", block)
+            k4[f"qk_norm_rope_{m.group(1)}<{dtype}, W {m.group(3)}>"] = (
+                int(regs.group(1)) if regs else -1, sum(int(x) for x in spill))
+    require(k4, "build: no K4 kernel in the compiler's log")
+    for name, (regs, spill) in sorted(k4.items()):
+        log(f"build: {name} (K4): {regs} registers, {spill} bytes spilled")
+    log(f"build: K4 staged kernel at D = 3,072 bf16: dynamic shared memory "
+        f"{8 * DIM + 16 * 2 * DIM * 2} bytes a CTA (16 warps)")
     for kernel in ("flash_fwd_kernel", "q8_gemm_kernel", "flash_bwd_dq_kernel",
                    "flash_bwd_dkv_kernel"):
         serialized = [x for x in lines if "C7515" in x and kernel in x]
@@ -413,6 +435,7 @@ def attention_and_glue_kernels(results, gen):
     wq = 1.0 + _randn(gen, DIM, dtype=torch.float32, scale=0.1)
     wk = 1.0 + _randn(gen, DIM, dtype=torch.float32, scale=0.1)
     wq_lib = wq.to(x.dtype)  # F.rms_norm takes the weight in x's dtype
+    w1_lib, b1_lib = w1.reshape(DIM).to(x.dtype), b1.reshape(DIM).to(x.dtype)  # F.layer_norm's
     tabs = nbytes(s_tab, t_tab, idx)
     act = nbytes(x)                       # one [1, 12095, 3072] bf16 pass
     elems = x.numel()
@@ -425,7 +448,8 @@ def attention_and_glue_kernels(results, gen):
         ("adaln_norm", "norm3 gate=0 K=1",
          lambda: fa.adaln_norm(x, w1, b1, None, gate=0.0),
          lambda: fa._adaln_norm_ref(x, w1, b1, None, 1e-6, 0.0, torch.bfloat16),
-         None, 2 * act + nbytes(w1, b1), 7 * elems),
+         lambda: F.layer_norm(x, (DIM,), w1_lib, b1_lib, eps=1e-6),
+         2 * act + nbytes(w1, b1), 7 * elems),
         ("adaln_norm", "head fp32 out",
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx, out_dtype=torch.float32),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.float32),
@@ -447,6 +471,15 @@ def attention_and_glue_kernels(results, gen):
     def flat(out):  # K4 writes q and k: compare both
         return torch.cat(out) if isinstance(out, tuple) else out
 
+    # K4 on the W8A8 block's q and k: the first two column blocks of its
+    # fused [1, L, 9216] qkv output, read in place through the row stride
+    qkv = _randn(gen, 1, L, 3 * DIM)
+    qv, kv, _ = qkv.split(DIM, -1)
+    glue.append(
+        ("qk_norm_rope", "q and k as qkv views (K4)",
+         lambda: fa.qk_norm_rope(qv, kv, wq, wk, cos, sin, N, eps=1e-6),
+         lambda: fa._qk_norm_rope_ref(qv, kv, wq, wk, cos, sin, N, 1e-6),
+         None, 4 * act + nbytes(wq, wk, cos, sin), 2 * 8 * elems))
     # K4 with per-sample tables [B, keep, D/2]: the MVDT masked pass of the
     # trainer (1,963 kept of its 2,805 packed tokens, tables gathered)
     keep = TRAIN_KEEP
@@ -460,14 +493,31 @@ def attention_and_glue_kernels(results, gen):
          None, 4 * nbytes(qm_) + nbytes(wq, wk, bcos, bsin), 2 * 8 * qm_.numel()))
     for kernel, case, run, plain, lib, n_bytes, ops in glue:
         want = flat(plain())
+        got = flat(run())
+        bound = bound_ms(n_bytes, ops, "fp32")
         extra = {"device_ms": round(device_ms(run, reps=20)["all"], 4)}
         if lib is not None:
             extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
-        _record(results, kernel, case, max_err(flat(run()), want),
+        if kernel == "qk_norm_rope":
+            # K4: elements that differ from the plain version, the share of
+            # its bound on the device, and the other work unit (a warp a row)
+            extra["differing"] = int((got != want).sum().item())
+            extra["bound_share"] = round(bound[0] / extra["device_ms"], 4)
+            unit = fa.QK_ROWS_PER_WARP
+            fa.QK_ROWS_PER_WARP = other = 3 - unit
+            require(torch.equal(flat(run()), got), f"K4 {case}: work units disagree")
+            extra[f"device_ms_rows_per_warp_{other}"] = round(device_ms(run, reps=20)["all"], 4)
+            fa.QK_ROWS_PER_WARP = unit
+        _record(results, kernel, case, max_err(got, want),
                 REL_TOL * want.float().abs().max().item(),
-                median_ms(run, reps=20), median_ms(plain, reps=20),
-                bound_ms(n_bytes, ops, "fp32"),
+                median_ms(run, reps=20), median_ms(plain, reps=20), bound,
                 None if lib is None else median_ms(lib, reps=20), **extra)
+    # what the W8A8 block paid before K4 took strided rows: q and k copied
+    # out of the qkv output
+    copies = device_ms(lambda: (qv.contiguous(), kv.contiguous()), reps=20)["all"]
+    log(f"  qk_norm_rope            copying q and k out of qkv (no longer run): device "
+        f"{copies:.4f} ms, bound {bound_ms(4 * act, 0, 'fp32')[0]:.4f} ms")
+    results["qk_norm_rope"]["qkv_copies_device_ms"] = round(copies, 4)
 
 
 def flash_backward_kernels(results, gen):
@@ -717,11 +767,15 @@ def bias_act_kernel(results, gen):
         tol = (K10_FP32_REL if x.dtype == torch.float32 else REL_TOL) * top
         n_bytes = 2 * nbytes(x) + (nbytes(b) if b is not None else 0)
         ms = median_ms(lambda: ba.bias_act(x, b, **kw), reps=20)
+        extra = {"device_ms": round(device_ms(lambda: ba.bias_act(x, b, **kw),
+                                              reps=20)["all"], 4)}
+        if lib is not None:
+            extra["library_device_ms"] = round(device_ms(lambda: lib(x), reps=20)["all"], 4)
         _record(results, "bias_act", case, max_err(got, want), tol, ms,
                 median_ms(lambda: ba.bias_act_plain(x, b, **full), reps=10),
                 bound_ms(n_bytes, 5 * x.numel(), "fp32"),
                 None if lib is None else median_ms(lambda: lib(x), reps=20),
-                gb_per_s=round(n_bytes / ms / 1e6, 1))
+                gb_per_s=round(n_bytes / ms / 1e6, 1), **extra)
         del x, b, got, want
 
 
@@ -1103,13 +1157,21 @@ def pipeline_phase(counters):
     with torch.no_grad():
         fn, a, kw = step_calls["full_step"]
         held = {}
-        device_breakdown("headline full step", lambda: held.update(out=fn(*a, **kw)),
-                         ranges_named=(), rest="dit_forward")
+        traces = [device_breakdown("headline full step",
+                                   lambda: held.update(out=fn(*a, **kw)),
+                                   ranges_named=(), rest="dit_forward")]
         cache = held.pop("out")[1]
         fn, a, kw = step_calls["cached_step"]
-        device_breakdown("headline cached step", lambda: fn(*a, **kw, block_cache=cache),
-                         ranges_named=(), rest="dit_forward")
+        traces.append(device_breakdown("headline cached step",
+                                       lambda: fn(*a, **kw, block_cache=cache),
+                                       ranges_named=(), rest="dit_forward"))
         del cache
+    # the traces show every K4 launch of the step (K4 reads q and k out of
+    # the qkv output in place, so no copy kernel precedes it)
+    for kind, trace in zip(("full_step", "cached_step"), traces):
+        require(trace["launches"]["K4 qk_norm_rope"] == step_launches[kind]["qk_norm_rope"],
+                f"{kind}: the trace shows {trace['launches']['K4 qk_norm_rope']} K4 kernels, "
+                f"the counter {step_launches[kind]['qk_norm_rope']}")
     return launches, euler_launches
 
 
@@ -1118,8 +1180,8 @@ KERNEL_FAMILIES = [
     ("K1 flash fwd", ("flash_fwd_kernel",)),
     ("K8 dQ", ("flash_bwd_dq_kernel",)),
     ("K9 dK dV", ("flash_bwd_dkv_kernel",)),
-    ("K2-K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_rope_kernel",
-                           "rms_norm_kernel")),
+    ("K2 K3 K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_norm_kernel")),
+    ("K4 qk_norm_rope", ("qk_norm_rope_",)),
     ("K6 W8A8", ("q8_gemm_kernel", "quantize_rows_kernel")),
     ("K10 bias_act", ("bias_act_kernel",)),
     ("conv", ("conv", "cudnn")),
@@ -1151,6 +1213,8 @@ def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     families = dict.fromkeys([name for name, _ in KERNEL_FAMILIES] + ["other"], 0.0)
+    launched = dict.fromkeys(families, 0)
+    copies = [0, 0.0]  # copy kernels (counted in "other"): launches, ms
     ranges, spans, kernels = {}, {}, []
     for e in prof.key_averages():
         if e.key in ranges_named:
@@ -1162,21 +1226,27 @@ def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
             fam = next((n for n, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)),
                        "other")
             families[fam] += _event_ms(e)
+            launched[fam] += e.count
+            if "copy" in e.key.lower():
+                copies[0] += e.count
+                copies[1] += _event_ms(e)
             kernels.append((_event_ms(e), e.count, e.key[:90]))
         elif e.key in ("optimizer", "ema"):
             ranges[e.key] = _event_ms(e, total=True)
     busy = sum(families.values())
     log(f"  trace of one {what}: wall {wall:.1f} ms under the profiler, device busy "
         f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
-    log("    by family: " + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+    log("    by family: " + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%) x{launched[k]}"
                                       for k, v in families.items()))
+    log(f"    copy kernels (in other): x{copies[0]}, {copies[1]:.2f} ms")
     ranges[rest] = busy - sum(ranges.values())
     log("    kernels by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items()))
     log("    device span by range: " + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items()))
     for ms, count, name in sorted(kernels, reverse=True)[:10]:
         log(f"    {ms:9.2f} ms  x{count:<6d} {name}")
     return {"wall_ms": wall, "busy_ms": busy, "families_ms": families, "ranges_ms": ranges,
-            "spans_ms": spans}
+            "spans_ms": spans, "launches": launched, "copy_kernels": copies[0],
+            "copy_ms": copies[1]}
 
 
 def count_syncs(fn) -> int:
@@ -1696,7 +1766,7 @@ def main() -> int:
                        "yume_tpu/ops/fused_adaln.py:94"),
         "adaln_residual": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
                            "yume_tpu/ops/fused_adaln.py:251"),
-        "qk_norm_rope": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
+        "qk_norm_rope": ("cuda", "yume_tpu_torch/csrc/qk_norm_rope.cu",
                          "yume_tpu/ops/fused_adaln.py:340"),
         "rms_norm": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
                      "yume_tpu/ops/fused_adaln.py:193"),

@@ -182,15 +182,27 @@ def test_rms_norm_launch_refuses_host_tensors(rng_np):
         tfused._rms_norm_launch(x, torch.ones(64), 1e-6)
 
 
-def test_qk_norm_rope_matches_jax(rng_np):
+@pytest.mark.parametrize("layout", ["contiguous", "qkv_views"])
+def test_qk_norm_rope_matches_jax(rng_np, layout):
+    """K4's plain version against JAX's qk_norm_rope: contiguous q and k
+    with [L, D/2] tables; and q and k as the first two column blocks of a
+    fused [B, L, 3·D] qkv projection (the W8A8 block's split views, rows
+    strided) with per-sample [B, L, D/2] tables."""
     x, y, s, t, _ = _glue_inputs(rng_np, l=12)
     wq, wk = 1.0 + s[0, 0], 1.0 + t[0, 0]
     cos, sin = trope.grid_rope(2, 2, 3, 16)
+    tq, tk = torch.from_numpy(x), torch.from_numpy(y)
+    if layout == "qkv_views":
+        qkv = rng_np.standard_normal((2, 12, 3 * 64)).astype(np.float32) * 2 + 0.5
+        tq, tk, _ = torch.from_numpy(qkv).split(64, -1)
+        assert not tq.is_contiguous() and tq.stride(1) == 3 * 64
+        x, y = tq.numpy(), tk.numpy()
+        shifted = trope.grid_rope(2, 2, 3, 16, f_offset=5)
+        cos, sin = np.stack([cos, shifted[0]]), np.stack([sin, shifted[1]])
     want = jfused.qk_norm_rope(jnp.asarray(x), jnp.asarray(y), jnp.asarray(wq),
                                jnp.asarray(wk), jnp.asarray(cos), jnp.asarray(sin), 4,
                                eps=1e-6)
-    got = tfused.qk_norm_rope(torch.from_numpy(x), torch.from_numpy(y),
-                              torch.from_numpy(wq), torch.from_numpy(wk),
+    got = tfused.qk_norm_rope(tq, tk, torch.from_numpy(wq), torch.from_numpy(wk),
                               torch.from_numpy(cos), torch.from_numpy(sin), 4, eps=1e-6)
     for g, w in zip(got, want):
         assert_close(g, w, TOL)

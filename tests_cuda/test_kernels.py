@@ -8,7 +8,10 @@ an all-to-all's output may be. The forward's tiling edges: Lq and Lk
 either side of its 128-row q block and 128-key tile, kv_len either side of
 a tile and 0, every head dim, the full 5B grid, the W8A8 split's v view
 and a V that exposes a wrong P-register layout, each run three times and
-bit-identical between runs.
+bit-identical between runs. K4 (qk_norm_rope) at the W8A8 block's qkv
+views, views that are not 16-byte aligned, B > 1 with per-sample tables,
+odd L and L = 0, the 14B width and D = 16,384, head dims whose cos/sin
+index is or is not constant per lane, every dtype and both work units.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -290,24 +293,64 @@ def test_glue_rejects_non_contiguous(gen):
     s = _randn(gen, 1, 1, 128, dtype=torch.float32)
     with pytest.raises(ValueError):
         fa.adaln_residual(x, x, s, None)
+    # K4 takes strided rows, but not a strided last axis
+    q = _randn(gen, 2, 128, 8).transpose(1, 2)
+    w = torch.ones(128, device="cuda")
+    cos = torch.ones((8, 32), device="cuda")
+    with pytest.raises(ValueError):
+        fa.qk_norm_rope(q, q, w, w, cos, cos, 2, eps=1e-6)
 
 
-def test_qk_norm_rope_batched_tables(gen):
-    """Per-sample RoPE tables [B, L, D/2] (the MVDT masked pass) go to the
-    kernel, not to the plain version."""
-    b, l, heads, head_dim = 2, 45, 4, 64
+# (b, l, heads, head_dim, layout, per-sample tables): "qkv" passes q and k
+# as the first two column blocks of a fused [B, L, 3·D] projection (rows
+# strided, as the W8A8 block does), "misaligned" as such blocks shifted by
+# one element (not 16-byte aligned: the kernel's scalar path)
+K4_CASES = [
+    (2, 45, 4, 64, "contiguous", True),
+    (2, 45, 24, 128, "qkv", True),        # 5B widths
+    (3, 37, 40, 128, "qkv", False),       # 14B widths, odd L
+    (2, 0, 4, 64, "contiguous", False),   # no token
+    (1, 1, 4, 64, "qkv", False),
+    (2, 33, 6, 96, "qkv", True),          # half 48 does not divide 128
+    (2, 9, 8, 4, "contiguous", False),    # half 2
+    (2, 17, 10, 150, "contiguous", True),  # D = 1,500: not whole vectors
+    (2, 29, 24, 128, "misaligned", True),
+    (1, 5, 128, 128, "qkv", False),       # D = 16,384: rows past the registers
+]
+
+
+@pytest.mark.parametrize("rows_per_warp", [2, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,l,heads,head_dim,layout,batched", K4_CASES)
+def test_qk_norm_rope_batched_tables(gen, monkeypatch, b, l, heads, head_dim, layout,
+                                     batched, dtype, rows_per_warp):
+    """K4 against its plain version: per-sample RoPE tables [B, L, D/2]
+    (the MVDT masked pass) and shared ones, strided and misaligned views,
+    odd L and L = 0, the 14B width and the widest D, head dims whose
+    cos/sin index is or is not constant per lane, every dtype, both work
+    units; each call goes to the kernel (the count moves by one) and never
+    to the plain version."""
+    monkeypatch.setattr(fa, "QK_ROWS_PER_WARP", rows_per_warp)
     d = heads * head_dim
-    q, k = _randn(gen, b, l, d), _randn(gen, b, l, d)
+    if layout == "contiguous":
+        q, k = _randn(gen, b, l, d, dtype=dtype), _randn(gen, b, l, d, dtype=dtype)
+    else:
+        shift = int(layout == "misaligned")
+        qkv = _randn(gen, b, l, 3 * d + shift, dtype=dtype, scale=2.0)
+        q, k = qkv[..., shift:shift + d], qkv[..., shift + d:shift + 2 * d]
     wq = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
     wk = 1.0 + _randn(gen, d, dtype=torch.float32, scale=0.1)
-    ang = torch.rand((b, l, head_dim // 2), generator=gen, device="cuda") * 6.28
+    ang = torch.rand(((b,) if batched else ()) + (l, head_dim // 2), generator=gen,
+                     device="cuda") * 6.28
     cos, sin = torch.cos(ang), torch.sin(ang)
     before = fa.qk_norm_rope.launches
     got = fa.qk_norm_rope(q, k, wq, wk, cos, sin, heads, eps=1e-6)
-    assert fa.qk_norm_rope.launches == before + 1
+    assert fa.qk_norm_rope.launches == before + (b * l > 0)
     want = fa._qk_norm_rope_ref(q, k, wq, wk, cos, sin, heads, 1e-6)
     for g, w in zip(got, want):
-        _glue_check(g, w)
+        assert g.dtype == dtype and g.shape == (b, l, d) and g.is_contiguous()
+        if g.numel():
+            _glue_check(g, w)
 
 
 def test_glue_gradients_on_the_card(gen):

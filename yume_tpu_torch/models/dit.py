@@ -177,8 +177,8 @@ class SelfAttention(nn.Module):
         n, d = c.num_heads, c.head_dim
         if c.w8a8:
             # one K6 launch over the concatenated [3·dim, dim] weight
+            # (K4 reads q and k in place through their row stride)
             q, k, v = _w8a8_dense(x, self, "qkv", (self.q, self.k, self.v)).split(c.dim, -1)
-            q, k = q.contiguous(), k.contiguous()  # K4 takes whole rows
         else:
             q = _dense(x, self.q, x.dtype)
             k = _dense(x, self.k, x.dtype)

@@ -1,26 +1,30 @@
-"""Fused elementwise "glue" of the DiT block: Triton kernels K2-K5 and their
-plain PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
+"""Fused elementwise "glue" of the DiT block: kernels K2-K5 and their plain
+PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
 
 * :func:`adaln_norm`     — ``LN(x)·(gate + scale_tab[idx]) + shift_tab[idx]``
-  (replaces ``_adaln_norm_kernel``).
+  (replaces ``_adaln_norm_kernel``; Triton).
 * :func:`adaln_residual` — ``x + y·scale_tab[idx]`` in fp32, out in x.dtype
-  (replaces ``_adaln_residual_kernel``).
+  (replaces ``_adaln_residual_kernel``; Triton).
 * :func:`qk_norm_rope`   — RMSNorm(q)·w_q and RMSNorm(k)·w_k over the full
   model dim, an x.dtype round-trip, then the interleaved-pair RoPE of both
-  (replaces ``_qk_norm_rope_kernel``).
-* :func:`rms_norm`       — fp32 RMSNorm·w (replaces ``_rms_kernel``).
+  (replaces ``_qk_norm_rope_kernel``; CUDA C++, ``csrc/qk_norm_rope.cu``).
+* :func:`rms_norm`       — fp32 RMSNorm·w (replaces ``_rms_kernel``; Triton).
 
 What bounds them on the H100: each is one pass of row reductions plus a few
 FLOPs per element over [B, L, D] bf16 activations (D = 3072), i.e. HBM
 bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. Design of
-K2–K4: one Triton program per token row with the whole row (BLOCK = next
-power of two of D, masked) in registers, so every input byte is read once
-and every output byte written once. The per-token modulation row is loaded
-directly from the compact [B, K, D] fp32 table by ``idx`` (the TPU
-kernel's one-hot dot was a Mosaic workaround). For RoPE the even and odd
-lanes load as two strided vectors; the RMS sum of squares covers both. K5
-reads its rows contiguously: a program takes ``_RMS_ROWS`` rows and walks
-D in chunks of at most 1,024 columns (three at D = 3,072, so no lane is
+K2 and K3: one Triton program per token row with the whole row (BLOCK =
+next power of two of D, masked) in registers, so every input byte is read
+once and every output byte written once. The per-token modulation row is
+loaded directly from the compact [B, K, D] fp32 table by ``idx`` (the TPU
+kernel's one-hot dot was a Mosaic workaround). K4 (see its source) gives a
+warp a row at a time in 16-byte vectors of whole (even, odd) pairs, stages
+the weights once a persistent CTA and the next row by cp.async while it
+computes the current one, and reads q and k through their row strides, so
+the W8A8 block hands it the q and k column blocks of its fused qkv output
+without a copy. K5 reads
+its rows contiguously: a program takes ``_RMS_ROWS`` rows and walks D in
+chunks of at most 1,024 columns (three at D = 3,072, so no lane is
 masked), 16-byte loads, twice: the sum of squares, then the scaled row
 (the second read hits the cache). Any batch size works.
 
@@ -31,7 +35,8 @@ version as the reference's custom VJPs do. The plain versions keep the reference
 rounding points: fp32 math, one cast at the end, and the x.dtype round-trip
 between the norm and the rotation in :func:`qk_norm_rope`.
 
-``triton`` is imported when a kernel is first launched, never at import.
+``triton`` is imported, and the CUDA library built, when a kernel is first
+launched, never at import.
 """
 
 from __future__ import annotations
@@ -153,48 +158,6 @@ def _kernels():
                  mask=mask)
 
     @triton.jit
-    def rms_rope_kernel(q_ptr, wq_ptr, oq_ptr, k_ptr, wk_ptr, ok_ptr,
-                        cos_ptr, sin_ptr, L, D, HALF, tab_bstride, eps,
-                        BLOCK_H: tl.constexpr):
-        # the row of q, then the row of k.
-        # tab_bstride: 0 for [L, HALF] RoPE tables, L·HALF for batched
-        # [B, L, HALF] tables (per-sample positions under MVDT masking)
-        row = tl.program_id(0).to(tl.int64)
-        pos = row % L
-        tab = (row // L) * tab_bstride + pos * HALF
-        # even lanes x[2j] and odd lanes x[2j+1] as two strided vectors
-        j = tl.arange(0, BLOCK_H)
-        mask = j < D // 2
-        base = row * D + 2 * j
-        for which in tl.static_range(2):
-            if which == 0:
-                x_ptr = q_ptr
-                w_ptr = wq_ptr
-                o_ptr = oq_ptr
-            else:
-                x_ptr = k_ptr
-                w_ptr = wk_ptr
-                o_ptr = ok_ptr
-            xe = tl.load(x_ptr + base, mask=mask, other=0.0).to(tl.float32)
-            xo = tl.load(x_ptr + base + 1, mask=mask, other=0.0).to(tl.float32)
-            ms = (tl.sum(xe * xe, axis=0) + tl.sum(xo * xo, axis=0)) / D
-            r = tl.rsqrt(ms + eps)
-            we = tl.load(w_ptr + 2 * j, mask=mask, other=0.0)
-            wo = tl.load(w_ptr + 2 * j + 1, mask=mask, other=0.0)
-            ne = xe * r * we
-            no = xo * r * wo
-            # the norm's output is rounded to x.dtype before the rotation
-            ne = ne.to(o_ptr.dtype.element_ty).to(tl.float32)
-            no = no.to(o_ptr.dtype.element_ty).to(tl.float32)
-            p = tab + j % HALF
-            c = tl.load(cos_ptr + p, mask=mask, other=0.0)
-            s = tl.load(sin_ptr + p, mask=mask, other=0.0)
-            re = ne * c - no * s
-            im = ne * s + no * c
-            tl.store(o_ptr + base, re.to(o_ptr.dtype.element_ty), mask=mask)
-            tl.store(o_ptr + base + 1, im.to(o_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
     def rms_norm_kernel(x_ptr, w_ptr, o_ptr, R, D, eps,
                         ROWS: tl.constexpr, CHUNK: tl.constexpr):
         # ROWS rows a program, D walked in CHUNK-wide contiguous pieces
@@ -219,7 +182,7 @@ def _kernels():
 
     return types.SimpleNamespace(
         adaln_norm=adaln_norm_kernel, adaln_residual=adaln_residual_kernel,
-        rms_rope=rms_rope_kernel, rms_norm=rms_norm_kernel)
+        rms_norm=rms_norm_kernel)
 
 
 def _block(n: int) -> int:
@@ -243,14 +206,25 @@ def _rms_tile(d: int):
 
 
 _ACT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# K4's dtype codes (csrc/qk_norm_rope.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K4's work unit: 1, a token's q row and its k row go to two warps; 2, one
+# warp normalises and rotates both (slower on the H100, chip_smoke.py)
+QK_ROWS_PER_WARP = 1
 
 
-def _check_act(name, t, like=None):
+def _check_act(name, t, like=None, strided_rows=False):
+    """A CUDA [B, L, D] activation; contiguous, or with ``strided_rows``
+    only its last axis contiguous."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype not in _ACT_DTYPES:
         raise TypeError(f"{name}: unsupported dtype {t.dtype}")
-    if t.dim() != 3 or not t.is_contiguous():
+    if t.dim() != 3:
+        raise ValueError(f"{name} must be a [B, L, D] tensor")
+    if strided_rows and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last axis must be contiguous")
+    if not strided_rows and not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous [B, L, D] tensor")
     if t.shape[-1] > _MAX_D:
         raise ValueError(f"{name}: D = {t.shape[-1]} exceeds {_MAX_D}")
@@ -359,8 +333,12 @@ def _rms_norm_launch(x, w, eps):
 
 
 def _qk_norm_rope_launch(q, k, w_q, w_k, cos, sin, num_heads, eps):
-    _check_act("qk_norm_rope q", q)
-    _check_act("qk_norm_rope k", k, like=q)
+    """K4: q and k read in place through their batch and row strides; the
+    outputs are contiguous."""
+    from .. import _build
+
+    _check_act("qk_norm_rope q", q, strided_rows=True)
+    _check_act("qk_norm_rope k", k, like=q, strided_rows=True)
     if k.dtype != q.dtype:
         raise TypeError("qk_norm_rope: q and k dtypes differ")
     b, l, d = q.shape
@@ -371,15 +349,19 @@ def _qk_norm_rope_launch(q, k, w_q, w_k, cos, sin, num_heads, eps):
     w_q = _weight("qk_norm_rope w_q", w_q, q)
     w_k = _weight("qk_norm_rope w_k", w_k, q)
     cos, sin, tab_bstride = _rope_tables(cos, sin, q, half)
-    oq = torch.empty_like(q)
-    ok = torch.empty_like(k)
+    oq = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
+    ok = torch.empty((b, l, d), dtype=k.dtype, device=k.device)
     if b * l == 0:
         return oq, ok
-    block = _block(d // 2)
+    lib = _build.library()
     with torch.cuda.device(q.device):
-        _kernels().rms_rope[(b * l,)](
-            q, w_q, oq, k, w_k, ok, cos, sin, l, d, half, tab_bstride, float(eps),
-            BLOCK_H=block, num_warps=_warps(block))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.yume_qk_norm_rope(
+            q.data_ptr(), k.data_ptr(), w_q.data_ptr(), w_k.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), oq.data_ptr(), ok.data_ptr(), b, l, d, half, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), tab_bstride, _DTYPE_CODES[q.dtype],
+            QK_ROWS_PER_WARP, float(eps), stream)
+    _build.check(err, "qk_norm_rope")
     qk_norm_rope.launches += 1
     return oq, ok
 
@@ -477,10 +459,12 @@ def rms_norm(x, w, *, eps=1e-5):
 def qk_norm_rope(q, k, w_q, w_k, cos, sin, num_heads, *, eps=1e-5):
     """RMSNorm over the full model dim + RoPE for q and k in one pass (K4).
 
-    q/k: [B, L, D] flat (heads packed); w_q/w_k: [D]; cos/sin:
-    [L, head_dim//2] fp32, or [B, L, head_dim//2] per-sample tables (the
-    MVDT masked pass). Returns rotated flat (q, k) in the input dtype.
-    Math equals RMSNorm → x.dtype → apply_rope."""
+    q/k: [B, L, D] flat (heads packed), the last axis contiguous and the
+    rows possibly strided (the q and k column blocks of a fused qkv
+    projection); w_q/w_k: [D]; cos/sin: [L, head_dim//2] fp32, or
+    [B, L, head_dim//2] per-sample tables (the MVDT masked pass). Returns
+    rotated flat, contiguous (q, k) in the input dtype. Math equals
+    RMSNorm → x.dtype → apply_rope."""
     if not q.is_cuda:
         return _qk_norm_rope_ref(q, k, w_q, w_k, cos, sin, num_heads, eps)
     return _run(_qk_norm_rope_launch, _qk_norm_rope_ref,
