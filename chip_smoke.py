@@ -22,8 +22,8 @@ result line:
    and MVDT shapes, each three times and bit-identical, by events and on
    the device, with the pair against a fused backward's 5-product bound;
    K4 also on the W8A8 block's qkv views, with its batched-table case at
-   the trainer's, the differing elements, the share of its bound on the
-   device and the other work unit's device time; K10 at the ADD
+   the trainer's, the differing elements and the share of its bound on
+   the device; K10 at the ADD
    discriminator's, every activation, bf16, and an NCHW ``dim=1`` call of
    ``filtered_lrelu``, with device times): error against a
    stated tolerance, median times of the kernel, of its plain version and
@@ -499,25 +499,14 @@ def attention_and_glue_kernels(results, gen):
         if lib is not None:
             extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
         if kernel == "qk_norm_rope":
-            # K4: elements that differ from the plain version, the share of
-            # its bound on the device, and the other work unit (a warp a row)
+            # K4: elements that differ from the plain version, and the share
+            # of its bound on the device
             extra["differing"] = int((got != want).sum().item())
             extra["bound_share"] = round(bound[0] / extra["device_ms"], 4)
-            unit = fa.QK_ROWS_PER_WARP
-            fa.QK_ROWS_PER_WARP = other = 3 - unit
-            require(torch.equal(flat(run()), got), f"K4 {case}: work units disagree")
-            extra[f"device_ms_rows_per_warp_{other}"] = round(device_ms(run, reps=20)["all"], 4)
-            fa.QK_ROWS_PER_WARP = unit
         _record(results, kernel, case, max_err(got, want),
                 REL_TOL * want.float().abs().max().item(),
                 median_ms(run, reps=20), median_ms(plain, reps=20), bound,
                 None if lib is None else median_ms(lib, reps=20), **extra)
-    # what the W8A8 block paid before K4 took strided rows: q and k copied
-    # out of the qkv output
-    copies = device_ms(lambda: (qv.contiguous(), kv.contiguous()), reps=20)["all"]
-    log(f"  qk_norm_rope            copying q and k out of qkv (no longer run): device "
-        f"{copies:.4f} ms, bound {bound_ms(4 * act, 0, 'fp32')[0]:.4f} ms")
-    results["qk_norm_rope"]["qkv_copies_device_ms"] = round(copies, 4)
 
 
 def flash_backward_kernels(results, gen):

@@ -11,7 +11,7 @@ and a V that exposes a wrong P-register layout, each run three times and
 bit-identical between runs. K4 (qk_norm_rope) at the W8A8 block's qkv
 views, views that are not 16-byte aligned, B > 1 with per-sample tables,
 odd L and L = 0, the 14B width and D = 16,384, head dims whose cos/sin
-index is or is not constant per lane, every dtype and both work units.
+index is or is not constant per lane, and every dtype.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -319,18 +319,16 @@ K4_CASES = [
 ]
 
 
-@pytest.mark.parametrize("rows_per_warp", [2, 1])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("b,l,heads,head_dim,layout,batched", K4_CASES)
-def test_qk_norm_rope_batched_tables(gen, monkeypatch, b, l, heads, head_dim, layout,
-                                     batched, dtype, rows_per_warp):
+def test_qk_norm_rope_batched_tables(gen, b, l, heads, head_dim, layout, batched, dtype):
     """K4 against its plain version: per-sample RoPE tables [B, L, D/2]
     (the MVDT masked pass) and shared ones, strided and misaligned views,
     odd L and L = 0, the 14B width and the widest D, head dims whose
-    cos/sin index is or is not constant per lane, every dtype, both work
-    units; each call goes to the kernel (the count moves by one) and never
+    cos/sin index is or is not constant per lane (D = 16,384 and the
+    misaligned views take the row kernel, the rest the staged one), every
+    dtype; each call goes to the kernel (the count moves by one) and never
     to the plain version."""
-    monkeypatch.setattr(fa, "QK_ROWS_PER_WARP", rows_per_warp)
     d = heads * head_dim
     if layout == "contiguous":
         q, k = _randn(gen, b, l, d, dtype=dtype), _randn(gen, b, l, d, dtype=dtype)

@@ -57,9 +57,8 @@ _SIGNATURES = {
     # x, b (or null), y, n, C, inner, dtype, act, alpha, gain, clamp, stream
     "yume_bias_act": [_VOID] * 3 + [_I64] * 3 + [_INT] * 2 + [_FLOAT] * 3 + [_VOID],
     # q, k, w_q, w_k, cos, sin, oq, ok, B, L, D, half, q strides (b, l),
-    # k strides (b, l), table batch stride, dtype, rows_per_warp, eps, stream
-    "yume_qk_norm_rope": [_VOID] * 8 + [_INT] * 4 + [_I64] * 5 + [_INT] * 2
-                         + [_FLOAT, _VOID],
+    # k strides (b, l), table batch stride, dtype, eps, stream
+    "yume_qk_norm_rope": [_VOID] * 8 + [_INT] * 4 + [_I64] * 5 + [_INT, _FLOAT, _VOID],
 }
 
 

@@ -34,9 +34,8 @@
 //    stay in flight through the arithmetic and a thread holds no row in
 //    registers. A lane copies and reads only its own vectors, so it waits
 //    for its own copies alone. Token t's q and k rows go to neighbouring
-//    warps (rows_per_warp 1), which share its cos/sin through L1; a warp
-//    that takes both (rows_per_warp 2, half as many warps) was slower on
-//    the H100 (chip_smoke.py times both).
+//    warps, which share its cos/sin through L1 (a warp that took both
+//    rows, with half as many warps, was slower on the H100).
 //  * When half divides 16 W (W elements a vector) and W / 2 divides half,
 //    every vector of lane l starts at the same pair index within its head,
 //    so the lane loads its W / 2 cos and sin values once a row (5B and 14B:
@@ -171,46 +170,29 @@ struct Params {
   int L, D, half;
   long long q_b, q_l, k_b, k_l, tab_b;  // strides in elements
   float eps;
-  int rows_per_warp;                    // 2: q and k of a token; 1: one row
   int hoist;                            // cos/sin index constant per lane
 };
 
-// A unit of work: a token (rows_per_warp 2: its q row, then its k row) or
-// one row (rows_per_warp 1: item 2 t is token t's q row, 2 t + 1 its k row,
-// so neighbouring warps share the token's cos/sin)
-struct Item {
+// Row r of the work: token r / 2's q row (r even) or k row (r odd), so
+// neighbouring warps share the token's cos/sin
+struct Row {
   long long t, b, pos;
-  int first, last;  // rows: 0 q, 1 k
+  int k;  // 0 q, 1 k
 };
 
-__device__ __forceinline__ Item item_at(const Params& p, long long item) {
-  const bool both = p.rows_per_warp == 2;
-  Item it;
-  it.t = both ? item : item >> 1;
-  it.b = it.t / p.L;
-  it.pos = it.t - it.b * p.L;
-  it.first = both ? 0 : static_cast<int>(item & 1);
-  it.last = both ? 1 : it.first;
-  return it;
+__device__ __forceinline__ Row row_at(const Params& p, long long r) {
+  Row row;
+  row.t = r >> 1;
+  row.b = row.t / p.L;
+  row.pos = row.t - row.b * p.L;
+  row.k = static_cast<int>(r & 1);
+  return row;
 }
 
 template <typename T>
-__device__ __forceinline__ const T* row_in(const Params& p, const Item& it, int which) {
-  return static_cast<const T*>(which ? p.k : p.q) + it.b * (which ? p.k_b : p.q_b) +
-         it.pos * (which ? p.k_l : p.q_l);
-}
-
-// The token's cos/sin rows, and the lane's hoisted values when p.hoist
-template <int P>
-__device__ __forceinline__ void rope_row(const Params& p, const Item& it, int lane,
-                                         const float*& ct, const float*& st, float (&ch)[P],
-                                         float (&sh)[P]) {
-  ct = p.cos + it.b * p.tab_b + it.pos * p.half;
-  st = p.sin + it.b * p.tab_b + it.pos * p.half;
-  if (p.hoist) {
-    load_f32<P>(ct + (lane * P) % p.half, ch);
-    load_f32<P>(st + (lane * P) % p.half, sh);
-  }
+__device__ __forceinline__ const T* row_in(const Params& p, const Row& row) {
+  return static_cast<const T*>(row.k ? p.k : p.q) + row.b * (row.k ? p.k_b : p.q_b) +
+         row.pos * (row.k ? p.k_l : p.q_l);
 }
 
 // Normalised and rotated chunk j of a row (r: the row's rsqrt; w_row: its
@@ -250,21 +232,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One row: the sum of squares over chunk(j), then each chunk normalised,
-// rotated and written to o; chunk(j) is read twice
-template <typename T, int W, typename ChunkAt>
-__device__ __forceinline__ void norm_rope_row(const Params& p, ChunkAt chunk, T* o,
-                                              const float* w_row, const float* ct,
-                                              const float* st, const float (&ch)[W / 2],
-                                              const float (&sh)[W / 2], int lane) {
-  const int n_chunks = p.D / W;
-  float ss = 0.0f;
-  for (int j = lane; j < n_chunks; j += 32) ss += sum_sq(chunk(j));
-  const float r = rsqrtf(warp_sum(ss) / static_cast<float>(p.D) + p.eps);
-  for (int j = lane; j < n_chunks; j += 32)
-    store_chunk(o + j * W, rotate(chunk(j), j, r, w_row, ct, st, ch, sh, p));
-}
-
 // w_q and w_k into shared memory, once a CTA
 __device__ __forceinline__ const float* stage_weights(const Params& p, float* w_s) {
   for (int i = threadIdx.x; i < p.D; i += blockDim.x) {
@@ -275,48 +242,60 @@ __device__ __forceinline__ const float* stage_weights(const Params& p, float* w_
   return w_s;
 }
 
+// One row, read through chunk(j) twice: its sum of squares, then each
+// chunk normalised, rotated and written
+template <typename T, int W, typename ChunkAt>
+__device__ __forceinline__ void do_row(const Params& p, const Row& row, ChunkAt chunk,
+                                       const float* w_s, int lane) {
+  constexpr int P = W / 2;  // pairs a chunk
+  // the token's cos/sin rows, and the lane's own values when they are hoisted
+  const float* ct = p.cos + row.b * p.tab_b + row.pos * p.half;
+  const float* st = p.sin + row.b * p.tab_b + row.pos * p.half;
+  float ch[P] = {}, sh[P] = {};
+  if (p.hoist) {
+    load_f32<P>(ct + (lane * P) % p.half, ch);
+    load_f32<P>(st + (lane * P) % p.half, sh);
+  }
+  T* o = static_cast<T*>(row.k ? p.ok : p.oq) + row.t * p.D;
+  const float* w_row = w_s + row.k * p.D;
+  const int n_chunks = p.D / W;
+  float ss = 0.0f;
+  for (int j = lane; j < n_chunks; j += 32) ss += sum_sq(chunk(j));
+  const float r = rsqrtf(warp_sum(ss) / static_cast<float>(p.D) + p.eps);
+  for (int j = lane; j < n_chunks; j += 32)
+    store_chunk(o + j * W, rotate(chunk(j), j, r, w_row, ct, st, ch, sh, p));
+}
+
 template <typename T, int W>
 __global__ void __launch_bounds__(32 * MAX_WARPS) qk_norm_rope_staged(const Params p) {
   extern __shared__ float4 smem[];
   float* w_base = reinterpret_cast<float*>(smem);
   const float* w_s = stage_weights(p, w_base);  // w_q [D], then w_k [D]
-  constexpr int P = W / 2;  // pairs a chunk
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  const int n_chunks = p.D / W, rows = p.rows_per_warp;
-  // then this warp's STAGES buffers of `rows` rows each
-  T* buf = reinterpret_cast<T*>(w_base + 2 * p.D) +
-           static_cast<long long>(warp) * STAGES * rows * p.D;
-  const long long items = rows == 2 ? p.tokens : 2 * p.tokens;
+  const int n_chunks = p.D / W;
+  // then this warp's STAGES row buffers
+  T* buf = reinterpret_cast<T*>(w_base + 2 * p.D) + static_cast<long long>(warp) * STAGES * p.D;
+  const long long rows = 2 * p.tokens;
   const long long n_warps = static_cast<long long>(gridDim.x) * warps;
-  // cp.async of an item's rows into a buffer; one commit group an item,
-  // empty past the last, so that the group count stays in step
-  const auto fetch = [&](long long item, int stage) {
-    if (item < items) {
-      const Item it = item_at(p, item);
-      for (int which = it.first; which <= it.last; ++which) {
-        const T* x = row_in<T>(p, it, which);
-        T* d = buf + (stage * rows + which - it.first) * p.D;
-        for (int j = lane; j < n_chunks; j += 32) cp_async16(d + j * W, x + j * W);
-      }
+  // cp.async of a row into a buffer; one commit group a row, empty past
+  // the last, so that the group count stays in step
+  const auto fetch = [&](long long r, int stage) {
+    if (r < rows) {
+      const T* x = row_in<T>(p, row_at(p, r));
+      T* d = buf + stage * p.D;
+      for (int j = lane; j < n_chunks; j += 32) cp_async16(d + j * W, x + j * W);
     }
     cp_async_commit();
   };
-  long long item = static_cast<long long>(blockIdx.x) * warps + warp;
-  fetch(item, 0);
-  for (int stage = 0; item < items; item += n_warps, stage ^= 1) {
-    fetch(item + n_warps, stage ^ 1);  // in flight while this item is computed
-    cp_async_wait<1>();                // this lane's copies of this item have landed
-    const Item it = item_at(p, item);
-    const float *ct, *st;
-    float ch[P] = {}, sh[P] = {};
-    rope_row<P>(p, it, lane, ct, st, ch, sh);
-    for (int which = it.first; which <= it.last; ++which) {
-      const T* x = buf + (stage * rows + which - it.first) * p.D;
-      norm_rope_row<T, W>(
-          p, [&](int j) { return *reinterpret_cast<const Chunk<T, W>*>(x + j * W); },
-          static_cast<T*>(which ? p.ok : p.oq) + it.t * p.D, w_s + which * p.D, ct, st, ch, sh,
-          lane);
-    }
+  long long r = static_cast<long long>(blockIdx.x) * warps + warp;
+  fetch(r, 0);
+  for (int stage = 0; r < rows; r += n_warps, stage ^= 1) {
+    fetch(r + n_warps, stage ^ 1);  // in flight while this row is computed
+    cp_async_wait<1>();             // this lane's copies of this row have landed
+    const T* x = buf + stage * p.D;
+    do_row<T, W>(p, row_at(p, r),
+                 [&](int j) { return *reinterpret_cast<const Chunk<T, W>*>(x + j * W); }, w_s,
+                 lane);
   }
   cp_async_wait<0>();
 }
@@ -325,29 +304,20 @@ template <typename T, int W>
 __global__ void __launch_bounds__(32 * ROW_WARPS) qk_norm_rope_rows(const Params p) {
   extern __shared__ float4 smem[];
   const float* w_s = stage_weights(p, reinterpret_cast<float*>(smem));  // w_q, then w_k
-  constexpr int P = W / 2;
   const int lane = threadIdx.x & 31;
-  const long long items = p.rows_per_warp == 2 ? p.tokens : 2 * p.tokens;
+  const long long rows = 2 * p.tokens;
   const long long n_warps = static_cast<long long>(gridDim.x) * ROW_WARPS;
-  for (long long item = static_cast<long long>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
-       item < items; item += n_warps) {
-    const Item it = item_at(p, item);
-    const float *ct, *st;
-    float ch[P] = {}, sh[P] = {};
-    rope_row<P>(p, it, lane, ct, st, ch, sh);
-    for (int which = it.first; which <= it.last; ++which) {
-      const T* x = row_in<T>(p, it, which);
-      norm_rope_row<T, W>(
-          p, [&](int j) { return load_chunk<T, W>(x + j * W); },
-          static_cast<T*>(which ? p.ok : p.oq) + it.t * p.D, w_s + which * p.D, ct, st, ch, sh,
-          lane);
-    }
+  for (long long r = static_cast<long long>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
+       r < rows; r += n_warps) {
+    const Row row = row_at(p, r);
+    const T* x = row_in<T>(p, row);
+    do_row<T, W>(p, row, [&](int j) { return load_chunk<T, W>(x + j * W); }, w_s, lane);
   }
 }
 
 // Launch `kernel` with `threads` threads and `smem` bytes a CTA: at most
 // as many CTAs as fit on the SMs (`ctas_per_sm`; 0: ask the occupancy
-// calculator) and no more than the items need
+// calculator) and no more than the rows need, a warp a row
 template <typename K>
 cudaError_t launch(K kernel, const Params& p, int threads, int smem, int ctas_per_sm,
                    cudaStream_t s) {
@@ -360,8 +330,7 @@ cudaError_t launch(K kernel, const Params& p, int threads, int smem, int ctas_pe
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long items = p.rows_per_warp == 2 ? p.tokens : 2 * p.tokens;
-  const long long needed = (items + threads / 32 - 1) / (threads / 32);
+  const long long needed = (2 * p.tokens + threads / 32 - 1) / (threads / 32);
   const long long fit = static_cast<long long>(sms) * ctas_per_sm;
   kernel<<<static_cast<int>(needed < fit ? needed : fit), threads, smem, s>>>(p);
   return cudaGetLastError();
@@ -379,7 +348,7 @@ cudaError_t run(Params p, cudaStream_t s) {
             aligned(p.sin, 4 * P);
   const long long weights = 8LL * p.D;  // w_q and w_k, fp32
   if constexpr (W * sizeof(T) == 16) {
-    const long long per_warp = static_cast<long long>(STAGES) * p.rows_per_warp * p.D * sizeof(T);
+    const long long per_warp = static_cast<long long>(STAGES) * p.D * sizeof(T);
     long long warps = (SMEM_BYTES - weights) / per_warp;
     warps = warps < MAX_WARPS ? warps : MAX_WARPS;
     if (warps >= MIN_STAGED_WARPS)
@@ -405,17 +374,13 @@ cudaError_t dispatch(const Params& p, cudaStream_t s) {
 // q, k: [B, L, D] of dtype 0 fp32, 1 bf16, 2 fp16, last axis contiguous,
 // strides in elements; w_q, w_k fp32 [D]; cos, sin fp32 [L, half]
 // (tab_bstride 0) or [B, L, half] (tab_bstride L * half), contiguous; oq, ok
-// contiguous [B, L, D] of q's dtype. D = heads * 2 * half. rows_per_warp 2:
-// a warp does a token's q and k rows; 1: one row a warp.
+// contiguous [B, L, D] of q's dtype. D = heads * 2 * half.
 extern "C" int yume_qk_norm_rope(const void* q, const void* k, const void* w_q, const void* w_k,
                                  const void* cos, const void* sin, void* oq, void* ok, int B,
                                  int L, int D, int half, long long q_bstride,
                                  long long q_lstride, long long k_bstride, long long k_lstride,
-                                 long long tab_bstride, int dtype, int rows_per_warp, float eps,
-                                 void* stream) {
-  if (B < 0 || L < 0 || D <= 0 || half <= 0 || D % (2 * half) != 0 ||
-      (rows_per_warp != 1 && rows_per_warp != 2))
-    return cudaErrorInvalidValue;
+                                 long long tab_bstride, int dtype, float eps, void* stream) {
+  if (B < 0 || L < 0 || D <= 0 || half <= 0 || D % (2 * half) != 0) return cudaErrorInvalidValue;
   if (static_cast<long long>(B) * L == 0) return cudaSuccess;
   // a stride of an axis of size 1 is never used: drop it from the alignment test
   Params p{q, k, static_cast<const float*>(w_q), static_cast<const float*>(w_k),
@@ -423,7 +388,7 @@ extern "C" int yume_qk_norm_rope(const void* q, const void* k, const void* w_q, 
            static_cast<long long>(B) * L, L, D, half,
            B > 1 ? q_bstride : 0, L > 1 ? q_lstride : 0,
            B > 1 ? k_bstride : 0, L > 1 ? k_lstride : 0,
-           B > 1 ? tab_bstride : 0, eps, rows_per_warp, 0};
+           B > 1 ? tab_bstride : 0, eps, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -208,9 +208,6 @@ def _rms_tile(d: int):
 _ACT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # K4's dtype codes (csrc/qk_norm_rope.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# K4's work unit: 1, a token's q row and its k row go to two warps; 2, one
-# warp normalises and rotates both (slower on the H100, chip_smoke.py)
-QK_ROWS_PER_WARP = 1
 
 
 def _check_act(name, t, like=None, strided_rows=False):
@@ -360,7 +357,7 @@ def _qk_norm_rope_launch(q, k, w_q, w_k, cos, sin, num_heads, eps):
             q.data_ptr(), k.data_ptr(), w_q.data_ptr(), w_k.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), oq.data_ptr(), ok.data_ptr(), b, l, d, half, q.stride(0),
             q.stride(1), k.stride(0), k.stride(1), tab_bstride, _DTYPE_CODES[q.dtype],
-            QK_ROWS_PER_WARP, float(eps), stream)
+            float(eps), stream)
     _build.check(err, "qk_norm_rope")
     qk_norm_rope.launches += 1
     return oq, ok
