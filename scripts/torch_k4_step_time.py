@@ -13,7 +13,9 @@ and 6b do:
   contiguous q and k, and of the W8A8 block's q/k path on a ``[1, 12095,
   9216]`` qkv output: its split views handed to K4, or, where the
   checkout's K4 refuses strided rows, copied out first as that checkout's
-  DiT does (``qkv_path_copies``);
+  DiT does (``qkv_path_copies``); and, as the practical floor of that
+  traffic, a copy of the same bytes (q and k cloned: 297 MB read and
+  written);
 * the full-width Yume-5B DiT in W8A8 (random bf16 weights N(0, 0.02) from
   seed 0), a 31-frame history and 8 tail frames on the 44×80 latent grid
   (12,095 packed tokens), a random 512-token context: TeaCache's full
@@ -116,6 +118,7 @@ def main(argv=None) -> int:
                                   reps=20)
     res["k4_qkv_path"] = _trace(qkv_path, reps=20)
     res["qkv_path_copies"] = copies
+    res["clone_q_k"] = _trace(lambda: (q.clone(), k.clone()), reps=20)
     del q, k, qkv, qv, kv
 
     # the headline's W8A8 DiT: a full and a cached TeaCache step ------------------

@@ -22,11 +22,11 @@ warp a row at a time in 16-byte vectors of whole (even, odd) pairs, stages
 the weights once a persistent CTA and the next row by cp.async while it
 computes the current one, and reads q and k through their row strides, so
 the W8A8 block hands it the q and k column blocks of its fused qkv output
-without a copy. K5 reads
-its rows contiguously: a program takes ``_RMS_ROWS`` rows and walks D in
-chunks of at most 1,024 columns (three at D = 3,072, so no lane is
-masked), 16-byte loads, twice: the sum of squares, then the scaled row
-(the second read hits the cache). Any batch size works.
+without a copy. K5 reads its rows contiguously: a program takes
+``_RMS_ROWS`` rows and walks D in chunks of at most 1,024 columns (three
+at D = 3,072, so no lane is masked), 16-byte loads, twice: the sum of
+squares, then the scaled row (the second read hits the cache). Any batch
+size works.
 
 Each wrapper runs its plain version on CPU tensors and launches its kernel
 (or raises) on CUDA tensors. When an input requires grad, the launch goes
