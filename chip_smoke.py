@@ -11,7 +11,7 @@ result line:
 2. build: compile the CUDA kernels from yume_tpu_torch/csrc (one nvcc per
    source, in parallel); print the registers, spills, wgmma serialization
    warnings and shared memory of the flash forward, of K6's two kernels, of
-   the flash backward's K8 and K9 and of K4 from the compiler's log;
+   the flash backward's K8 and K9 and of K2 and K4 from the compiler's log;
 3. kernels: every hand-written kernel of the main paths (flash attention
    K1, adaln_norm K2, adaln_residual K3, the RMSNorm/RoPE kernel K4, the
    RMSNorm kernel K5, the W8A8 int8 matmul K6, the partial flash attention
@@ -22,8 +22,9 @@ result line:
    and MVDT shapes, each three times and bit-identical, by events and on
    the device, with the pair against a fused backward's 5-product bound;
    K4 also on the W8A8 block's qkv views, with its batched-table case at
-   the trainer's, the differing elements and the share of its bound on
-   the device; K10 at the ADD
+   the trainer's, K2 also at the trainer's 2,805 tokens, both with the
+   differing elements and the share of their bound on the device; K10 at
+   the ADD
    discriminator's, every activation, bf16, and an NCHW ``dim=1`` call of
    ``filtered_lrelu``, with device times): error against a
    stated tolerance, median times of the kernel, of its plain version and
@@ -53,7 +54,7 @@ result line:
       adaptive TeaCache at threshold 0.1, then ``decode_auto`` of the tail:
       K1–K6 must launch; then its first full and cached step once more
       under the profiler (device time and launches by kernel family, copy
-      kernels; the trace's K4 launches must equal the counter's).
+      kernels; the trace's K2 and K4 launches must equal the counter's).
    Each tail video must be finite [1, 29, 704, 1280, 3].
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
@@ -310,25 +311,36 @@ def build_phase():
         else:
             continue
         log(f"build: {name}: {'; '.join(info)}; dynamic shared memory {smem} bytes a CTA")
-    # K4: a staged and a row kernel per dtype and vector width W; the staged
-    # kernel's dynamic shared memory holds w_q and w_k (8·D bytes) and two
-    # row buffers for each of its warps (16 at D = 3,072 bf16)
-    k4 = {}
+    # K2 and K4: a staged and a row kernel per dtype (K2: per input and
+    # output dtype) and vector width W. K4's staged kernel's dynamic shared
+    # memory holds w_q and w_k (8·D bytes) and two row buffers for each of
+    # its warps (16 at D = 3,072 bf16); K2's the (gate + scale) and shift
+    # rows of its tables (8·K·D bytes) and as many warps' two row buffers as
+    # fit (14 at D = 3,072 bf16, K = 2)
+    dtypes = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    row_kernels = {"K2": {}, "K4": {}}
     for i, line in enumerate(lines):
-        m = re.search(r"qk_norm_rope_(staged|rows)I(\w+?)Li(\d+)E", line)
+        m = re.search(r"(adaln_norm|qk_norm_rope)_(staged|rows)I(\w+?)Li(\d+)E", line)
         if m and "Compiling entry function" in line:
-            dtype = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}.get(
-                m.group(2), m.group(2))
+            kind = "K2" if m.group(1) == "adaln_norm" else "K4"
+            # a repeated type is mangled as a back reference (S<n>_)
+            types_ = []
+            for t in re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(3)):
+                types_.append(types_[-1] if t.startswith("S") else t)
             block = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.findall(r"(\d+) bytes spill", block)
-            k4[f"qk_norm_rope_{m.group(1)}<{dtype}, W {m.group(3)}>"] = (
+            row_kernels[kind][f"{m.group(1)}_{m.group(2)}<"
+                              f"{', '.join(dtypes[t] for t in types_)}, W {m.group(4)}>"] = (
                 int(regs.group(1)) if regs else -1, sum(int(x) for x in spill))
-    require(k4, "build: no K4 kernel in the compiler's log")
-    for name, (regs, spill) in sorted(k4.items()):
-        log(f"build: {name} (K4): {regs} registers, {spill} bytes spilled")
+    for kind, found in row_kernels.items():
+        require(found, f"build: no {kind} kernel in the compiler's log")
+        for name, (regs, spill) in sorted(found.items()):
+            log(f"build: {name} ({kind}): {regs} registers, {spill} bytes spilled")
     log(f"build: K4 staged kernel at D = 3,072 bf16: dynamic shared memory "
         f"{8 * DIM + 16 * 2 * DIM * 2} bytes a CTA (16 warps)")
+    log(f"build: K2 staged kernel at D = 3,072 bf16, K = 2: dynamic shared memory "
+        f"{8 * 2 * DIM + 14 * 2 * DIM * 2} bytes a CTA (14 warps)")
     for kernel in ("flash_fwd_kernel", "q8_gemm_kernel", "flash_bwd_dq_kernel",
                    "flash_bwd_dkv_kernel"):
         serialized = [x for x in lines if "C7515" in x and kernel in x]
@@ -439,6 +451,9 @@ def attention_and_glue_kernels(results, gen):
     wq_lib = wq.to(x.dtype)  # F.rms_norm takes the weight in x's dtype
     w1_lib, b1_lib = w1.reshape(DIM).to(x.dtype), b1.reshape(DIM).to(x.dtype)  # F.layer_norm's
     tabs = nbytes(s_tab, t_tab, idx)
+    xt = x[:, :TRAIN_L]
+    tail_t = TRAIN_LFZ * TRAIN_H * TRAIN_W // 4  # the trainer's tail tokens
+    idx_t = (torch.arange(TRAIN_L, device="cuda") >= TRAIN_L - tail_t).to(torch.int32)[None]
     act = nbytes(x)                       # one [1, 12095, 3072] bf16 pass
     elems = x.numel()
     # (kernel, case, kernel call, plain call, library call, bytes, fp32 ops)
@@ -456,6 +471,11 @@ def attention_and_glue_kernels(results, gen):
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx, out_dtype=torch.float32),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.float32),
          None, 3 * act + tabs, 8 * elems),
+        # the trainer's 9 history + 8 tail frames, 2,805 packed tokens
+        ("adaln_norm", f"trainer [1,{TRAIN_L},3072]",
+         lambda: fa.adaln_norm(xt, s_tab, t_tab, idx_t),
+         lambda: fa._adaln_norm_ref(xt, s_tab, t_tab, idx_t, 1e-6, 1.0, torch.bfloat16),
+         None, 2 * nbytes(xt) + nbytes(s_tab, t_tab, idx_t), 8 * xt.numel()),
         ("adaln_residual", "residual bf16",
          lambda: fa.adaln_residual(x, y, s_tab, idx),
          lambda: fa._adaln_residual_ref(x, y, s_tab, idx),
@@ -500,9 +520,9 @@ def attention_and_glue_kernels(results, gen):
         extra = {"device_ms": round(device_ms(run, reps=20)["all"], 4)}
         if lib is not None:
             extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
-        if kernel == "qk_norm_rope":
-            # K4: elements that differ from the plain version, and the share
-            # of its bound on the device
+        if kernel in ("adaln_norm", "qk_norm_rope"):
+            # K2 and K4: elements that differ from the plain version, and the
+            # share of their bound on the device
             extra["differing"] = int((got != want).sum().item())
             extra["bound_share"] = round(bound[0] / extra["device_ms"], 4)
         _record(results, kernel, case, max_err(got, want),
@@ -1157,12 +1177,14 @@ def pipeline_phase(counters):
                                        lambda: fn(*a, **kw, block_cache=cache),
                                        ranges_named=(), rest="dit_forward"))
         del cache
-    # the traces show every K4 launch of the step (K4 reads q and k out of
-    # the qkv output in place, so no copy kernel precedes it)
+    # the traces show every K2 and K4 launch of the step (K4 reads q and k
+    # out of the qkv output in place, so no copy kernel precedes it)
     for kind, trace in zip(("full_step", "cached_step"), traces):
-        require(trace["launches"]["K4 qk_norm_rope"] == step_launches[kind]["qk_norm_rope"],
-                f"{kind}: the trace shows {trace['launches']['K4 qk_norm_rope']} K4 kernels, "
-                f"the counter {step_launches[kind]['qk_norm_rope']}")
+        for family, counter in (("K2 adaln_norm", "adaln_norm"),
+                                ("K4 qk_norm_rope", "qk_norm_rope")):
+            require(trace["launches"][family] == step_launches[kind][counter],
+                    f"{kind}: the trace shows {trace['launches'][family]} {family} "
+                    f"kernels, the counter {step_launches[kind][counter]}")
     return launches, euler_launches
 
 
@@ -1171,7 +1193,8 @@ KERNEL_FAMILIES = [
     ("K1 flash fwd", ("flash_fwd_kernel",)),
     ("K8 dQ", ("flash_bwd_dq_kernel",)),
     ("K9 dK dV", ("flash_bwd_dkv_kernel",)),
-    ("K2 K3 K5 Triton glue", ("adaln_norm_kernel", "adaln_residual_kernel", "rms_norm_kernel")),
+    ("K2 adaln_norm", ("adaln_norm_staged", "adaln_norm_rows")),
+    ("K3 K5 Triton glue", ("adaln_residual_kernel", "rms_norm_kernel")),
     ("K4 qk_norm_rope", ("qk_norm_rope_",)),
     ("K6 W8A8", ("q8_gemm_kernel", "quantize_rows_kernel")),
     ("K10 bias_act", ("bias_act_kernel",)),
@@ -1753,7 +1776,7 @@ def main() -> int:
     meta = {
         "flash_attention": ("cuda", "yume_tpu_torch/csrc/flash_attention.cu",
                             "yume_tpu/ops/flash_attention.py:57"),
-        "adaln_norm": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
+        "adaln_norm": ("cuda", "yume_tpu_torch/csrc/adaln_norm.cu",
                        "yume_tpu/ops/fused_adaln.py:94"),
         "adaln_residual": ("triton", "yume_tpu_torch/ops/fused_adaln.py",
                            "yume_tpu/ops/fused_adaln.py:251"),

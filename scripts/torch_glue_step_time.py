@@ -1,13 +1,17 @@
-"""Time K4 (``qk_norm_rope``) and the headline's W8A8 DiT steps on one GPU,
-for the package of a given checkout:
+"""Time K2 (``adaln_norm``), K4 (``qk_norm_rope``) and the headline's W8A8
+DiT steps on one GPU, for the package of a given checkout:
 
-    python3 scripts/torch_k4_step_time.py [--root DIR] [--steps N] [--label L]
+    python3 scripts/torch_glue_step_time.py [--root DIR] [--steps N] [--label L]
 
 ``--root`` is the checkout whose ``yume_tpu_torch`` is imported (default:
 this one), so two commits compare on one card by running this script once
 per checkout, alternating (A, B, B, A). Measured, as chip_smoke.py phases 3
 and 6b do:
 
+* K2 at the 5B segment's shape, ``[1, 12095, 3072]`` bf16: the profiler's
+  device time of the AdaLN call (two fp32 table rows, history and tail,
+  picked by idx) and of the norm3 call (gate 0, one row, no idx) beside
+  ``F.layer_norm`` on the same input, weight and bias;
 * K4 at the 5B segment's shape, ``[1, 12095, 3072]`` bf16 q and k with the
   packed FramePack RoPE tables: the profiler's device time of the call on
   contiguous q and k, and of the W8A8 block's q/k path on a ``[1, 12095,
@@ -21,8 +25,8 @@ and 6b do:
   (12,095 packed tokens), a random 512-token context: TeaCache's full
   step (blocks 7–22 stored) and cached step, two warm-ups and ``--steps``
   timed calls of each on the host's clock between two synchronisations;
-  then one full and one cached step under the profiler: device busy, K4's
-  kernels and the copy kernels (launches and ms).
+  then one full and one cached step under the profiler: device busy, K2's
+  and K4's kernels and the copy kernels (launches and ms).
 
 Prints one JSON line with the card's name and power limit.
 """
@@ -39,10 +43,13 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 L, N, D, DIM = 12095, 24, 128, 3072
 TEXT_LEN = 512
-K4_KERNELS = ("qk_norm_rope_", "rms_rope_kernel")  # CUDA K4, the Triton one before it
+# kernel names by family: the CUDA kernels, then the Triton ones before them
+FAMILIES = {"k2": ("adaln_norm_staged", "adaln_norm_rows", "adaln_norm_kernel"),
+            "k4": ("qk_norm_rope_", "rms_rope_kernel")}
 
 
 def _trace(fn, reps: int = 1) -> dict:
@@ -56,19 +63,20 @@ def _trace(fn, reps: int = 1) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {"busy_ms": 0.0, "k4_ms": 0.0, "k4_launches": 0, "copy_ms": 0.0, "copy_launches": 0}
+    out = {"busy_ms": 0.0}
+    for group in (*FAMILIES, "copy"):
+        out[f"{group}_ms"], out[f"{group}_launches"] = 0.0, 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = next(getattr(e, n) for n in ("self_device_time_total", "self_cuda_time_total")
                   if hasattr(e, n)) / 1e3 / reps
         out["busy_ms"] += ms
-        if any(k in e.key for k in K4_KERNELS):
-            out["k4_ms"] += ms
-            out["k4_launches"] += e.count // reps
-        elif "copy" in e.key.lower():
-            out["copy_ms"] += ms
-            out["copy_launches"] += e.count // reps
+        group = next((g for g, names in FAMILIES.items() if any(k in e.key for k in names)),
+                     "copy" if "copy" in e.key.lower() else None)
+        if group:
+            out[f"{group}_ms"] += ms
+            out[f"{group}_launches"] += e.count // reps
     return out
 
 
@@ -79,7 +87,7 @@ def main(argv=None) -> int:
     p.add_argument("--label", default="")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        print("torch_k4_step_time: needs a CUDA device", file=sys.stderr)
+        print("torch_glue_step_time: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     import yume_tpu_torch
@@ -94,8 +102,22 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     res = {"label": args.label, "package": yume_tpu_torch.__file__, "card": smi}
 
-    # K4 at the headline shape --------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # K2 at the headline shape --------------------------------------------------
+    x = torch.randn((1, L, DIM), generator=gen, device="cuda").to(torch.bfloat16)
+    s_tab = 0.1 * torch.randn((1, 2, DIM), generator=gen, device="cuda")
+    t_tab = 0.1 * torch.randn((1, 2, DIM), generator=gen, device="cuda")
+    idx = (torch.arange(L, device="cuda") >= 5055).to(torch.int32)[None]  # 31 history frames
+    w1 = 1.0 + 0.1 * torch.randn((1, 1, DIM), generator=gen, device="cuda")
+    b1 = 0.1 * torch.randn((1, 1, DIM), generator=gen, device="cuda")
+    w1_lib, b1_lib = w1.reshape(DIM).to(x.dtype), b1.reshape(DIM).to(x.dtype)
+    res["k2_adaln"] = _trace(lambda: fa.adaln_norm(x, s_tab, t_tab, idx), reps=20)
+    res["k2_norm3"] = _trace(lambda: fa.adaln_norm(x, w1, b1, None, gate=0.0), reps=20)
+    res["layer_norm"] = _trace(lambda: F.layer_norm(x, (DIM,), w1_lib, b1_lib, eps=1e-6),
+                               reps=20)
+    del x
+
+    # K4 at the headline shape --------------------------------------------------
     q = torch.randn((1, L, DIM), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((1, L, DIM), generator=gen, device="cuda").to(torch.bfloat16)
     qkv = torch.randn((1, L, 3 * DIM), generator=gen, device="cuda").to(torch.bfloat16)

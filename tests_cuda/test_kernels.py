@@ -11,7 +11,10 @@ and a V that exposes a wrong P-register layout, each run three times and
 bit-identical between runs. K4 (qk_norm_rope) at the W8A8 block's qkv
 views, views that are not 16-byte aligned, B > 1 with per-sample tables,
 odd L and L = 0, the 14B width and D = 16,384, head dims whose cos/sin
-index is or is not constant per lane, and every dtype.
+index is or is not constant per lane, and every dtype. K2 (adaln_norm)
+at the 14B width, with staged and unstaged tables (per-batch, a large K),
+rows of mean 100, every admitted dtype pair, misaligned rows, odd D and
+L = 0.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -227,14 +230,19 @@ def _glue_check(got, want):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("d", [64, 96, 3072])
+@pytest.mark.parametrize("d", [64, 96, 1500, 3072, 5120])
 @pytest.mark.parametrize("mode", ["adaln", "affine", "fp32_out"])
 def test_adaln_norm_edges(gen, d, mode):
+    """K2 with per-batch tables [2, 3, D] and idx (staged up to 3,072; at
+    5,120 the six table rows do not fit and the row kernel takes them), as
+    the norm3 affine LayerNorm (gate 0, no idx, K = 1) and as the Head's
+    fp32 output; D = 1,500 is not whole bf16 vectors (the row kernel)."""
     b, l, k = 2, 37, 3
     x = _randn(gen, b, l, d, scale=3.0)
     s = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
     t = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
     idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+    before = fa.adaln_norm.launches
     if mode == "affine":
         w, bias = s[:1, :1] + 1.0, t[:1, :1]
         got = fa.adaln_norm(x, w, bias, None, gate=0.0)
@@ -243,8 +251,68 @@ def test_adaln_norm_edges(gen, d, mode):
         od = torch.float32 if mode == "fp32_out" else torch.bfloat16
         got = fa.adaln_norm(x, s, t, idx, out_dtype=od)
         want = fa._adaln_norm_ref(x, s, t, idx, 1e-6, 1.0, od)
+    assert fa.adaln_norm.launches == before + 1
     assert got.dtype == want.dtype
     _glue_check(got, want)
+
+
+# (b, l, d, k, per-batch tables, x dtype, out dtype, row mean)
+K2_CASES = [
+    (1, 300, 5120, 2, False, torch.bfloat16, torch.bfloat16, 0.0),  # 14B width, staged
+    (1, 300, 5120, 2, False, torch.bfloat16, torch.float32, 0.0),   # its Head
+    (2, 50, 3072, 2, True, torch.bfloat16, torch.bfloat16, 0.0),    # 4 staged table rows
+    (2, 50, 3072, 2, False, torch.bfloat16, torch.bfloat16, 0.0),   # [1, K, D] over B = 2
+    (2, 50, 3072, 4, True, torch.bfloat16, torch.bfloat16, 0.0),    # 8 rows: the row kernel
+    (1, 50, 3072, 8, False, torch.bfloat16, torch.bfloat16, 0.0),   # K = 8: the row kernel
+    (1, 64, 3072, 2, False, torch.bfloat16, torch.bfloat16, 100.0),  # two-pass variance
+    (1, 64, 3072, 2, False, torch.float32, torch.float32, 100.0),
+    (2, 37, 3072, 2, True, torch.float16, torch.float16, 0.0),
+    (2, 37, 3072, 2, True, torch.float16, torch.float32, 0.0),
+    (2, 37, 3072, 2, True, torch.float32, torch.float32, 0.0),
+    (2, 37, 1500, 2, False, torch.float32, torch.float32, 0.0),     # fp32: whole vectors
+    (2, 37, 1001, 2, False, torch.bfloat16, torch.bfloat16, 0.0),   # odd D: scalar path
+    (2, 0, 3072, 2, False, torch.bfloat16, torch.bfloat16, 0.0),    # no token
+    (1, 1, 3072, 2, False, torch.bfloat16, torch.bfloat16, 0.0),
+    (1, 5, 16384, 1, False, torch.bfloat16, torch.bfloat16, 0.0),   # rows too wide to stage
+]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("b,l,d,k,per_batch,dtype,out_dtype,mean", K2_CASES)
+def test_adaln_norm_tables_and_dtypes(gen, b, l, d, k, per_batch, dtype, out_dtype, mean,
+                                      misaligned):
+    """K2 against its plain version: the 14B width, per-batch tables that
+    are and are not staged, a [1, K, D] table over B = 2, a K whose tables
+    do not fit, rows of mean 100 and unit spread (a one-pass E[x^2] - mu^2
+    loses the variance there), every admitted dtype pair, odd D, L = 0,
+    one token, rows too wide to stage; and each again with x's data one
+    element past a 16-byte boundary (the row kernel's scalar path). Each call launches the kernel once (none without a token)."""
+    x = _randn(gen, b, l, d, dtype=torch.float32) + mean
+    if misaligned:  # contiguous, but its data starts one element in
+        flat = torch.empty(b * l * d + 1, dtype=dtype, device="cuda")
+        x_k = flat[1:].view(b, l, d)
+        x_k.copy_(x)
+    else:
+        x_k = x.to(dtype)
+    s = _randn(gen, b if per_batch else 1, k, d, dtype=torch.float32, scale=0.1)
+    t = _randn(gen, b if per_batch else 1, k, d, dtype=torch.float32, scale=0.1)
+    idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+    before = fa.adaln_norm.launches
+    got = fa.adaln_norm(x_k, s, t, idx, out_dtype=out_dtype)
+    assert fa.adaln_norm.launches == before + (b * l > 0)
+    want = fa._adaln_norm_ref(x_k, s, t, idx, 1e-6, 1.0, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (b, l, d)
+    if got.numel():
+        _glue_check(got, want)
+
+
+def test_adaln_norm_refuses_dtype_pairs(gen):
+    """K2 instantiates x's dtype to itself or to fp32 only."""
+    s = _randn(gen, 1, 1, 64, dtype=torch.float32)
+    for dtype, out_dtype in ((torch.bfloat16, torch.float16), (torch.float32, torch.bfloat16),
+                             (torch.float16, torch.bfloat16)):
+        with pytest.raises(TypeError, match="no kernel"):
+            fa.adaln_norm(_randn(gen, 1, 4, 64, dtype=dtype), s, s, None, out_dtype=out_dtype)
 
 
 def test_adaln_residual_batched_tables(gen):

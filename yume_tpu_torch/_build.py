@@ -56,6 +56,9 @@ _SIGNATURES = {
     "yume_q8_quantize": [_VOID] * 3 + [_INT] * 2 + [_I64, _VOID],
     # x, b (or null), y, n, C, inner, dtype, act, alpha, gain, clamp, stream
     "yume_bias_act": [_VOID] * 3 + [_I64] * 3 + [_INT] * 2 + [_FLOAT] * 3 + [_VOID],
+    # x, idx (or null), scale, shift, out, B, L, D, K, table batch stride,
+    # x dtype, out dtype, eps, gate, stream
+    "yume_adaln_norm": [_VOID] * 5 + [_INT] * 4 + [_I64] + [_INT] * 2 + [_FLOAT] * 2 + [_VOID],
     # q, k, w_q, w_k, cos, sin, oq, ok, B, L, D, half, q strides (b, l),
     # k strides (b, l), table batch stride, dtype, eps, stream
     "yume_qk_norm_rope": [_VOID] * 8 + [_INT] * 4 + [_I64] * 5 + [_INT, _FLOAT, _VOID],

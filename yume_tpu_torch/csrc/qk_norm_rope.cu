@@ -48,54 +48,14 @@
 //    row, read twice from device memory (the second time from the cache),
 //    in vectors, or one pair at a time when unaligned.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <type_traits>
+#include "rows.cuh"
 
 namespace {
 
 constexpr int STAGES = 2;            // row buffers a warp (staged kernel)
 constexpr int MAX_WARPS = 16;        // a staged CTA
 constexpr int MIN_STAGED_WARPS = 4;  // fewer fit: the row kernel
-constexpr int SMEM_BYTES = 232448;   // an H100 block's shared memory
 constexpr int ROW_WARPS = 8;         // a row-kernel CTA
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-// W consecutive elements of a row, W / 2 whole (even, odd) pairs: one
-// 16-byte vector, or one pair on the unaligned path
-template <typename T, int W>
-struct alignas(sizeof(T) * W) Chunk {
-  T v[W];
-};
-
-template <typename T, int W>
-__device__ __forceinline__ Chunk<T, W> load_chunk(const T* p) {
-  Chunk<T, W> c;
-  if constexpr (sizeof(Chunk<T, W>) == 16) {
-    *reinterpret_cast<uint4*>(&c) = *reinterpret_cast<const uint4*>(p);
-  } else {
-#pragma unroll
-    for (int e = 0; e < W; ++e) c.v[e] = p[e];
-  }
-  return c;
-}
-
-template <typename T, int W>
-__device__ __forceinline__ void store_chunk(T* p, const Chunk<T, W>& c) {
-  if constexpr (sizeof(Chunk<T, W>) == 16) {
-    // written once: evict first
-    __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&c));
-  } else {
-#pragma unroll
-    for (int e = 0; e < W; ++e) p[e] = c.v[e];
-  }
-}
 
 // Two values rounded to T, written as one pair (bf16 and fp16: one packed
 // conversion)
@@ -119,42 +79,6 @@ __device__ __forceinline__ float sum_sq(const Chunk<T, W>& c) {
     s += f * f;
   }
   return s;
-}
-
-// N consecutive fp32 values, as float4 / float2 loads where N allows (the
-// caller keeps p aligned to 4 N bytes)
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + e);
-      out[e] = f.x, out[e + 1] = f.y, out[e + 2] = f.z, out[e + 3] = f.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 2) {
-      const float2 f = *reinterpret_cast<const float2*>(p + e);
-      out[e] = f.x, out[e + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = p[e];
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Params {
@@ -224,12 +148,6 @@ __device__ __forceinline__ Chunk<T, W> rotate(const Chunk<T, W>& x, int j, float
              __fadd_rn(__fmul_rn(ne, s), __fmul_rn(no, c)));
   }
   return y;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
 }
 
 // w_q and w_k into shared memory, once a CTA
@@ -315,27 +233,6 @@ __global__ void __launch_bounds__(32 * ROW_WARPS) qk_norm_rope_rows(const Params
   }
 }
 
-// Launch `kernel` with `threads` threads and `smem` bytes a CTA: at most
-// as many CTAs as fit on the SMs (`ctas_per_sm`; 0: ask the occupancy
-// calculator) and no more than the rows need, a warp a row
-template <typename K>
-cudaError_t launch(K kernel, const Params& p, int threads, int smem, int ctas_per_sm,
-                   cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && ctas_per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long needed = (2 * p.tokens + threads / 32 - 1) / (threads / 32);
-  const long long fit = static_cast<long long>(sms) * ctas_per_sm;
-  kernel<<<static_cast<int>(needed < fit ? needed : fit), threads, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
 // The staged kernel where W is a 16-byte vector and enough warps fit, else
 // the row kernel
 template <typename T, int W>
@@ -352,18 +249,19 @@ cudaError_t run(Params p, cudaStream_t s) {
     long long warps = (SMEM_BYTES - weights) / per_warp;
     warps = warps < MAX_WARPS ? warps : MAX_WARPS;
     if (warps >= MIN_STAGED_WARPS)
-      return launch(qk_norm_rope_staged<T, W>, p, static_cast<int>(32 * warps),
-                    static_cast<int>(weights + warps * per_warp), 1, s);
+      return launch_rows(qk_norm_rope_staged<T, W>, p, 2 * p.tokens,
+                         static_cast<int>(32 * warps),
+                         static_cast<int>(weights + warps * per_warp), 1, s);
   }
   if (weights > SMEM_BYTES) return cudaErrorInvalidValue;
-  return launch(qk_norm_rope_rows<T, W>, p, 32 * ROW_WARPS, static_cast<int>(weights), 0, s);
+  return launch_rows(qk_norm_rope_rows<T, W>, p, 2 * p.tokens, 32 * ROW_WARPS,
+                     static_cast<int>(weights), 0, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t s) {
   constexpr int W = 16 / sizeof(T);
-  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  const bool vectors = aligned(p.q) && aligned(p.k) && aligned(p.oq) && aligned(p.ok) &&
+  const bool vectors = aligned16(p.q) && aligned16(p.k) && aligned16(p.oq) && aligned16(p.ok) &&
                        p.D % W == 0 && p.q_b % W == 0 && p.q_l % W == 0 && p.k_b % W == 0 &&
                        p.k_l % W == 0;
   return vectors ? run<T, W>(p, s) : run<T, 2>(p, s);

@@ -2,7 +2,7 @@
 PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
 
 * :func:`adaln_norm`     — ``LN(x)·(gate + scale_tab[idx]) + shift_tab[idx]``
-  (replaces ``_adaln_norm_kernel``; Triton).
+  (replaces ``_adaln_norm_kernel``; CUDA C++, ``csrc/adaln_norm.cu``).
 * :func:`adaln_residual` — ``x + y·scale_tab[idx]`` in fp32, out in x.dtype
   (replaces ``_adaln_residual_kernel``; Triton).
 * :func:`qk_norm_rope`   — RMSNorm(q)·w_q and RMSNorm(k)·w_k over the full
@@ -12,21 +12,21 @@ PyTorch versions (counterpart of yume_tpu/ops/fused_adaln.py).
 
 What bounds them on the H100: each is one pass of row reductions plus a few
 FLOPs per element over [B, L, D] bf16 activations (D = 3072), i.e. HBM
-bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. Design of
-K2 and K3: one Triton program per token row with the whole row (BLOCK =
+bandwidth; at 12,095 tokens one pass reads and writes ~74 MB. K2 and K4
+(see their sources) give a warp a row at a time in 16-byte vectors, stage
+what every row reads (K2's modulation table rows, K4's weights) once a
+persistent CTA and bring the next row in by cp.async while they compute
+the current one. K4 reads q and k through their row strides, so the W8A8
+block hands it the q and k column blocks of its fused qkv output without a
+copy. K3 is one Triton program per token row with the whole row (BLOCK =
 next power of two of D, masked) in registers, so every input byte is read
-once and every output byte written once. The per-token modulation row is
-loaded directly from the compact [B, K, D] fp32 table by ``idx`` (the TPU
-kernel's one-hot dot was a Mosaic workaround). K4 (see its source) gives a
-warp a row at a time in 16-byte vectors of whole (even, odd) pairs, stages
-the weights once a persistent CTA and the next row by cp.async while it
-computes the current one, and reads q and k through their row strides, so
-the W8A8 block hands it the q and k column blocks of its fused qkv output
-without a copy. K5 reads its rows contiguously: a program takes
-``_RMS_ROWS`` rows and walks D in chunks of at most 1,024 columns (three
-at D = 3,072, so no lane is masked), 16-byte loads, twice: the sum of
-squares, then the scaled row (the second read hits the cache). Any batch
-size works.
+once and every output byte written once; it loads the per-token
+modulation row directly from the compact [B, K, D] fp32 table by ``idx``
+(the TPU kernel's one-hot dot was a Mosaic workaround). K5 reads its
+rows contiguously: a program takes ``_RMS_ROWS`` rows and walks D in
+chunks of at most 1,024 columns (three at D = 3,072, so no lane is
+masked), 16-byte loads, twice: the sum of squares, then the scaled row
+(the second read hits the cache). Any batch size works.
 
 Each wrapper runs its plain version on CPU tensors and launches its kernel
 (or raises) on CUDA tensors. When an input requires grad, the launch goes
@@ -117,29 +117,6 @@ def _kernels():
     triton, tl = _triton, _tl
 
     @triton.jit
-    def adaln_norm_kernel(x_ptr, idx_ptr, s_ptr, t_ptr, o_ptr, L, D,
-                          tab_bstride, eps, gate,
-                          HAS_IDX: tl.constexpr, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        b = row // L
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < D
-        x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
-        mu = tl.sum(x, axis=0) / D
-        diff = tl.where(mask, x - mu, 0.0)
-        var = tl.sum(diff * diff, axis=0) / D
-        n = diff * tl.rsqrt(var + eps)
-        if HAS_IDX:
-            k = tl.load(idx_ptr + row).to(tl.int64)
-        else:
-            k = 0
-        tab = b * tab_bstride + k * D + cols
-        s = tl.load(s_ptr + tab, mask=mask, other=0.0)
-        t = tl.load(t_ptr + tab, mask=mask, other=0.0)
-        y = n * (gate + s) + t
-        tl.store(o_ptr + row * D + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
     def adaln_residual_kernel(x_ptr, y_ptr, idx_ptr, s_ptr, o_ptr, L, D,
                               tab_bstride,
                               HAS_IDX: tl.constexpr, BLOCK_D: tl.constexpr):
@@ -181,8 +158,7 @@ def _kernels():
                      mask=m)
 
     return types.SimpleNamespace(
-        adaln_norm=adaln_norm_kernel, adaln_residual=adaln_residual_kernel,
-        rms_norm=rms_norm_kernel)
+        adaln_residual=adaln_residual_kernel, rms_norm=rms_norm_kernel)
 
 
 def _block(n: int) -> int:
@@ -206,8 +182,10 @@ def _rms_tile(d: int):
 
 
 _ACT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-# K4's dtype codes (csrc/qk_norm_rope.cu)
+# dtype codes of K2 and K4 (csrc/adaln_norm.cu, csrc/qk_norm_rope.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K2's (x, out) dtype pairs: x's dtype to itself or to fp32
+_ADALN_PAIRS = frozenset([(t, t) for t in _ACT_DTYPES] + [(t, torch.float32) for t in _ACT_DTYPES])
 
 
 def _check_act(name, t, like=None, strided_rows=False):
@@ -274,7 +252,13 @@ def _rope_tables(cos, sin, x, half):
 
 
 def _adaln_norm_launch(x, scale_tab, shift_tab, idx, eps, gate, out_dtype):
+    """K2 on contiguous x; idx None reads table row 0 everywhere."""
+    from .. import _build
+
     _check_act("adaln_norm x", x)
+    if (x.dtype, out_dtype) not in _ADALN_PAIRS:
+        raise TypeError(f"adaln_norm: no kernel from {x.dtype} to {out_dtype} "
+                        f"(x's dtype or float32 out)")
     s_tab, bstride = _table("adaln_norm scale_tab", scale_tab, x)
     t_tab, _ = _table("adaln_norm shift_tab", shift_tab, x)
     if s_tab.shape != t_tab.shape:
@@ -284,12 +268,14 @@ def _adaln_norm_launch(x, scale_tab, shift_tab, idx, eps, gate, out_dtype):
     out = torch.empty((b, l, d), dtype=out_dtype, device=x.device)
     if b * l == 0:
         return out
-    block = _block(d)
+    lib = _build.library()
     with torch.cuda.device(x.device):
-        _kernels().adaln_norm[(b * l,)](
-            x, idx if idx is not None else x, s_tab, t_tab, out, l, d,
-            bstride, float(eps), float(gate),
-            HAS_IDX=idx is not None, BLOCK_D=block, num_warps=_warps(block))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.yume_adaln_norm(
+            x.data_ptr(), None if idx is None else idx.data_ptr(), s_tab.data_ptr(),
+            t_tab.data_ptr(), out.data_ptr(), b, l, d, s_tab.shape[1], bstride,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], float(eps), float(gate), stream)
+    _build.check(err, "adaln_norm")
     adaln_norm.launches += 1
     return out
 
