@@ -202,8 +202,8 @@ __global__ void __launch_bounds__(32 * ROW_WARPS) adaln_norm_rows(const Params p
   for (long long r = static_cast<long long>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
        r < p.tokens; r += n_warps) {
     const T* x = static_cast<const T*>(p.x) + r * p.D;
-    const long long tab =
-        r / p.L * p.tab_b + static_cast<long long>(clamp_index(p, load_index(p, r))) * p.D;
+    const long long tab = (p.tab_b ? r / p.L * p.tab_b : 0) +
+                          static_cast<long long>(clamp_index(p, load_index(p, r))) * p.D;
     const float* s = p.s + tab;
     const float* t_row = p.t + tab;
     do_row<T, O, W>(
