@@ -204,6 +204,15 @@ def test_rms_norm_launch_refuses_host_tensors(rng_np):
         tfused._rms_norm_launch(x, torch.ones(64), 1e-6)
 
 
+def test_adaln_norm_launch_refuses_host_tensors(rng_np):
+    """K2's launch path has no CPU fallback: a host tensor raises before
+    the library is built."""
+    x = torch.from_numpy(rng_np.standard_normal((1, 3, 64)).astype(np.float32))
+    tab = torch.zeros((1, 1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused._adaln_norm_launch(x, tab, tab, None, 1e-6, 1.0, torch.float32)
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "qkv_views"])
 def test_qk_norm_rope_matches_jax(rng_np, layout):
     """K4's plain version against JAX's qk_norm_rope: contiguous q and k
