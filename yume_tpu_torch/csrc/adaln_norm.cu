@@ -20,8 +20,8 @@
 // output element written once, with a few fp32 operations an element: HBM
 // bandwidth. At the 5B segment's [1, 12095, 3072] bf16 with K = 2 that is
 // 2 x 74.3 MB plus the tables once, 0.044 ms at 3.35 TB/s. A kernel that
-// reads both table rows of its token for every token (PR 1's Triton
-// kernel) also pulls 2 x 12,288 bytes a row out of L2, ~297 MB a call,
+// reads both table rows of its token for every token (the Triton kernel
+// it replaces) also pulls 2 x 12,288 bytes a row out of L2, ~297 MB a call,
 // twice the traffic that sets the bound. Design:
 //  * Staged kernel (every aligned call whose tables and rows fit): one
 //    persistent CTA on each SM. The (gate + scale) and shift rows of every
