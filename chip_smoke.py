@@ -33,7 +33,9 @@ result line:
    over the published peak of their type, whichever is larger), and for
    K1, K6, K7, K8 and K9 the achieved rate and the share of the bound (K6
    equal to its plain version bit for bit, with its pre-pass timed apart; K1 also at the
-   unpacked 121-frame stream's 27,280 tokens; K1's self cases hold out to
+   unpacked 121-frame stream's 27,280 tokens, and there K2 (AdaLN and the
+   Head's fp32 out) and K3 with its K = 31 tables and K4 on its grid RoPE
+   tables, with the share of their bound; K1's self cases hold out to
    two bf16 ulps of the largest |out| and the lse to ``K7_LSE_TOL``, on a
    few heads); then K7's ring invariant
    against K1 and its VJP with an lse cotangent;
@@ -47,7 +49,7 @@ result line:
    against the bf16 Euler run, each above its floor and below 80 dB;
 6. pipeline: a full-width Yume-5B TI2VPipeline with random bf16 weights, a
    seeded 31-frame history at the 44×80 latent grid, captions through the
-   offline tokenizer and umT5-XXL, then two paths, each with the launch
+   offline tokenizer and umT5-XXL, then these paths, each with the launch
    counts set to 0 just before it and read just after:
    a. bf16 Euler ``generate_long`` (4 steps, one caption): K1–K5 must launch;
    b. the headline: the W8A8 DiT sharing the bf16 weights, 50 steps of
@@ -55,7 +57,17 @@ result line:
       K1–K6 must launch; then its first full and cached step once more
       under the profiler (device time and launches by kernel family, copy
       kernels; the trace's K2 and K4 launches must equal the counter's).
-   Each tail video must be finite [1, 29, 704, 1280, 3].
+   Each tail video must be finite [1, 29, 704, 1280, 3]. Then
+   c. the t2v first segment on the same pipeline at ``generate_t2v``'s
+      defaults (121 frames of 1280×704: 31 latent frames, 27,280 unpacked
+      tokens), each path with the counts set to 0 just before it and read
+      just after: 4 bf16 Euler steps (exactly K1 240, K2 364, K3 240, K4
+      120, K5 120 and no K6), ``decode_auto`` of all 31 latent frames
+      (finite [1, 121, 704, 1280, 3]; its time and peak memory),
+      ``generate_long`` continuing those latents with one caption, UniPC
+      with CFG 5.0 over 3 steps (6 forwards, K1 360), and one forward of
+      the W8A8 DiT (K6 180) with its relative L2 from the bf16 forward;
+      then a bf16 and a W8A8 forward under the profiler.
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
    path with the counts set to 0 just before it and read just after:
@@ -113,6 +125,10 @@ TEXT_LEN = 512
 # packed tokens; MVDT at mask ratio 0.30 keeps 1,963 of them
 TRAIN_F_HIST, TRAIN_LFZ, TRAIN_H, TRAIN_W = 9, 8, 22, 40
 TRAIN_L, TRAIN_KEEP = 2805, 1963
+# the t2v first segment at generate_t2v's defaults: 121 frames of 1280×704
+# are 31 latent frames of 44×80, 31×22×40 = 27,280 unpacked tokens
+T2V_FRAMES, T2V_SIZE = 121, (1280, 704)
+T2V_F, T2V_H, T2V_W = 31, 22, 40
 K1_TOL = 2e-2            # bf16 kernel vs fp32 plain, N(0, 1) inputs
 BWD_REL_TOL = 2e-2       # K8/K9: share of the largest plain gradient
 REL_TOL = 2.0 ** -7      # one bf16 ulp of the output magnitude (K2–K6)
@@ -424,9 +440,9 @@ def attention_and_glue_kernels(results, gen):
               lambda: sdpa(q, kc[:, :300], vc[:, :300]), kv_len=kv_len)
     del q, k, v, kc, vc
     # the unpacked 121-frame stream: 31 x 22 x 40 = 27,280 tokens (the first
-    # segment of a t2v rollout, ROADMAP queue 1), held to the plain version
-    # on two heads
-    lu, hs = 31 * 22 * 40, 2
+    # segment of a t2v rollout, phase 6c), held to the plain version on two
+    # heads
+    lu, hs = T2V_F * T2V_H * T2V_W, 2
     q, k, v = _randn(gen, 1, lu, N, D), _randn(gen, 1, lu, N, D), _randn(gen, 1, lu, N, D)
     case = f"self unpacked [1,{lu},24,128]"
     err, tol, lse_err = self_check(case, q, k, v, hs)
@@ -513,22 +529,59 @@ def attention_and_glue_kernels(results, gen):
          lambda: fa.qk_norm_rope(qm_, km_, wq, wk, bcos, bsin, N, eps=1e-6),
          lambda: fa._qk_norm_rope_ref(qm_, km_, wq, wk, bcos, bsin, N, 1e-6),
          None, 4 * nbytes(qm_) + nbytes(wq, wk, bcos, bsin), 2 * 8 * qm_.numel()))
-    for kernel, case, run, plain, lib, n_bytes, ops in glue:
-        want = flat(plain())
-        got = flat(run())
-        bound = bound_ms(n_bytes, ops, "fp32")
-        extra = {"device_ms": round(device_ms(run, reps=20)["all"], 4)}
-        if lib is not None:
-            extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
-        if kernel in ("adaln_norm", "qk_norm_rope"):
-            # K2 and K4: elements that differ from the plain version, and the
-            # share of their bound on the device
-            extra["differing"] = int((got != want).sum().item())
+    def run_glue(cases):
+        for kernel, case, run, plain, lib, n_bytes, ops in cases:
+            want = flat(plain())
+            got = flat(run())
+            bound = bound_ms(n_bytes, ops, "fp32")
+            extra = {"device_ms": round(device_ms(run, reps=20)["all"], 4)}
+            if lib is not None:
+                extra["library_device_ms"] = round(device_ms(lib, reps=20)["all"], 4)
+            # the share of the bound on the device; for K2 and K4 also the
+            # elements that differ from the plain version
             extra["bound_share"] = round(bound[0] / extra["device_ms"], 4)
-        _record(results, kernel, case, max_err(got, want),
-                REL_TOL * want.float().abs().max().item(),
-                median_ms(run, reps=20), median_ms(plain, reps=20), bound,
-                None if lib is None else median_ms(lib, reps=20), **extra)
+            if kernel in ("adaln_norm", "qk_norm_rope"):
+                extra["differing"] = int((got != want).sum().item())
+            _record(results, kernel, case, max_err(got, want),
+                    REL_TOL * want.float().abs().max().item(),
+                    median_ms(run, reps=20), median_ms(plain, reps=20), bound,
+                    None if lib is None else median_ms(lib, reps=20), **extra)
+
+    run_glue(glue)
+    # the unpacked 121-frame stream of the t2v first segment: 27,280 tokens,
+    # one table row per latent frame (K = 31: the two fp32 tables, 761,856
+    # bytes, do not fit K2's shared memory, so K2 takes its row kernel), the
+    # grid RoPE tables one row per token
+    lu, k_u = T2V_F * T2V_H * T2V_W, T2V_F
+    xu, yu = _randn(gen, 1, lu, DIM), _randn(gen, 1, lu, DIM)
+    s_u = _randn(gen, 1, k_u, DIM, dtype=torch.float32, scale=0.1)
+    t_u = _randn(gen, 1, k_u, DIM, dtype=torch.float32, scale=0.1)
+    idx_u = torch.arange(k_u, dtype=torch.int32, device="cuda").repeat_interleave(
+        T2V_H * T2V_W)[None]
+    cos_u, sin_u = (torch.from_numpy(t).cuda()
+                    for t in rope.grid_rope(T2V_F, T2V_H, T2V_W, D))
+    require(cos_u.shape == (lu, D // 2), f"grid RoPE tables {tuple(cos_u.shape)}")
+    act_u, elems_u = nbytes(xu), xu.numel()
+    tabs_u = nbytes(s_u, t_u, idx_u)
+    shape_u = f"[1,{lu},3072]"
+    run_glue([
+        ("adaln_norm", f"AdaLN unpacked {shape_u} K={k_u}",
+         lambda: fa.adaln_norm(xu, s_u, t_u, idx_u),
+         lambda: fa._adaln_norm_ref(xu, s_u, t_u, idx_u, 1e-6, 1.0, torch.bfloat16),
+         None, 2 * act_u + tabs_u, 8 * elems_u),
+        ("adaln_norm", f"head fp32 out unpacked K={k_u}",
+         lambda: fa.adaln_norm(xu, s_u, t_u, idx_u, out_dtype=torch.float32),
+         lambda: fa._adaln_norm_ref(xu, s_u, t_u, idx_u, 1e-6, 1.0, torch.float32),
+         None, 3 * act_u + tabs_u, 8 * elems_u),
+        ("adaln_residual", f"residual unpacked K={k_u}",
+         lambda: fa.adaln_residual(xu, yu, s_u, idx_u),
+         lambda: fa._adaln_residual_ref(xu, yu, s_u, idx_u),
+         None, 3 * act_u + nbytes(s_u, idx_u), 2 * elems_u),
+        ("qk_norm_rope", f"q and k, grid RoPE [{lu},64]",
+         lambda: fa.qk_norm_rope(xu, yu, wq, wk, cos_u, sin_u, N, eps=1e-6),
+         lambda: fa._qk_norm_rope_ref(xu, yu, wq, wk, cos_u, sin_u, N, 1e-6),
+         None, 4 * act_u + nbytes(wq, wk, cos_u, sin_u), 2 * 8 * elems_u),
+    ])
 
 
 def flash_backward_kernels(results, gen):
@@ -1048,7 +1101,7 @@ def pipeline_phase(counters):
         f"{n_vae / 1e6:.1f}M params; {torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
 
     times = {"t5": [], "dit_step": [], "decode": [], "full_step": [],
-             "cached_step": [], "headline_decode": []}
+             "cached_step": [], "headline_decode": [], "t2v_step": [], "t2v_cfg_forward": []}
     step_launches, step_calls = {}, {}
 
     def timed(name, fn):
@@ -1087,10 +1140,10 @@ def pipeline_phase(counters):
     gen = torch.Generator(device="cuda").manual_seed(2)
     history = torch.randn((1, 31, 44, 80, cfg.dit.in_dim), generator=gen, device="cuda")
 
-    def check_tail(name, latents, n_frames, video):
+    def check_tail(name, latents, n_frames, video, hist=history):
         require(latents.shape == (1, n_frames, 44, 80, 48), f"{name}: latents {latents.shape}")
         require(torch.isfinite(latents).all().item(), f"{name}: non-finite latents")
-        require(torch.equal(latents[:, :31], history), f"{name}: history frames changed")
+        require(torch.equal(latents[:, :31], hist), f"{name}: history frames changed")
         finite = torch.isfinite(video).all().item()
         log(f"  {name} tail video: shape {list(video.shape)} {video.dtype} finite {finite} "
             f"range [{video.min().item():.3f}, {video.max().item():.3f}]")
@@ -1185,7 +1238,147 @@ def pipeline_phase(counters):
             require(trace["launches"][family] == step_launches[kind][counter],
                     f"{kind}: the trace shows {trace['launches'][family]} {family} "
                     f"kernels, the counter {step_launches[kind][counter]}")
-    return launches, euler_launches
+    del w8.dit.forward, w8.decode_auto, pipe.dit.forward, pipe.decode_auto
+    t2v_launches = t2v_phase(pipe, w8, encode, tok, counters, timed, times, read_counts,
+                             check_tail)
+    return launches, euler_launches, t2v_launches
+
+
+def t2v_phase(pipe, w8, encode, tok, counters, timed, times, read_counts, check_tail):
+    """Phase 6c: the t2v first segment on the resident 5B pipeline at
+    ``generate_t2v``'s defaults (121 frames of 1280×704: 31 latent frames,
+    27,280 unpacked tokens), each path with the launch counts set to 0 just
+    before it and read just after. Returns each path's launches."""
+    cfg = pipe.config
+    n = cfg.dit.num_layers
+    # a bf16 forward: 30 x (self + cross) K1, 3 x 30 + 1 K2, 2 x 30 K3, 30 K4
+    # and 30 K5, no K6; the W8A8 one adds 6 x 30 K6
+    per_forward = {"flash_attention": 2 * n, "adaln_norm": 3 * n + 1,
+                   "adaln_residual": 2 * n, "qk_norm_rope": n, "rms_norm": n,
+                   "q8_dot": 0}
+
+    def expect(path, launches, forwards, **extra):
+        want = {k: v * forwards for k, v in {**per_forward, **extra}.items()}
+        wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        require(not wrong, f"{path}: launches (counted, expected) {wrong}")
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    pipe.dit.forward = timed("t2v_step", pipe.dit.forward)
+    ctx = encode(*tok(CAPTIONS[:1]))
+    (w, h), s = T2V_SIZE, cfg.vae.stride
+    f_lat = (T2V_FRAMES - 1) // s[0] + 1
+    lat_shape = (1, f_lat, h // s[1], w // s[2], cfg.vae.z_dim)
+    require(f_lat * (lat_shape[2] // 2) * (lat_shape[3] // 2) == T2V_F * T2V_H * T2V_W,
+            f"t2v token count for latents {lat_shape}")
+    stages, out = {}, {}
+
+    # 1. bf16 Euler, 4 steps
+    zero_counts()
+    t0 = time.perf_counter()
+    latents = pipe.generate_t2v(ctx, steps=4, solver="euler", return_latents=True)
+    torch.cuda.synchronize()
+    stages["euler 4 steps"] = time.perf_counter() - t0
+    out["t2v euler"] = read_counts("t2v euler", [])
+    expect("t2v euler", out["t2v euler"], 4)
+    require(tuple(latents.shape) == lat_shape and latents.dtype == torch.float32
+            and torch.isfinite(latents).all().item(),
+            f"t2v latents {tuple(latents.shape)} {latents.dtype}")
+    log(f"  t2v euler: 4 steps at {T2V_F * T2V_H * T2V_W} tokens, wall "
+        f"{stages['euler 4 steps']:.3f} s, DiT step median "
+        f"{statistics.median(times['t2v_step']) * 1e3:.1f} ms, all "
+        f"{[round(t * 1e3, 1) for t in times['t2v_step']]}, peak device memory "
+        f"{peak():.2f} GiB")
+    del pipe.dit.forward
+
+    # 2. decode_auto of all 31 latent frames (untiled, 2-frame chunks)
+    zero_counts()
+    t0 = time.perf_counter()
+    video = pipe.decode_auto(latents)
+    torch.cuda.synchronize()
+    stages["decode 31 frames"] = time.perf_counter() - t0
+    finite = torch.isfinite(video).all().item()
+    decode_peak = peak()
+    log(f"  t2v decode: shape {list(video.shape)} {video.dtype} finite {finite}, wall "
+        f"{stages['decode 31 frames']:.3f} s, peak device memory {decode_peak:.2f} GiB "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB held after)")
+    require(tuple(video.shape) == (1, T2V_FRAMES, h, w, 3) and finite,
+            f"t2v video shape {tuple(video.shape)}, finite {finite}")
+    del video
+
+    # 3. the webapp's rollout: one caption continued from the t2v latents
+    zero_counts()
+    t0 = time.perf_counter()
+    grown, videos = pipe.generate_long([ctx], latents, steps=4)
+    torch.cuda.synchronize()
+    stages["generate_long 1 segment"] = time.perf_counter() - t0
+    out["t2v rollout"] = read_counts("t2v rollout", [c.__name__ for c in counters
+                                                     if c.__name__ in per_forward
+                                                     and c.__name__ != "q8_dot"])
+    check_tail("t2v rollout", grown, f_lat + cfg.latent_frame_zero, videos[0], latents)
+    log(f"  t2v rollout: generate_long, 4 steps, wall "
+        f"{stages['generate_long 1 segment']:.3f} s, peak device memory {peak():.2f} GiB")
+    del grown, videos
+
+    # 4. UniPC with CFG: 3 steps of a cond and an uncond forward
+    ctx_null = encode(*tok([""]))
+    pipe.dit.forward = timed("t2v_cfg_forward", pipe.dit.forward)
+    zero_counts()
+    t0 = time.perf_counter()
+    cfg_latents = pipe.generate_t2v(ctx, steps=3, solver="unipc", ctx_null=ctx_null,
+                                    guide_scale=5.0, return_latents=True)
+    torch.cuda.synchronize()
+    stages["unipc cfg 3 steps"] = time.perf_counter() - t0
+    out["t2v unipc cfg"] = read_counts("t2v unipc cfg", [])
+    expect("t2v unipc cfg", out["t2v unipc cfg"], 6)
+    require(tuple(cfg_latents.shape) == lat_shape and torch.isfinite(cfg_latents).all().item(),
+            "t2v unipc cfg: latents not finite")
+    log(f"  t2v unipc + CFG 5.0: 3 steps, {len(times['t2v_cfg_forward'])} forwards, wall "
+        f"{stages['unipc cfg 3 steps']:.3f} s, forward median "
+        f"{statistics.median(times['t2v_cfg_forward']) * 1e3:.1f} ms, peak device memory "
+        f"{peak():.2f} GiB")
+    del cfg_latents
+    del pipe.dit.forward
+
+    # 5. one W8A8 forward at 27,280 tokens against the bf16 one
+    x = latents.to(torch.bfloat16)
+    t_frame = torch.full((1, f_lat), 500.0, device=x.device)
+    with torch.no_grad():
+        ref = pipe.dit(x, t_frame, ctx, packed=False)
+        w8.dit(x, t_frame, ctx, packed=False)  # warm-up
+        zero_counts()
+        t0 = time.perf_counter()
+        got = w8.dit(x, t_frame, ctx, packed=False)
+        torch.cuda.synchronize()
+    stages["w8a8 forward"] = time.perf_counter() - t0
+    out["t2v w8a8 forward"] = read_counts("t2v w8a8 forward", [])
+    expect("t2v w8a8 forward", out["t2v w8a8 forward"], 1, q8_dot=6 * n)
+    rel = ((got - ref).norm() / ref.norm()).item()
+    require(math.isfinite(rel) and torch.isfinite(got).all().item(),
+            "t2v w8a8 forward: not finite")
+    log(f"  t2v w8a8 forward: {stages['w8a8 forward'] * 1e3:.1f} ms, relative L2 from the "
+        f"bf16 forward {rel:.4e}, peak device memory {peak():.2f} GiB")
+    # one bf16 and one W8A8 forward under the profiler: device time by kernel
+    # family; the traces must show the counted K2 and K4 launches
+    with torch.no_grad():
+        for what, dit in (("t2v bf16 step", pipe.dit), ("t2v w8a8 forward", w8.dit)):
+            trace = device_breakdown(what, lambda: dit(x, t_frame, ctx, packed=False),
+                                     ranges_named=(), rest="dit_forward")
+            for family, want in (("K2 adaln_norm", 3 * n + 1), ("K4 qk_norm_rope", n)):
+                require(trace["launches"][family] == want,
+                        f"{what}: the trace shows {trace['launches'][family]} {family} "
+                        f"kernels, not {want}")
+    for name, t in stages.items():
+        log(f"  t2v stage {name:<24} {t:8.3f} s")
+    del x, t_frame, ref, got, latents
+    return out
 
 
 # kernel families of a device trace, by kernel name (first match wins)
@@ -1815,7 +2008,7 @@ def main() -> int:
     counters = [flash_attention, fa.adaln_norm, fa.adaln_residual, fa.qk_norm_rope,
                 fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv,
                 fl.flash_attention_partial, ba.bias_act]
-    launches, euler_launches = pipeline_phase(counters)
+    launches, euler_launches, t2v_launches = pipeline_phase(counters)
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
     sp = sp_phase()
@@ -1835,7 +2028,12 @@ def main() -> int:
                  "bound_ms": head["bound_ms"],
                  "bound_by": r["cases"][0]["bound_by"],
                  "library_ms": head["library_ms"], "cases": r["cases"],
-                 "launches_train_distill": train_runs["distill"]["launches"][key]}
+                 "launches_train_distill": train_runs["distill"]["launches"][key],
+                 # phase 6c: the t2v first segment (4 Euler steps at 27,280
+                 # tokens), its rollout, UniPC with CFG, one W8A8 forward
+                 "launches_t2v_path": t2v_launches["t2v euler"][key],
+                 **{f"launches_{p.replace(' ', '_')}": t2v_launches[p][key]
+                    for p in ("t2v rollout", "t2v unipc cfg", "t2v w8a8 forward")}}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],

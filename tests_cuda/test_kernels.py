@@ -14,7 +14,7 @@ odd L and L = 0, the 14B width and D = 16,384, head dims whose cos/sin
 index is or is not constant per lane, and every dtype. K2 (adaln_norm)
 at the 14B width, with staged and unstaged tables (per-batch, a large K),
 rows of mean 100, every admitted dtype pair, misaligned rows, odd D and
-L = 0.
+L = 0, and the unpacked t2v stream's K = 31 tables for K2 and K3.
 
 Tolerances: flash attention 2e-2 max-abs for N(0, 1) bf16 inputs against
 the fp32 plain version; the glue kernels one bf16 ulp of the output
@@ -274,6 +274,10 @@ K2_CASES = [
     (2, 0, 3072, 2, False, torch.bfloat16, torch.bfloat16, 0.0),    # no token
     (1, 1, 3072, 2, False, torch.bfloat16, torch.bfloat16, 0.0),
     (1, 5, 16384, 1, False, torch.bfloat16, torch.bfloat16, 0.0),   # rows too wide to stage
+    # the unpacked t2v stream: 3 frames of 22 x 40 tokens, K = 31 table rows
+    # (too many to stage: the row kernel), the AdaLN and the Head's fp32 out
+    (1, 3 * 880, 3072, 31, False, torch.bfloat16, torch.bfloat16, 0.0),
+    (1, 3 * 880, 3072, 31, False, torch.bfloat16, torch.float32, 0.0),
 ]
 
 
@@ -315,10 +319,13 @@ def test_adaln_norm_refuses_dtype_pairs(gen):
             fa.adaln_norm(_randn(gen, 1, 4, 64, dtype=dtype), s, s, None, out_dtype=out_dtype)
 
 
-def test_adaln_residual_batched_tables(gen):
-    b, l, d, k = 2, 50, 3072, 2
+@pytest.mark.parametrize("b,l,d,k,per_batch", [
+    (2, 50, 3072, 2, True),
+    (1, 3 * 880, 3072, 31, False),  # the unpacked t2v stream: K = 31, 3 frames of 22 x 40
+])
+def test_adaln_residual_batched_tables(gen, b, l, d, k, per_batch):
     x, y = _randn(gen, b, l, d), _randn(gen, b, l, d)
-    s = _randn(gen, b, k, d, dtype=torch.float32, scale=0.1)
+    s = _randn(gen, b if per_batch else 1, k, d, dtype=torch.float32, scale=0.1)
     idx = torch.randint(0, k, (b, l), generator=gen, device="cuda", dtype=torch.int32)
     _glue_check(fa.adaln_residual(x, y, s, idx), fa._adaln_residual_ref(x, y, s, idx))
     _glue_check(fa.adaln_residual(x, y, s[:1], None), fa._adaln_residual_ref(x, y, s[:1], None))

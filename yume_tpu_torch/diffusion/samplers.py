@@ -1,4 +1,5 @@
-"""Euler segment samplers (counterpart of yume_tpu/diffusion/samplers.py):
+"""Euler samplers (counterpart of yume_tpu/diffusion/samplers.py):
+``euler_sample`` over every frame (the t2v first segment),
 ``euler_sample_segment`` and the TeaCache variants
 ``euler_sample_segment_cached`` (fixed refresh interval) and
 ``euler_sample_segment_cached_adaptive`` (refresh on accumulated rel-L1
@@ -42,6 +43,26 @@ def _euler_tail(latent, v, s_i, s_n, latent_frame_zero):
     dt = float(np.float32(s_n) - np.float32(s_i))
     tail = latent[:, -latent_frame_zero:] + dt * v[:, -latent_frame_zero:]
     return torch.cat([latent[:, :f_hist], tail], dim=1)
+
+
+@torch.no_grad()
+def euler_sample(denoise_fn: DenoiseFn, noise: torch.Tensor, sigmas: np.ndarray) -> torch.Tensor:
+    """Plain Euler flow integration over all frames (the 5B t2v first
+    segment: one timestep σ_i·1000 for every frame, no CFG).
+
+    noise: [B, F, H, W, C], integrated in its own dtype (fp32 from the
+    pipeline); sigmas: [steps+1] descending to 0; ``denoise_fn(latent,
+    t_frame)`` returns the velocity of every frame.
+    """
+    b, f = noise.shape[:2]
+    sig = np.asarray(sigmas, np.float32)
+    latent = noise
+    for i in range(len(sig) - 1):
+        t_frame = torch.full((b, f), float(sig[i] * np.float32(1000.0)),
+                             dtype=torch.float32, device=noise.device)
+        v = denoise_fn(latent, t_frame)
+        latent = latent + float(sig[i + 1] - sig[i]) * v
+    return latent
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""Wan DiT backbone (5B ti2v, FramePack-packed forward) in PyTorch
-(counterpart of yume_tpu/models/dit.py).
+"""Wan DiT backbone (5B ti2v: FramePack-packed and unpacked forwards) in
+PyTorch (counterpart of yume_tpu/models/dit.py).
 
 Module and parameter names follow the reference torch ``WanModel``
 (``blocks.{i}.self_attn.q``, ``time_projection.1``, ``head.head`` ...), so a
@@ -47,8 +47,10 @@ rank shards the tokens (:mod:`..parallel.sp_forward`); ``attn_fn`` replaces
 the blocks' self-attention, while the cross-attention stays local against
 the replicated text, as in the reference.
 
-Ported: the FramePack-packed forward (``_forward_packed``) and MVDT. Not
-ported yet: ``_forward_unpacked`` and the 14B branch.
+Ported: the FramePack-packed forward (``_forward_packed``), the unpacked
+forward over every frame at full resolution (``_forward_unpacked``, the t2v
+first segment: one AdaLN table row per latent frame, grid RoPE) and MVDT.
+Not ported yet: the 14B branch.
 """
 
 from __future__ import annotations
@@ -410,7 +412,7 @@ def packed_token_count(f_hist: int, latent_frame_zero: int, h_lat: int, w_lat: i
 
 
 class WanDiT(nn.Module):
-    """Wan diffusion transformer, FramePack-packed call mode.
+    """Wan diffusion transformer: FramePack-packed and unpacked call modes.
 
     ``dtype`` is the compute dtype of the matmul paths (bf16 on the card);
     ``param_dtype`` the storage dtype of the parameters. ``remat``
@@ -574,18 +576,22 @@ class WanDiT(nn.Module):
                 mvdt_noise=None, mvdt_keep: Optional[int] = None,
                 block_cache: Optional[List[torch.Tensor]] = None,
                 cache_list: Tuple[int, ...] = (), return_cache: bool = False):
-        """Velocity for the trailing ``latent_frame_zero`` frames.
+        """Velocity for the trailing ``latent_frame_zero`` frames (packed),
+        or for every frame (``packed=False``: all frames at full
+        resolution, no FramePack history).
 
         x: [B, F, H, W, C_in] channels-last latents; t_frame: [B, F]
         per-frame timesteps (0..1000); context: [B, text_len, text_dim].
-        Returns [B, latent_frame_zero, H, W, C_out] in fp32, and with
+        Returns [B, latent_frame_zero, H, W, C_out] ([B, F, H, W, C_out]
+        unpacked) in fp32, and with
         ``return_cache`` also the residuals of the ``cache_list`` blocks;
         ``block_cache`` skips those blocks (see :meth:`_trunk`).
         ``mvdt_noise`` ([B, L] uniform noise or a ``torch.Generator``) with
         ``mvdt_keep`` runs the MVDT masked pass on ``mvdt_keep`` of the L
-        packed tokens (see :meth:`_maybe_mask`)."""
+        tokens (see :meth:`_maybe_mask`)."""
         if not packed:
-            raise NotImplementedError("the unpacked forward is not ported yet")
+            return self._forward_unpacked(x, t_frame, context, mvdt_noise, mvdt_keep,
+                                          block_cache, cache_list, return_cache)
         return self._forward_packed(x, t_frame, context, latent_frame_zero,
                                     mvdt_noise, mvdt_keep, block_cache,
                                     cache_list, return_cache)
@@ -600,6 +606,17 @@ class WanDiT(nn.Module):
                               cache_list=cache_list, return_cache=return_cache)
         out, new_cache = out if return_cache else (out, None)
         out = self._unpatchify(out[:, emb["l_hist"]:], emb["tail_grid"])
+        return (out, new_cache) if return_cache else out
+
+    def _forward_unpacked(self, x, t_frame, context, mvdt_noise=None, mvdt_keep=None,
+                          block_cache=None, cache_list=(), return_cache=False):
+        emb = self.embed_unpacked(x, t_frame, context)
+        out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
+                              emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
+                              mvdt_keep=mvdt_keep, block_cache=block_cache,
+                              cache_list=cache_list, return_cache=return_cache)
+        out, new_cache = out if return_cache else (out, None)
+        out = self._unpatchify(out, emb["tail_grid"])
         return (out, new_cache) if return_cache else out
 
     # -- token-level entry points for sequence parallelism --------------------
@@ -643,6 +660,26 @@ class WanDiT(nn.Module):
                     cos=torch.from_numpy(cos).to(x.device),
                     sin=torch.from_numpy(sin).to(x.device),
                     l_hist=l_hist, tail_grid=tail_grid)
+
+    def embed_unpacked(self, x, t_frame, context):
+        """Embedding and conditioning of the unpacked forward, with the keys
+        of :meth:`embed_packed`: every frame's tokens at full resolution
+        [B, L, dim], ``t_values`` = ``t_frame`` [B, F] in fp32 (one table
+        row per latent frame, K = F, equal values included), ``idx`` [B, L]
+        the latent frame of each token, the grid RoPE tables [L, D/2],
+        ``l_hist`` 0 and the token grid as ``tail_grid``."""
+        c = self.cfg
+        b, f = x.shape[:2]
+        tokens, (gf, gh, gw) = self._embed_chunk(x.to(self.dtype), 1, False)
+        l = tokens.shape[1]
+        idx = torch.arange(f, dtype=torch.int32, device=x.device).repeat_interleave(gh * gw)
+        cos, sin = rope_lib.grid_rope(gf, gh, gw, c.head_dim, max_len=c.rope_max_len,
+                                      theta=c.rope_theta)
+        return dict(tokens=tokens, t_values=t_frame.float(),
+                    idx=idx[None, :].expand(b, l).contiguous(), ctx=self._context(context),
+                    cos=torch.from_numpy(cos).to(x.device),
+                    sin=torch.from_numpy(sin).to(x.device),
+                    l_hist=0, tail_grid=(gf, gh, gw))
 
     def trunk_head(self, tokens, t_values, idx, ctx, cos, sin, *, attn_fn=None,
                    kv_len=None, mvdt_noise=None, mvdt_keep=None, block_cache=None,

@@ -1,27 +1,35 @@
 """Yume-1.5 (Wan2.2-TI2V-5B) generation pipeline in PyTorch (counterpart of
 yume_tpu/pipelines/ti2v.py).
 
-One request is one autoregressive continuation segment: the umT5 prompt
-encode (:meth:`TI2VPipeline.encode_text`), a segment sampler over the
+A rollout starts from a prompt with the text-to-video first segment
+(:meth:`TI2VPipeline.generate_t2v`: every latent frame at full resolution
+through the unpacked DiT). Each later request is one autoregressive
+continuation segment: the umT5 prompt encode
+(:meth:`TI2VPipeline.encode_text`), a segment sampler over the
 FramePack-packed DiT (:meth:`TI2VPipeline.generate_segment`) and the
 streaming VAE decode of the new tail (:meth:`TI2VPipeline.decode_auto`).
 :meth:`TI2VPipeline.generate_long` runs one segment per caption.
 
-Ported: the ``sampler="euler"`` and ``sampler="teacache"`` paths (fixed
-interval and adaptive threshold), and W8A8 through ``config.dit.w8a8``
-(:meth:`TI2VPipeline.with_w8a8` builds it on the same DiT parameters). Not
-ported yet: the TTS samplers (``sde``, ``time_travel``), t2v/i2v entry
-points, the VAE encode, tiled decode.
+Ported: ``generate_t2v`` with Euler (the 5B t2v path), UniPC of order 2 and
+3 and DPM++2M, the multistep solvers with classifier-free guidance
+(``ctx_null``); ``generate_t2v_dmd``, the distillation teacher's cond-only
+rollout; the segment samplers ``euler`` and ``teacache`` (fixed interval
+and adaptive threshold); and W8A8 through ``config.dit.w8a8``
+(:meth:`TI2VPipeline.with_w8a8` builds it on the same DiT parameters), in
+both forwards. Not ported yet: the TTS samplers (``sde``,
+``time_travel``), ``progress_cb``, the i2v entry points, the VAE encode,
+tiled decode.
 
 Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
 ``sp_groups`` set, the pipeline is one rank of a run in which every rank
 holds the whole model and calls :meth:`TI2VPipeline.generate_segment` with
-the same arguments; each DiT forward shards its tokens over the group
-(:func:`..parallel.sp_forward.sp_dit_forward`, kind ``sp_kind``) and every
-rank gets the same latents. W8A8 composes: each rank quantizes its own
-tokens. TeaCache's residual cache stays on each rank's tokens, and the
-adaptive refresh decision is rank 0's on every rank, so the ranks always
-run the same collectives.
+the same arguments; each DiT forward of a segment shards its tokens over
+the group (:func:`..parallel.sp_forward.sp_dit_forward`, kind ``sp_kind``)
+and every rank gets the same latents. The t2v first segment runs unsharded
+on every rank, as the JAX pipeline runs it outside its mesh. W8A8
+composes: each rank quantizes its own tokens. TeaCache's residual cache
+stays on each rank's tokens, and the adaptive refresh decision is rank 0's
+on every rank, so the ranks always run the same collectives.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ import torch
 from torch import nn
 
 from ..configs import PipelineConfig
-from ..diffusion import samplers
-from ..diffusion.schedule import sampling_sigmas
+from ..diffusion import multistep, samplers
+from ..diffusion.schedule import sampling_sigmas, unipc_sigmas
 from ..models.dit import WanDiT
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode
@@ -48,6 +56,8 @@ from ..utils.convert import load_state_dict
 # the samplers whose every DiT call goes through _dit (and so through the
 # sequence-parallel forward when sp_groups is set)
 _SP_SAMPLERS = ("euler", "teacache")
+# generate_t2v's solvers; the UniPC ones with their order
+_T2V_SOLVERS = {"euler": None, "dpmpp": None, "unipc": 2, "unipc3": 3}
 
 
 def _materialize(factory: Callable[..., nn.Module], device) -> nn.Module:
@@ -264,6 +274,130 @@ class TI2VPipeline:
         return samplers.euler_sample_segment(
             lambda lat, t_frame: self._pad_v(lat, self._dit(lat, t_frame, ctx)), latent,
             sampling_sigmas(steps, shift), lfz, history_t=history_t)
+
+    # -- text to video: the first segment ------------------------------------
+
+    def _t2v_dit(self, params) -> WanDiT:
+        """The DiT a t2v rollout runs: this pipeline's, or ``params`` (a
+        :class:`WanDiT`, e.g. a distillation teacher)."""
+        if params is None:
+            return self.dit
+        if isinstance(params, WanDiT):
+            return params
+        if isinstance(params, tuple):
+            raise NotImplementedError(
+                "not ported yet: a quantized (int8/int4) DiT trunk comes with the "
+                "14B modules (ROADMAP queue 1, item 6)")
+        raise NotImplementedError(
+            f"not ported yet: DiT parameters of type {type(params).__name__}; pass a "
+            "WanDiT (pipeline-parallel staging, the reference's PPParams, is "
+            "ROADMAP queue 1, item 8)")
+
+    @staticmethod
+    def _unpacked_fn(dit: WanDiT):
+        """The unpacked forward on a bf16 latent (as the reference feeds the
+        DiT), its velocity cast back to the latent's dtype (fp32)."""
+        def fwd(x, t_frame, ctx):
+            return dit(x.to(torch.bfloat16), t_frame, ctx, packed=False).to(x.dtype)
+        return fwd
+
+    def _sample_t2v(self, dit, noise, ctx, steps, shift):
+        fwd = self._unpacked_fn(dit)
+        return samplers.euler_sample(lambda lat, t_frame: fwd(lat, t_frame, ctx), noise,
+                                     sampling_sigmas(steps, shift))
+
+    def _sample_t2v_multistep(self, dit, noise, ctx, ctx_null, steps, shift, solver,
+                              guide_scale):
+        """The stock multistep t2v loop (reference WanT2V.generate,
+        wan/text2video.py:110-267): UniPC or DPM++, with CFG when
+        ``ctx_null`` is given: cond and uncond as two forwards of the
+        latent's batch, blended in fp32."""
+        fwd = self._unpacked_fn(dit)
+        b, f = noise.shape[:2]
+
+        def model(x, sigma):
+            t_frame = (sigma[:, None] * 1000.0).expand(b, f)
+            v = fwd(x, t_frame, ctx)
+            if ctx_null is not None:
+                v_u = fwd(x, t_frame, ctx_null)
+                v = v_u + guide_scale * (v - v_u)
+            return v
+
+        if solver == "dpmpp":
+            return multistep.sample_dpmpp_2m(model, noise, sampling_sigmas(steps, shift))
+        # UniPC: the scheduler's own ladder (σ_max = 1 − 1/N)
+        return multistep.sample_unipc(model, noise, unipc_sigmas(steps, shift),
+                                      order=_T2V_SOLVERS[solver])
+
+    def _t2v(self, dit, ctx, size, frame_num, steps, shift, seed, solver, ctx_null,
+             guide_scale, return_latents, noise):
+        if solver not in _T2V_SOLVERS:
+            raise ValueError(f"solver must be one of {sorted(_T2V_SOLVERS)}, got {solver!r}")
+        cfgv = self.config.vae
+        f_lat = (frame_num - 1) // cfgv.stride[0] + 1
+        h_lat, w_lat = size[1] // cfgv.stride[1], size[0] // cfgv.stride[2]
+        if noise is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            noise = torch.randn((ctx.shape[0], f_lat, h_lat, w_lat, cfgv.z_dim),
+                                generator=gen, device=self.device, dtype=torch.float32)
+        if solver == "euler":
+            latent = self._sample_t2v(dit, noise, ctx, steps, shift)
+        else:
+            latent = self._sample_t2v_multistep(dit, noise, ctx, ctx_null, steps, shift,
+                                                solver, guide_scale)
+        return latent if return_latents else self.decode_auto(latent)
+
+    @torch.no_grad()
+    def generate_t2v(
+        self,
+        ctx: torch.Tensor,
+        *,
+        size: Tuple[int, int] = (1280, 704),
+        frame_num: int = 121,
+        steps: int = 50,
+        shift: Optional[float] = None,
+        seed: int = 0,
+        solver: str = "euler",
+        ctx_null: Optional[torch.Tensor] = None,
+        guide_scale: float = 5.0,
+        return_latents: bool = False,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Text to video, the first segment of a rollout: ``frame_num``
+        frames of ``size`` (width, height), every latent frame denoised at
+        full resolution by the unpacked DiT. ``solver='euler'`` is the 5B
+        t2v path (no CFG); 'unipc', 'unipc3' (order 3) and 'dpmpp' are the
+        stock Wan T2V multistep loop, with CFG at ``guide_scale`` when
+        ``ctx_null`` is given. ``noise`` [B, F_lat, H_lat, W_lat, z]
+        overrides the seeded fp32 noise. Returns the latents
+        (``return_latents``, the history :meth:`generate_segment` continues)
+        or the video [B, frame_num, H, W, 3] in [-1, 1]."""
+        shift = self.config.sample_shift if shift is None else shift
+        return self._t2v(self.dit, ctx, size, frame_num, steps, shift, seed, solver,
+                         ctx_null, guide_scale, return_latents, noise)
+
+    @torch.no_grad()
+    def generate_t2v_dmd(
+        self,
+        ctx: torch.Tensor,
+        *,
+        teacher_params: Optional[WanDiT] = None,
+        size: Tuple[int, int] = (1280, 704),
+        frame_num: int = 81,
+        steps: int = 8,
+        shift: float = 5.0,
+        solver: str = "unipc",
+        seed: int = 0,
+        noise: Optional[torch.Tensor] = None,
+        return_latents: bool = True,
+    ) -> torch.Tensor:
+        """DMD teacher rollout (reference ``t2v_dmd``,
+        wan23/textimage2video.py:519-653): a cond-only few-step trajectory
+        (guidance baked into the teacher) on ``teacher_params``, a
+        :class:`WanDiT` (this pipeline's DiT when None). Returns latents by
+        default (distillation targets)."""
+        return self._t2v(self._t2v_dit(teacher_params), ctx, size, frame_num, steps,
+                         shift, seed, solver, None, 1.0, return_latents, noise)
 
     @torch.no_grad()
     def decode_auto(self, z: torch.Tensor) -> torch.Tensor:
