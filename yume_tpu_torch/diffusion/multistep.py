@@ -115,13 +115,13 @@ def _np_lam(s: float) -> float:
         return float(np.log(1.0 - s) - np.log(s))
 
 
-def _unipc_coeffs(s0: float, st: float, hist_sigmas, order: int, solver_type: str):
-    """B(h)-series coefficients for one UniP/UniC update, float64 numpy.
-    Mirrors fm_solvers_unipc.py:416-452/575-599 with predict_x0=True."""
+def _unipc_coeffs(s0: float, st: float, hist_sigmas, order: int):
+    """B(h)-series coefficients for one UniP/UniC update (bh2), float64
+    numpy. Mirrors fm_solvers_unipc.py:416-452/575-599 with predict_x0=True."""
     h = _np_lam(st) - _np_lam(s0)
     hh = -h
     h_phi_1 = np.expm1(hh)
-    B_h = np.expm1(hh) if solver_type == "bh2" else hh
+    B_h = h_phi_1  # bh2
     rks = [(_np_lam(si) - _np_lam(s0)) / h for si in hist_sigmas] + [1.0]
     rks = np.asarray(rks, np.float64)
     R, b = [], []
@@ -135,14 +135,15 @@ def _unipc_coeffs(s0: float, st: float, hist_sigmas, order: int, solver_type: st
     return float(h_phi_1), float(B_h), rks, np.stack(R), np.asarray(b)
 
 
-def _unipc_tables(sig, order, solver_type, lower_order_final, use_corrector):
+def _unipc_tables(sig, order):
     """Per-step coefficient tables of the UniP/UniC recurrence (float64),
-    from the static ladder: order warm-up and lower-order-final included.
-    Unused history slots hold zero coefficients."""
+    from the static ladder: the corrector from the second step, order
+    warm-up and lower-order-final. Unused history slots hold zero
+    coefficients."""
     n_steps = len(sig) - 1
     K = max(order - 1, 1)
     tab = {k: np.zeros(n_steps) for k in
-           ("s0", "use_c", "c_ratio", "c_ah", "c_last", "p_ratio", "p_ah")}
+           ("s0", "c_ratio", "c_ah", "c_last", "p_ratio", "p_ah")}
     tab["c_hist"] = np.zeros((n_steps, K))
     tab["p_hist"] = np.zeros((n_steps, K))
     out_sigmas: list = []
@@ -151,14 +152,13 @@ def _unipc_tables(sig, order, solver_type, lower_order_final, use_corrector):
     for i in range(n_steps):
         s0, st_next = sig[i], sig[i + 1]
         tab["s0"][i] = s0
-        if use_corrector and i > 0:
+        if i > 0:
             oc = prev_order
             ss0 = sig[i - 1]
             hist = [out_sigmas[-(j + 1)] for j in range(1, oc)]
-            h_phi_1, B_h, rks, R, bvec = _unipc_coeffs(ss0, s0, hist, oc, solver_type)
+            h_phi_1, B_h, rks, R, bvec = _unipc_coeffs(ss0, s0, hist, oc)
             rhos_c = np.asarray([0.5]) if oc == 1 else np.linalg.solve(R, bvec)
             alpha_t = 1.0 - s0
-            tab["use_c"][i] = 1.0
             tab["c_ratio"][i] = s0 / ss0
             tab["c_ah"][i] = alpha_t * h_phi_1
             for j in range(1, oc):
@@ -167,10 +167,9 @@ def _unipc_tables(sig, order, solver_type, lower_order_final, use_corrector):
         out_sigmas.append(s0)
         if len(out_sigmas) > order:
             out_sigmas.pop(0)
-        this_order = min(order, n_steps - i) if lower_order_final else order
-        this_order = min(this_order, lower_order_nums + 1)
+        this_order = min(order, n_steps - i, lower_order_nums + 1)
         hist = [out_sigmas[-(j + 1)] for j in range(1, this_order)]
-        h_phi_1, B_h, rks, R, bvec = _unipc_coeffs(s0, st_next, hist, this_order, solver_type)
+        h_phi_1, B_h, rks, R, bvec = _unipc_coeffs(s0, st_next, hist, this_order)
         alpha_t = 1.0 - st_next
         tab["p_ratio"][i] = st_next / s0
         tab["p_ah"][i] = alpha_t * h_phi_1
@@ -192,21 +191,19 @@ def sample_unipc(
     sigmas: np.ndarray,
     *,
     order: int = 2,
-    solver_type: str = "bh2",
-    lower_order_final: bool = True,
-    use_corrector: bool = True,
     denoise_fn_low=None,
     boundary=None,
     step_range=None,
     init_carry=None,
     return_carry: bool = False,
 ) -> torch.Tensor:
-    """UniPC multistep sampling at any order with the UniC corrector, as
-    the reference FlowUniPCMultistepScheduler (wan/utils/fm_solvers_unipc.py:
-    350-739, predict_x0=True, prediction_type='flow_prediction'): one model
-    call a sigma; each new model output first corrects the previous
-    predictor step (UniC-p), then predicts the next sample (UniP-p), with
-    order warm-up and lower-order-final.
+    """UniPC multistep sampling (bh2) at any order with the UniC corrector,
+    as the reference FlowUniPCMultistepScheduler at the pipeline's settings
+    (wan/utils/fm_solvers_unipc.py:350-739, predict_x0=True,
+    prediction_type='flow_prediction', lower_order_final): one model call a
+    sigma; each new model output first corrects the previous predictor step
+    (UniC-p), then predicts the next sample (UniP-p), with order warm-up and
+    lower-order-final.
 
     ``denoise_fn(x, sigma[B]) -> velocity``; ``sigmas`` descending, last
     entry 0 (the terminal step lands on the data prediction)."""
@@ -214,14 +211,17 @@ def sample_unipc(
                         step_range=step_range, init_carry=init_carry,
                         return_carry=return_carry)
     sig = [float(s) for s in np.asarray(sigmas, np.float64)]
-    tab = _unipc_tables(sig, order, solver_type, lower_order_final, use_corrector)
-    # applied in fp32, as the reference's scan reads them
-    tab = {k: v.astype(np.float32) for k, v in tab.items()}
+    tab = _unipc_tables(sig, order)
+    # applied in fp32, as the reference's scan reads them; the history
+    # coefficients go to the latent's device once, the scalars stay on the host
+    scal = {k: v.astype(np.float32) for k, v in tab.items() if v.ndim == 1}
+    c_hist, p_hist = (torch.from_numpy(tab[k].astype(np.float32)).to(noise.device)
+                      for k in ("c_hist", "p_hist"))
     b = noise.shape[0]
-    K = tab["c_hist"].shape[1]
+    K = c_hist.shape[1]
 
     def weighted(coeffs, diffs):  # Σ_k c_k · diffs[k]
-        return torch.einsum("k,k...->...", torch.from_numpy(coeffs).to(diffs.device), diffs)
+        return torch.einsum("k,k...->...", coeffs, diffs)
 
     # hist[0] is the most recent data prediction; unused slots hold zeros
     # and meet zero coefficients
@@ -230,18 +230,18 @@ def sample_unipc(
     hist = torch.zeros((max(order, 2),) + tuple(noise.shape), dtype=noise.dtype,
                        device=noise.device)
     for i in range(len(sig) - 1):
-        s0 = float(tab["s0"][i])
+        s0 = float(scal["s0"][i])
         v = denoise_fn(x, torch.full((b,), s0, dtype=noise.dtype, device=noise.device))
         m = x - s0 * v  # flow velocity → data prediction
-        if tab["use_c"][i] > 0:
+        if i > 0:
             # UniC: correct the previous predictor step with the new m (the
             # stored prediction stays the uncorrected one, as the reference)
             m0 = hist[0]
-            corr = weighted(tab["c_hist"][i], hist[1:1 + K] - m0[None])
-            x = (float(tab["c_ratio"][i]) * last_sample - float(tab["c_ah"][i]) * m0
-                 - (corr + float(tab["c_last"][i]) * (m - m0)))
+            corr = weighted(c_hist[i], hist[1:1 + K] - m0[None])
+            x = (float(scal["c_ratio"][i]) * last_sample - float(scal["c_ah"][i]) * m0
+                 - (corr + float(scal["c_last"][i]) * (m - m0)))
         hist = torch.cat([m[None], hist[:-1]])
         last_sample = x
-        pred = weighted(tab["p_hist"][i], hist[1:1 + K] - m[None])
-        x = float(tab["p_ratio"][i]) * x - float(tab["p_ah"][i]) * m - pred
+        pred = weighted(p_hist[i], hist[1:1 + K] - m[None])
+        x = float(scal["p_ratio"][i]) * x - float(scal["p_ah"][i]) * m - pred
     return x

@@ -47,8 +47,8 @@ rank shards the tokens (:mod:`..parallel.sp_forward`); ``attn_fn`` replaces
 the blocks' self-attention, while the cross-attention stays local against
 the replicated text, as in the reference.
 
-Ported: the FramePack-packed forward (``_forward_packed``), the unpacked
-forward over every frame at full resolution (``_forward_unpacked``, the t2v
+Ported: the FramePack-packed forward (``forward``), the unpacked
+forward over every frame at full resolution (``packed=False``, the t2v
 first segment: one AdaLN table row per latent frame, grid RoPE) and MVDT.
 Not ported yet: the 14B branch.
 """
@@ -56,6 +56,7 @@ Not ported yet: the 14B branch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -381,6 +382,16 @@ def framepack_plan(f_hist: int) -> List[PackChunk]:
     ]
 
 
+@functools.lru_cache(maxsize=8)
+def _grid_rope_on(grid: Tuple[int, int, int], head_dim: int, max_len: int, theta: float,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid RoPE tables [F·H·W, head_dim/2] of an unpacked token grid on
+    ``device``, made and copied once a grid: every step of a rollout reads
+    the same tables."""
+    cos, sin = rope_lib.grid_rope(*grid, head_dim, max_len=max_len, theta=theta)
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -589,34 +600,14 @@ class WanDiT(nn.Module):
         ``mvdt_noise`` ([B, L] uniform noise or a ``torch.Generator``) with
         ``mvdt_keep`` runs the MVDT masked pass on ``mvdt_keep`` of the L
         tokens (see :meth:`_maybe_mask`)."""
-        if not packed:
-            return self._forward_unpacked(x, t_frame, context, mvdt_noise, mvdt_keep,
-                                          block_cache, cache_list, return_cache)
-        return self._forward_packed(x, t_frame, context, latent_frame_zero,
-                                    mvdt_noise, mvdt_keep, block_cache,
-                                    cache_list, return_cache)
-
-    def _forward_packed(self, x, t_frame, context, latent_frame_zero,
-                        mvdt_noise=None, mvdt_keep=None, block_cache=None,
-                        cache_list=(), return_cache=False):
-        emb = self.embed_packed(x, t_frame, context, latent_frame_zero)
+        emb = (self.embed_packed(x, t_frame, context, latent_frame_zero) if packed
+               else self.embed_unpacked(x, t_frame, context))
         out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
                               emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
                               mvdt_keep=mvdt_keep, block_cache=block_cache,
                               cache_list=cache_list, return_cache=return_cache)
         out, new_cache = out if return_cache else (out, None)
         out = self._unpatchify(out[:, emb["l_hist"]:], emb["tail_grid"])
-        return (out, new_cache) if return_cache else out
-
-    def _forward_unpacked(self, x, t_frame, context, mvdt_noise=None, mvdt_keep=None,
-                          block_cache=None, cache_list=(), return_cache=False):
-        emb = self.embed_unpacked(x, t_frame, context)
-        out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
-                              emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
-                              mvdt_keep=mvdt_keep, block_cache=block_cache,
-                              cache_list=cache_list, return_cache=return_cache)
-        out, new_cache = out if return_cache else (out, None)
-        out = self._unpatchify(out, emb["tail_grid"])
         return (out, new_cache) if return_cache else out
 
     # -- token-level entry points for sequence parallelism --------------------
@@ -673,13 +664,11 @@ class WanDiT(nn.Module):
         tokens, (gf, gh, gw) = self._embed_chunk(x.to(self.dtype), 1, False)
         l = tokens.shape[1]
         idx = torch.arange(f, dtype=torch.int32, device=x.device).repeat_interleave(gh * gw)
-        cos, sin = rope_lib.grid_rope(gf, gh, gw, c.head_dim, max_len=c.rope_max_len,
-                                      theta=c.rope_theta)
+        cos, sin = _grid_rope_on((gf, gh, gw), c.head_dim, c.rope_max_len, c.rope_theta,
+                                 x.device)
         return dict(tokens=tokens, t_values=t_frame.float(),
                     idx=idx[None, :].expand(b, l).contiguous(), ctx=self._context(context),
-                    cos=torch.from_numpy(cos).to(x.device),
-                    sin=torch.from_numpy(sin).to(x.device),
-                    l_hist=0, tail_grid=(gf, gh, gw))
+                    cos=cos, sin=sin, l_hist=0, tail_grid=(gf, gh, gw))
 
     def trunk_head(self, tokens, t_values, idx, ctx, cos, sin, *, attn_fn=None,
                    kv_len=None, mvdt_noise=None, mvdt_keep=None, block_cache=None,
