@@ -70,6 +70,20 @@ result line:
       the W8A8 DiT (K6 180) with its relative L2 from the bf16 forward
       (at most ``T2V_W8A8_REL_TOL``);
       then a bf16 and a W8A8 forward under the profiler.
+   d. (after that pipeline is freed) the serving entry points at full
+      width, each with its own random-weight pipeline and the counts set
+      to 0 just before it and read just after: ``python -m
+      yume_tpu_torch.sample --t2v --steps 4 --sample_num 2 --w8a8
+      --teacache`` through ``sample.main`` (the W8A8 t2v first segment,
+      its 121-frame decode, the streaming ``encode_auto`` of those frames,
+      a W8A8 + adaptive TeaCache continuation and its decode; K1–K6 must
+      launch), the image mode (``--jpg_dir`` with a 1280×704 PNG, 16
+      repeated frames through ``encode_image_conditioning``), and the
+      webapp in a thread with ``--memory_optimization`` (a t2v request of
+      2 segments, ``continue_from_last``, an i2v upload; each must end
+      ``done`` with its files). Every pipeline call is timed with its peak
+      and held device memory and must give finite outputs; the segment
+      files must exist (mp4, or the writer's .npy fallback).
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
    path with the counts set to 0 just before it and read just after:
@@ -103,6 +117,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -1240,27 +1255,19 @@ def pipeline_phase(counters):
                 f"  all {[round(t * 1e3, 1) for t in ts]}")
     # the first full and cached step once more, under the profiler: device
     # time by kernel family and the longest kernels; the cached step reads
-    # the cache the profiled full step returns
+    # the cache the profiled full step returns. The traces must show every
+    # K2 and K4 launch of the step (K4 reads q and k out of the qkv output
+    # in place, so no copy kernel precedes it)
     with torch.no_grad():
         fn, a, kw = step_calls["full_step"]
         held = {}
-        traces = [device_breakdown("headline full step",
-                                   lambda: held.update(out=fn(*a, **kw)),
-                                   ranges_named=(), rest="dit_forward")]
+        checked_trace("headline full step", lambda: held.update(out=fn(*a, **kw)),
+                      _glue_launches(step_launches["full_step"]))
         cache = held.pop("out")[1]
         fn, a, kw = step_calls["cached_step"]
-        traces.append(device_breakdown("headline cached step",
-                                       lambda: fn(*a, **kw, block_cache=cache),
-                                       ranges_named=(), rest="dit_forward"))
+        checked_trace("headline cached step", lambda: fn(*a, **kw, block_cache=cache),
+                      _glue_launches(step_launches["cached_step"]))
         del cache
-    # the traces show every K2 and K4 launch of the step (K4 reads q and k
-    # out of the qkv output in place, so no copy kernel precedes it)
-    for kind, trace in zip(("full_step", "cached_step"), traces):
-        for family, counter in (("K2 adaln_norm", "adaln_norm"),
-                                ("K4 qk_norm_rope", "qk_norm_rope")):
-            require(trace["launches"][family] == step_launches[kind][counter],
-                    f"{kind}: the trace shows {trace['launches'][family]} {family} "
-                    f"kernels, the counter {step_launches[kind][counter]}")
     del w8.dit.forward, w8.decode_auto, pipe.dit.forward, pipe.decode_auto
     t2v_launches = t2v_phase(pipe, w8, encode, tok, counters, timed, times, read_counts,
                              check_tail)
@@ -1395,15 +1402,278 @@ def t2v_phase(pipe, w8, encode, tok, counters, timed, times, read_counts, check_
     # family; the traces must show the counted K2 and K4 launches
     with torch.no_grad():
         for what, dit in (("t2v bf16 step", pipe.dit), ("t2v w8a8 forward", w8.dit)):
-            trace = device_breakdown(what, lambda: dit(x, t_frame, ctx, packed=False),
-                                     ranges_named=(), rest="dit_forward")
-            for family, want in (("K2 adaln_norm", 3 * n + 1), ("K4 qk_norm_rope", n)):
-                require(trace["launches"][family] == want,
-                        f"{what}: the trace shows {trace['launches'][family]} {family} "
-                        f"kernels, not {want}")
+            checked_trace(what, lambda: dit(x, t_frame, ctx, packed=False),
+                          _glue_launches({"adaln_norm": 3 * n + 1, "qk_norm_rope": n}))
     for name, t in stages.items():
         log(f"  t2v stage {name:<24} {t:8.3f} s")
     del x, t_frame, ref, got, latents
+    return out
+
+
+# the serving entry points (phase 6d): the CLI's t2v run, the image mode and
+# the webapp's three requests
+SERVING_STEPS = 4
+SERVING_KERNELS = ("flash_attention", "adaln_norm", "adaln_residual", "qk_norm_rope",
+                   "rms_norm")
+
+
+class _Recorder:
+    """Wraps pipeline methods on the class (the entry points build their own
+    pipelines) for the time, the peak device memory and the device memory
+    held at entry of each call, and the output's shape and finiteness, which
+    every call must pass. :meth:`restore` puts the methods back."""
+
+    def __init__(self, cls, names):
+        self.cls, self.calls, self.saved = cls, [], {n: getattr(cls, n) for n in names}
+        # the running peak of each call in progress (calls nest: decode_tiled
+        # calls decode_auto), folded into the caller's when a call ends
+        self.peaks = []
+        for name, fn in self.saved.items():
+            setattr(cls, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            if self.peaks:
+                self.peaks[-1] = max(self.peaks[-1], torch.cuda.max_memory_allocated())
+            self.peaks.append(held)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = max(self.peaks.pop(), torch.cuda.max_memory_allocated())
+            if self.peaks:
+                self.peaks[-1] = max(self.peaks[-1], peak)
+            first = out[0] if isinstance(out, tuple) else out
+            finite = torch.isfinite(first).all().item()
+            self.calls.append({"call": name, "s": dt, "held_gib": held / 2**30,
+                               "peak_gib": peak / 2**30,
+                               "shape": list(first.shape), "finite": finite})
+            require(finite, f"{name}: non-finite output {list(first.shape)}")
+            return out
+        return wrapper
+
+    def take(self, quiet=False):
+        calls, self.calls = self.calls, []
+        for c in () if quiet else calls:
+            log(f"    {c['call']:<28} {c['s']:8.3f} s  held {c['held_gib']:6.2f} GiB  peak "
+                f"{c['peak_gib']:6.2f} GiB  out {c['shape']}")
+        return calls
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def _video_files(out_dir, names):
+    """The written file of each segment: the mp4, or the .npy the writer
+    falls back to; returns {name: (path, bytes)}."""
+    found = {}
+    for name in names:
+        path = os.path.join(out_dir, name)
+        path = path if os.path.exists(path) else path + ".npy"
+        require(os.path.exists(path), f"no file written for {name} in {out_dir}")
+        found[name] = (os.path.relpath(path, REPO), os.path.getsize(path))
+    return found
+
+
+def serving_phase(counters):
+    """Phase 6d: the serving entry points at full width (Yume-5B, random
+    bf16 weights, 1280×704, 121 frames), after phase 6's pipeline is freed;
+    each path with the launch counts set to 0 just before it and read just
+    after:
+    a. ``python -m yume_tpu_torch.sample --t2v --steps 4 --sample_num 2
+       --w8a8 --teacache`` through ``sample.main``: the W8A8 t2v first
+       segment at 27,280 tokens, its 121-frame decode, ``encode_auto`` of
+       those frames (streaming), one W8A8 + adaptive TeaCache continuation
+       at 12,095 packed tokens and its tail decode: K1–K6 must launch;
+    b. the image mode, ``--jpg_dir`` with a 1280×704 PNG: 16 repeated
+       frames through ``encode_image_conditioning``, a 4-step segment, the
+       ``decode_auto`` of its 31 latent frames;
+    c. the webapp in a thread on port 0 with ``--memory_optimization``: a
+       t2v request of 2 segments, ``continue_from_last``, an i2v upload,
+       each ending ``done`` with its files; the device memory held while
+       the DiT runs (umT5 and the VAE parked) and the tiled decode's peak.
+    Every pipeline call is timed and must give finite outputs. Returns each
+    path's launches."""
+    import base64
+    import io
+    import shutil
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from yume_tpu_torch import sample
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
+    from yume_tpu_torch.serving import webapp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"serving: {left:.2f} GiB left allocated after the pipeline phase")
+    require(left < 1.0, "the pipeline phase left memory allocated")
+    root = os.path.join(REPO, "build", "serving")
+    shutil.rmtree(root, ignore_errors=True)
+    writer = ("imageio" if importlib.util.find_spec("imageio") else
+              "cv2" if importlib.util.find_spec("cv2") else "none (.npy)")
+    log(f"  video writers: imageio {importlib.util.find_spec('imageio') is not None}, "
+        f"cv2 {importlib.util.find_spec('cv2') is not None}; first tried: {writer}")
+    out = {"launches": {}, "paths": {}}
+    rec = _Recorder(TI2VPipeline, ("generate_t2v", "encode_auto", "encode_image_conditioning",
+                                   "generate_segment", "decode_auto", "decode_tiled",
+                                   "encode_text"))
+    steps = _Recorder(WanDiT, ("forward",))
+
+    def dit_steps(path):
+        """Each DiT forward's time, by its token stream (unpacked t2v,
+        packed segment)."""
+        calls = steps.take(quiet=True)
+        by_kind = {}
+        for c in calls:
+            kind = "unpacked" if len(c["shape"]) == 5 and c["shape"][1] == T2V_F else "packed"
+            by_kind.setdefault(kind, []).append(round(c["s"] * 1e3, 1))
+        log(f"  {path}: DiT forwards (ms) {by_kind}")
+        return by_kind
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def read_counts(path, needed):
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"  kernel launches in the {path} run: {launches}")
+        missing = [k for k in needed if launches[k] == 0]
+        require(not missing, f"kernels not launched on the {path} path: {missing}")
+        stray = [k for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "bias_act",
+                             "flash_attention_partial") if launches[k]]
+        require(not stray, f"kernels of other paths launched on the {path} path: {stray}")
+        out["launches"][path] = launches
+
+    def cli(path, argv, files):
+        out_dir = os.path.join(root, path)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = sample.main(argv + ["--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"{path}: sample.main returned {rc}")
+        read_counts(path, needed=SERVING_KERNELS + (("q8_dot",) if "--w8a8" in argv else ()))
+        calls = rec.take()
+        written = _video_files(out_dir, files)
+        log(f"  {path}: sample.main wall {wall:.3f} s, files {written}")
+        out["paths"][path] = {"wall_s": wall, "calls": calls, "files": written,
+                              "dit_forward_ms": dit_steps(path)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(torch.cuda.memory_allocated() < 2**30, f"{path}: the CLI left memory allocated")
+
+    try:
+        # a. the CLI's t2v run: W8A8, adaptive TeaCache, two segments
+        log("serving a: python -m yume_tpu_torch.sample --t2v --steps 4 --sample_num 2 "
+            "--w8a8 --teacache")
+        cli("cli t2v", ["--t2v", "--steps", str(SERVING_STEPS), "--sample_num", "2", "--w8a8",
+                        "--teacache"], ["segment_000.mp4", "segment_001.mp4"])
+        enc = [c for c in out["paths"]["cli t2v"]["calls"] if c["call"] == "encode_auto"]
+        require(len(enc) == 1 and enc[0]["shape"] == [1, T2V_F, 44, 80, 48],
+                f"cli t2v: encode_auto calls {enc}")
+        log(f"  cli t2v: encode_auto of {T2V_FRAMES} frames (streaming, bf16) "
+            f"{enc[0]['s']:.3f} s, peak {enc[0]['peak_gib']:.2f} GiB "
+            f"({enc[0]['held_gib']:.2f} GiB held at entry)")
+
+        # b. the image mode: a 1280×704 PNG through --jpg_dir
+        jpg = os.path.join(root, "jpg")
+        os.makedirs(jpg)
+        yy, xx = np.mgrid[0:T2V_SIZE[1], 0:T2V_SIZE[0]]
+        img = np.stack([xx * 255 // T2V_SIZE[0], yy * 255 // T2V_SIZE[1],
+                        (xx + yy) % 256], -1).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(jpg, "frame.png"))
+        log("serving b: python -m yume_tpu_torch.sample --jpg_dir <1280x704 png> --steps 4")
+        cli("cli image", ["--jpg_dir", jpg, "--steps", str(SERVING_STEPS)], ["segment_000.mp4"])
+
+        # c. the webapp
+        log("serving c: python -m yume_tpu_torch.serving.webapp --memory_optimization")
+        args = webapp.build_argparser().parse_args(
+            ["--memory_optimization", "--port", "0", "--output_dir", os.path.join(root, "web")])
+        app = webapp.WebApp(args)
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), app.handler())
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        port = srv.server_address[1]
+
+        def post(path, obj):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                         data=json.dumps(obj).encode(), method="POST",
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        def status():
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/status",
+                                        timeout=60) as r:
+                return json.loads(r.read())
+
+        try:
+            t0 = time.perf_counter()
+            require(post("/api/load", {})["status"] == "loaded", "webapp: load failed")
+            torch.cuda.synchronize()
+            log(f"  webapp load: {time.perf_counter() - t0:.3f} s, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the device with umT5 "
+                f"and the VAE parked")
+            buf = io.BytesIO()
+            Image.fromarray(img[::2, ::2]).save(buf, format="PNG")
+            upload = base64.b64encode(buf.getvalue()).decode()
+            requests = [("webapp t2v", {"mode": "t2v", "segments": 2, "steps": SERVING_STEPS,
+                                        "seed": 0}, 2),
+                        ("webapp continue", {"mode": "continue_from_last", "keys": "D",
+                                             "mouse": "→", "steps": SERVING_STEPS,
+                                             "seed": 1}, 1),
+                        ("webapp i2v", {"mode": "i2v", "image_b64": upload,
+                                        "steps": SERVING_STEPS, "seed": 2}, 1)]
+            for path, req, n_videos in requests:
+                n_before = len(app.outputs)
+                zero_counts()
+                t0 = time.perf_counter()
+                require(post("/api/generate_long", req)["status"] == "started",
+                        f"{path}: not started")
+                while (st := status())["status"] == "generating":
+                    time.sleep(0.05)
+                wall = time.perf_counter() - t0
+                require(st["status"] == "done", f"{path}: {st['status']}: {st['progress']}")
+                read_counts(path, needed=SERVING_KERNELS)
+                calls = rec.take()
+                files = st["outputs"][n_before:]
+                require(len(files) == n_videos and all(os.path.exists(f) for f in files),
+                        f"{path}: files {files}")
+                dit_held = [c["held_gib"] for c in calls
+                            if c["call"] in ("generate_t2v", "generate_segment")]
+                tiled_peak = [c["peak_gib"] for c in calls if c["call"] == "decode_tiled"]
+                log(f"  {path}: request wall {wall:.3f} s, files "
+                    f"{[(os.path.relpath(f, REPO), os.path.getsize(f)) for f in files]}, device "
+                    f"memory held while the DiT runs {dit_held} GiB, tiled decode peak "
+                    f"{tiled_peak} GiB")
+                files = [os.path.relpath(f, REPO) for f in files]
+                out["paths"][path] = {"wall_s": wall, "calls": calls, "files": files,
+                                      "dit_forward_ms": dit_steps(path),
+                                      "dit_held_gib": dit_held, "tiled_decode_peak_gib":
+                                      tiled_peak}
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            app.close()
+            thread.join(timeout=60)
+        require(not thread.is_alive(), "webapp: the server thread did not stop")
+        del app, srv
+    finally:
+        rec.restore()
+        steps.restore()
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1480,6 +1750,29 @@ def device_breakdown(what: str, fn, ranges_named=TRAIN_RANGES,
     return {"wall_ms": wall, "busy_ms": busy, "families_ms": families, "ranges_ms": ranges,
             "spans_ms": spans, "launches": launched, "copy_kernels": copies[0],
             "copy_ms": copies[1]}
+
+
+def _glue_launches(counted: dict) -> dict:
+    """The K2 and K4 launches a trace must show: the counters'."""
+    return {"K2 adaln_norm": counted["adaln_norm"], "K4 qk_norm_rope": counted["qk_norm_rope"]}
+
+
+def checked_trace(what: str, fn, want: dict) -> dict:
+    """:func:`device_breakdown` of one DiT forward whose kernel families
+    must show ``want`` launches ({family: n}, the counters': a trace that
+    shows them all proves the counters count every kernel the forward
+    runs). CUPTI can lose kernel records: in one H100 run a traced t2v step
+    read 47% busy, half its K1 time and one K2 missing while the counters
+    were right. So a trace that disagrees is logged and taken again, at
+    most three times in all; three disagreeing traces fail the run."""
+    for attempt in range(1, 4):
+        trace = device_breakdown(what, fn, ranges_named=(), rest="dit_forward")
+        wrong = {f: (trace["launches"][f], n) for f, n in want.items()
+                 if trace["launches"][f] != n}
+        if not wrong:
+            return trace
+        log(f"  {what}: trace {attempt} of 3 shows (traced, counted) {wrong}")
+    require(False, f"{what}: three traces disagree with the counters: {wrong}")
 
 
 def count_syncs(fn) -> int:
@@ -2035,6 +2328,7 @@ def main() -> int:
                 fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv,
                 fl.flash_attention_partial, ba.bias_act]
     launches, euler_launches, t2v_launches = pipeline_phase(counters)
+    serving = serving_phase(counters)
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
     sp = sp_phase()
@@ -2059,7 +2353,11 @@ def main() -> int:
                  # tokens), its rollout, UniPC with CFG, one W8A8 forward
                  "launches_t2v_path": t2v_launches["t2v euler"][key],
                  **{f"launches_{p.replace(' ', '_')}": t2v_launches[p][key]
-                    for p in ("t2v rollout", "t2v unipc cfg", "t2v w8a8 forward")}}
+                    for p in ("t2v rollout", "t2v unipc cfg", "t2v w8a8 forward")},
+                 # phase 6d: the serving entry points (the CLI's t2v run and
+                 # image mode, the webapp's three requests)
+                 **{f"launches_serving_{p.replace(' ', '_')}": n[key]
+                    for p, n in serving["launches"].items()}}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],
@@ -2110,6 +2408,7 @@ def main() -> int:
                                  "no-bias case")
         kernels.append(entry)
     train = {k: {f: v for f, v in r.items() if f != "launches"} for k, r in train_runs.items()}
+    log("serving: " + json.dumps(serving["paths"]))
     log("train: " + json.dumps(train))
     log("sp: " + json.dumps(sp))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

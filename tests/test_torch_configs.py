@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free modules stay equal to
 them: every config dataclass (field names, types, defaults and factory
-configs), the sigma ladders and the offline tokenizer.
+configs), the sigma ladders, the offline tokenizer, the key/mouse control
+vocabulary, the template prompt refiner, the video and PSNR helpers.
 
 Exact comparisons: these are copies, not re-implementations.
 """
@@ -12,11 +13,19 @@ import pytest
 
 from torch_parity import port_config
 from yume_tpu import configs as jconfigs
+from yume_tpu.data import controls as jcontrols
+from yume_tpu.data import prompt_refine as jrefine
 from yume_tpu.data import tokenizer as jtok
 from yume_tpu.diffusion import schedule as jschedule
+from yume_tpu.utils import metrics as jmetrics
+from yume_tpu.utils import video as jvideo
 from yume_tpu_torch import configs as tconfigs
+from yume_tpu_torch.data import controls as tcontrols
+from yume_tpu_torch.data import prompt_refine as trefine
 from yume_tpu_torch.data import tokenizer as ttok
 from yume_tpu_torch.diffusion import schedule as tschedule
+from yume_tpu_torch.utils import metrics as tmetrics
+from yume_tpu_torch.utils import video as tvideo
 
 CLASSES = ("DiTConfig", "VAEConfig", "T5Config", "CLIPConfig", "PipelineConfig")
 
@@ -72,3 +81,40 @@ def test_tokenizer_equal():
             np.testing.assert_array_equal(g, w)
     assert ttok.resolve_tokenizer_path("hash", "/ckpt") is None
     assert ttok.resolve_tokenizer_path(None, None) == jtok.resolve_tokenizer_path(None, None)
+
+
+def test_controls_equal(tmp_path):
+    assert tcontrols.BASE_CAPTION == jcontrols.BASE_CAPTION
+    assert tcontrols.KEY_VOCAB == jcontrols.KEY_VOCAB
+    assert tcontrols.MOUSE_VOCAB == jcontrols.MOUSE_VOCAB
+    for keys in list(jcontrols.KEY_VOCAB) + ["Q", ""]:
+        for mouse in list(jcontrols.MOUSE_VOCAB) + ["?"]:
+            assert tcontrols.control_caption(keys, mouse) == jcontrols.control_caption(keys, mouse)
+    assert tcontrols.control_caption("W", "→", base="B.", metrics="M.") == \
+        jcontrols.control_caption("W", "→", base="B.", metrics="M.")
+    for text in ("Start Frame: 1381\nEnd Frame: 1431\nKeys: W+A\nMouse: →\n",
+                 "Keys: None\n", "\n"):
+        path = tmp_path / "c.txt"
+        path.write_text(text, encoding="utf-8")
+        assert tcontrols.parse_control_txt(str(path)) == jcontrols.parse_control_txt(str(path))
+
+
+def test_template_refiner_equal():
+    for prompt in ("Person moves forward (W).", "a first-person view of a street", ""):
+        assert trefine.TemplateRefiner()(prompt) == jrefine.TemplateRefiner()(prompt)
+    assert type(trefine.get_refiner(None)).__name__ == type(jrefine.get_refiner(None)).__name__
+
+
+def test_video_and_metrics_equal(tmp_path):
+    rng = np.random.default_rng(0)
+    v = rng.uniform(-1.3, 1.3, (3, 8, 8, 3)).astype(np.float32)
+    w = np.clip(v + 0.05 * rng.standard_normal(v.shape).astype(np.float32), -1, 1)
+    np.testing.assert_array_equal(tvideo.to_uint8(v), jvideo.to_uint8(v))
+    assert tmetrics.psnr(v, w) == jmetrics.psnr(v, w)
+    assert tmetrics.psnr(v, v) == jmetrics.psnr(v, v) == float("inf")
+    np.testing.assert_array_equal(tmetrics.per_frame_psnr(v[None], w[None]),
+                                  jmetrics.per_frame_psnr(v[None], w[None]))
+    path = str(tmp_path / "f.png")
+    tvideo.save_image(v[0], path)
+    np.testing.assert_array_equal(tvideo.load_image(path, size=(4, 6)),
+                                  jvideo.load_image(path, size=(4, 6)))

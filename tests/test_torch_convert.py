@@ -84,10 +84,10 @@ def test_vae22_roundtrip_exact(cfg, dec_dim):
                  jnp.zeros((1, 1 + 2 * s[0], 2 * s[1], 2 * s[2], 3)))
     full = convert.vae22_state_dict(tree, cfg.num_res_blocks)
     _assert_trees_equal(convert_vae22_state_dict(full, cfg.num_res_blocks), tree)
-    # the port holds the decoder half; its state dict is a subset of the full one
+    # the port holds the whole VAE: the full state dict loads strictly
     model = tvae.WanVAE(port_config(cfg), dec_dim, device="meta").to_empty(device="cpu")
-    convert.load_state_dict(model, full, allow_unused=True)
+    convert.load_state_dict(model, full)
     port = _port_sd(model)
-    assert port and all(k.startswith(("decoder.", "conv2.")) for k in port)
+    assert set(port) == set(full)
     for k, v in port.items():
         np.testing.assert_array_equal(v, full[k], err_msg=k)

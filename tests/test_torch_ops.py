@@ -272,7 +272,10 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("yume_tpu_torch.pipelines.ti2v", "yume_tpu_torch.train",
               "yume_tpu_torch.training.train_step", "yume_tpu_torch.training.optim",
-              "yume_tpu_torch.training.lora", "yume_tpu_torch.utils.checkpoint"):
+              "yume_tpu_torch.training.lora", "yume_tpu_torch.utils.checkpoint",
+              "yume_tpu_torch.sample", "yume_tpu_torch.serving.webapp",
+              "yume_tpu_torch.pipelines.tiled_decode", "yume_tpu_torch.utils.offload",
+              "yume_tpu_torch.utils.video", "yume_tpu_torch.data.controls"):
         assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke

@@ -17,19 +17,27 @@ the tokenizer (pinned equal to the reference's by the tests).
 
 Layout:
     configs.py  model and pipeline config dataclasses
+    sample.py   the sampling CLI (python -m yume_tpu_torch.sample)
+    train.py    the training CLI (python -m yume_tpu_torch.train)
+    serving/    the interactive web server (python -m yume_tpu_torch.serving.webapp)
     ops/        RoPE, attention dispatch, flash attention and its partial
                 (ring) form (CUDA), W8A8 int8 matmul (CUDA), fused glue
                 (Triton)
     models/     WanDiT (5B, FramePack-packed, W8A8, TeaCache hooks), umT5
-                encoder, Wan2.2 VAE decoder
-    diffusion/  Euler and TeaCache (interval, adaptive) segment samplers,
-                sigma schedules
-    pipelines/  TI2VPipeline (text encode, segment sampling, decode; one
-                rank of a sequence-parallel run with ``sp_groups``)
+                encoder, Wan2.2 VAE (encoder and decoder)
+    diffusion/  Euler, TeaCache (interval, adaptive) and TTS segment
+                samplers, multistep t2v solvers, sigma schedules
+    pipelines/  TI2VPipeline (text encode, t2v and segment sampling, VAE
+                encode, decode and tiled decode; one rank of a
+                sequence-parallel run with ``sp_groups``)
+    training/   the train step, LoRA, optimizers, ADD distillation
     parallel/   sequence parallelism over torch.distributed process groups:
                 Ulysses, ring and USP attention, the sharded DiT forward
-    data/       offline tokenizer
-    utils/      JAX parameter tree → state-dict conversion
+    data/       offline tokenizer, the key/mouse control vocabulary, the
+                template prompt refiner
+    utils/      JAX parameter tree → state-dict conversion, checkpoint and
+                safetensors readers, video files, PSNR, host offload, phase
+                timers
 """
 
 __version__ = "0.1.0"

@@ -3,9 +3,15 @@
 ``euler_sample_segment`` and the TeaCache variants
 ``euler_sample_segment_cached`` (fixed refresh interval) and
 ``euler_sample_segment_cached_adaptive`` (refresh on accumulated rel-L1
-input change). Python loops over the sigma ladder where the reference uses
-``lax.scan``/``lax.cond``; the adaptive refresh decision is read on the host
-once per step."""
+input change), and the test-time-scaling (TTS) samplers
+``sde_euler_sample_segment`` (SDE churn) and ``time_travel_sample_segment``
+(lookahead, optionally with churn). Python loops over the sigma ladder
+where the reference uses ``lax.scan``/``lax.cond``; the adaptive refresh
+decision is read on the host once per step.
+
+The TTS samplers take their standard-normal churn draws from
+``noise_fn(shape)``, one call per churn in the reference's order, so a test
+can feed the JAX package's draws."""
 
 from __future__ import annotations
 
@@ -14,10 +20,14 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .transport import Transport
+
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # (latent, t_frame) -> (v, cache) and (latent, t_frame, cache) -> v
 FullFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, Any]]
 CachedFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
+# shape -> a standard-normal draw of that shape (the TTS churn noise)
+NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
 
 
 def _t_frame(history_t, s_i, latent_frame_zero):
@@ -165,3 +175,101 @@ def euler_sample_segment_cached_adaptive(
         latent = _euler_tail(latent, v, sig[i], sig[i + 1], latent_frame_zero)
         prev_tail = cur_tail
     return latent, n_full
+
+
+def _score(v_tail, x_tail, s_i):
+    """The score from the tail's velocity at σ_i (reverse linear path)."""
+    t = torch.full((x_tail.shape[0],), float(s_i), dtype=torch.float32, device=x_tail.device)
+    return Transport.score_from_velocity(v_tail, x_tail, t)
+
+
+@torch.no_grad()
+def sde_euler_sample_segment(
+    denoise_fn: DenoiseFn,
+    latent: torch.Tensor,
+    sigmas: np.ndarray,
+    latent_frame_zero: int,
+    noise_fn: NoiseFn,
+    *,
+    eta: float = 0.3,
+    history_t: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """SDE churn sampling (TTS; reference fastvideo/sample/sample_tts.py:
+    726-744): after each Euler tail step, an Euler–Maruyama correction from
+    the score estimate, x ← x + η²·σ·score·Δt + η·√(2Δt·σ)·ε, with ε one
+    ``noise_fn`` draw a step. The step's scalars are fp32, as the
+    reference's scanned ladder."""
+    history_t = _history_t(latent, latent_frame_zero, history_t)
+    f_hist = latent.shape[1] - latent_frame_zero
+    sig = np.asarray(sigmas, np.float32)
+    for i in range(len(sig) - 1):
+        s_i, s_n = sig[i], sig[i + 1]
+        v = denoise_fn(latent, _t_frame(history_t, s_i, latent_frame_zero))
+        v_tail, x_tail = v[:, -latent_frame_zero:], latent[:, -latent_frame_zero:]
+        dt = s_i - s_n
+        tail = x_tail - float(dt) * v_tail
+        score = _score(v_tail, x_tail, s_i)
+        eps = noise_fn(tuple(x_tail.shape)).to(x_tail)
+        drift = float(np.float32(eta ** 2) * s_i)
+        scale = float(np.float32(eta) * np.sqrt(np.float32(2.0) * dt * s_i))
+        tail = tail + drift * score * float(dt) + scale * eps
+        latent = torch.cat([latent[:, :f_hist], tail], dim=1)
+    return latent
+
+
+@torch.no_grad()
+def time_travel_sample_segment(
+    denoise_fn: DenoiseFn,
+    latent: torch.Tensor,
+    sigmas: np.ndarray,
+    latent_frame_zero: int,
+    *,
+    interval: int = 2,
+    travel_steps: int = 2,
+    history_t: Optional[torch.Tensor] = None,
+    sde: bool = False,
+    noise_fn: Optional[NoiseFn] = None,
+    eta: float = 0.3,
+) -> torch.Tensor:
+    """Time-travel (lookahead) sampling, frozen-history form (reference
+    fastvideo/sample/sample_tts.py:690-854 in the 5B segment convention).
+
+    Every ``interval`` steps: a provisional Euler step, the ODE rolled
+    forward to step i + ``travel_steps`` − 1, then step i redone from the
+    original state with the last lookahead velocity (the reference's
+    splice-back). With ``sde`` an Euler–Maruyama churn (one ``noise_fn``
+    draw) follows every Euler tail update, outer and lookahead alike."""
+    history_t = _history_t(latent, latent_frame_zero, history_t)
+    f_hist = latent.shape[1] - latent_frame_zero
+    sig = np.asarray(sigmas, np.float32)
+    n_steps = len(sig) - 1
+    if sde and noise_fn is None:
+        raise ValueError("sde churn needs a noise_fn")
+
+    def euler_tail(latent, s_i, s_n, v=None):
+        if v is None:
+            v = denoise_fn(latent, _t_frame(history_t, s_i, latent_frame_zero))
+        x_tail, v_tail = latent[:, -latent_frame_zero:], v[:, -latent_frame_zero:]
+        tail = x_tail + float(s_n - s_i) * v_tail
+        if sde:
+            # python-float scalars, each rounded to fp32 where it meets a tensor
+            dt = float(s_i - s_n)
+            eps = noise_fn(tuple(tail.shape)).to(tail)
+            scale = float(eta * np.sqrt(max(2.0 * dt * float(s_i), 0.0)))
+            tail = tail + (eta ** 2) * float(s_i) * _score(v_tail, x_tail, s_i) * dt \
+                + scale * eps
+        return torch.cat([latent[:, :f_hist], tail], dim=1), v
+
+    for i in range(n_steps):
+        provisional, _ = euler_tail(latent, sig[i], sig[i + 1])
+        if interval > 0 and i % interval == 0:
+            xt, v_look = provisional, None
+            for j in range(i + 1, min(n_steps, i + travel_steps)):
+                xt, v_look = euler_tail(xt, sig[j], sig[j + 1])
+            if v_look is not None:
+                # splice-back: step i again from the original latent with the
+                # lookahead velocity
+                latent, _ = euler_tail(latent, sig[i], sig[i + 1], v=v_look)
+                continue
+        latent = provisional
+    return latent

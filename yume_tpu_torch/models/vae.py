@@ -1,25 +1,31 @@
-"""Wan2.2 causal 3D video VAE — decoder half — in PyTorch (counterpart of
-yume_tpu/models/vae.py).
+"""Wan2.2 causal 3D video VAE, encoder and decoder, in PyTorch
+(counterpart of yume_tpu/models/vae.py).
 
 Public tensors are channels-last ``[B, T, H, W, C]`` as in the reference;
-inside, the decoder runs channels-first ``[B, C, T, H, W]`` for
-``F.conv3d``, converting at :meth:`WanVAE.decode` and
-:meth:`WanVAE.decode_chunk`. Parameter names and shapes follow the
-reference torch VAE (``decoder.upsamples.{i}.upsamples.{j}.residual.2``,
-``...resample.1`` ...), so a released state dict loads as it is.
+inside, the encoder and decoder run channels-first ``[B, C, T, H, W]`` for
+``F.conv3d``, converting at :meth:`WanVAE.encode`, :meth:`WanVAE.decode`
+and their chunk forms. Parameter names and shapes follow the reference
+torch VAE (``encoder.downsamples.{i}.downsamples.{j}.residual.2``,
+``decoder.upsamples.{i}.upsamples.{j}...``, ``...resample.1``,
+``...time_conv`` ...), so a released state dict loads as it is.
 
-Semantics are the reference's cached (streaming) decode:
+Semantics are the reference's cached (streaming) encode and decode:
 
 * ``CausalConv3d``: 2·(kt//2) leading time frames of zeros, or in streaming
   mode the trailing frames of the previous chunk's input (:class:`CacheIO`);
+* the temporal downsample passes frame 0 through and convolves the rest
+  with stride 2, windows anchored at frame 0; streaming, the first chunk
+  passes through whole and each later chunk starts from the previous
+  chunk's last frame;
 * the temporal upsample passes frame 0 through un-doubled and convolves the
   rest with frame 0 replaced by zero (the reference's "Rep" marker).
 
 The VAE holds no Pallas kernel, so its convolutions go to cuDNN. Each layer
 computes in the dtype of its input, casting its weights to it.
 
-Ported: ``decode``, ``decode_chunk`` and :func:`streaming_decode`. Not
-ported yet: the encoder half, ``encode_chunk``, the Wan2.1 variant.
+Ported: ``encode``, ``encode_chunk``, :func:`streaming_encode`, ``decode``,
+``decode_chunk`` and :func:`streaming_decode`. Not ported yet: the Wan2.1
+variant (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -168,6 +174,17 @@ class SpatialAttention(nn.Module):
         return idty + y.reshape(b, t, h, w, c).permute(0, 4, 1, 2, 3)
 
 
+def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Channels-last [B, T, H, W, C] → [B, T, H/p, W/p, C·p·p], the p×p
+    pixel-unshuffle with the reference's channel order (c, r, q)."""
+    if p == 1:
+        return x
+    b, t, h, w, c = x.shape
+    x = x.reshape(b, t, h // p, p, w // p, p, c)
+    x = x.permute(0, 1, 2, 4, 6, 5, 3)     # b t h' w' c r q
+    return x.reshape(b, t, h // p, w // p, c * p * p)
+
+
 def unpatchify(x: torch.Tensor, p: int) -> torch.Tensor:
     """Channels-last [B, T, H, W, C·p·p] → [B, T, H·p, W·p, C] (channel order
     (c, r, q) as the reference's einops pattern)."""
@@ -178,6 +195,22 @@ def unpatchify(x: torch.Tensor, p: int) -> torch.Tensor:
     x = x.reshape(b, t, h, w, c, p, p)     # c r q
     x = x.permute(0, 1, 2, 6, 3, 5, 4)     # b t h q w r c
     return x.reshape(b, t, h * p, w * p, c)
+
+
+def avg_down3d(x, out_ch: int, ft: int, fs: int):
+    """Space-time average-pool shortcut on [B, C, T, H, W] (reference
+    AvgDown3D): T front-padded with zeros to a multiple of ``ft``, each
+    (ft, fs, fs) block folded into channels in the order (c, ft, fs_h,
+    fs_w), then groups of channels averaged down to ``out_ch``."""
+    b, c, t, h, w = x.shape
+    pad_t = (-t) % ft
+    if pad_t:
+        x = F.pad(x, (0, 0, 0, 0, pad_t, 0))
+        t += pad_t
+    x = x.reshape(b, c, t // ft, ft, h // fs, fs, w // fs, fs)
+    x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)  # b c ft fs fs t h w
+    x = x.reshape(b, out_ch, c * ft * fs * fs // out_ch, t // ft, h // fs, w // fs)
+    return x.mean(dim=2)
 
 
 def dup_up3d(x, out_ch: int, ft: int, fs: int, first_chunk: bool):
@@ -267,6 +300,99 @@ class UpStage(nn.Module):
         return h
 
 
+class Downsample(nn.Module):
+    """Spatial (and optionally temporal) downsample (reference Resample
+    'downsample2d' / 'downsample3d'). ``resample.1`` is the 3×3 stride-2
+    conv after a (0, 1, 0, 1) zero pad, per frame; ``time_conv`` is a
+    stride-2 temporal conv whose windows start at frame 0, which passes
+    through."""
+
+    def __init__(self, dim: int, temporal: bool, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.temporal = temporal
+        self.resample = nn.Sequential(nn.ZeroPad2d((0, 1, 0, 1)),
+                                      nn.Conv2d(dim, dim, 3, stride=2, **kw))
+        if temporal:
+            self.time_conv = nn.Conv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1), **kw)
+
+    def _time_conv(self, y):
+        conv = self.time_conv
+        return F.conv3d(y, conv.weight.to(y.dtype), conv.bias.to(y.dtype), stride=(2, 1, 1))
+
+    def forward(self, x, io: CacheIO | None = None):
+        conv = self.resample[1]
+        y = F.conv3d(F.pad(x, (0, 1, 0, 1)), conv.weight.to(x.dtype)[:, :, None],
+                     conv.bias.to(x.dtype), stride=(1, 2, 2))
+        if not self.temporal:
+            return y
+        if io is not None:
+            cache = io.get()
+            io.put(y[:, :, -1:].clone())
+            if cache is None:
+                return y          # first chunk: passthrough
+            return self._time_conv(torch.cat([cache, y], dim=2))
+        return torch.cat([y[:, :, :1], self._time_conv(y)], dim=2)
+
+
+class DownStage(nn.Module):
+    """Residual blocks + downsample with an average-pool shortcut (reference
+    Down_ResidualBlock)."""
+
+    def __init__(self, in_dim, out_dim, num_blocks, temporal, down, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.out_dim = out_dim
+        self.temporal = temporal
+        self.down = down
+        dims = [in_dim] + [out_dim] * num_blocks
+        layers = [ResBlock(dims[i], dims[i + 1], **kw) for i in range(num_blocks)]
+        if down:
+            layers.append(Downsample(out_dim, temporal, **kw))
+        self.downsamples = nn.ModuleList(layers)
+
+    def forward(self, x, io: CacheIO | None = None):
+        shortcut = avg_down3d(x, self.out_dim, 2 if self.temporal else 1,
+                              2 if self.down else 1)
+        h = x
+        for layer in self.downsamples:
+            h = layer(h, io)
+        return h + shortcut
+
+
+class Encoder3d(nn.Module):
+    """(reference Encoder3d): base width ``cfg.base_dim``, output
+    2·z_dim channels (mean and log-variance)."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        mults = tuple(cfg.dim_mult)
+        dims = [cfg.base_dim * m for m in (1,) + mults]
+        t_down = tuple(cfg.temporal_downsample)
+        self.conv1 = CausalConv3d(3 * cfg.patchify * cfg.patchify, dims[0], **kw)
+        self.downsamples = nn.ModuleList(
+            DownStage(din, dout, cfg.num_res_blocks,
+                      t_down[i] if i < len(t_down) else False,
+                      down=i != len(mults) - 1, **kw)
+            for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])))
+        self.middle = nn.ModuleList([ResBlock(dims[-1], dims[-1], **kw),
+                                     SpatialAttention(dims[-1], **kw),
+                                     ResBlock(dims[-1], dims[-1], **kw)])
+        self.head = nn.ModuleList([ChannelRMSNorm(dims[-1], **kw), nn.SiLU(),
+                                   CausalConv3d(dims[-1], 2 * cfg.z_dim, **kw)])
+
+    def forward(self, x, io: CacheIO | None = None):
+        x = self.conv1(x, io)
+        for stage in self.downsamples:
+            x = stage(x, io)
+        x = self.middle[0](x, io)
+        x = self.middle[1](x)
+        x = self.middle[2](x, io)
+        return self.head[2](F.silu(self.head[0](x)), io)
+
+
 class Decoder3d(nn.Module):
     """(reference Decoder3d). dec base dim is 256 in Wan2.2."""
 
@@ -300,17 +426,23 @@ class Decoder3d(nn.Module):
 
 
 class WanVAE(nn.Module):
-    """Wan2.2 VAE, decoder half, with latent de-normalisation."""
+    """Wan2.2 VAE with latent normalisation: the encoder (``encoder``, then
+    ``conv1`` to mean and log-variance) and the decoder (``conv2``, then
+    ``decoder``)."""
 
     def __init__(self, cfg: VAEConfig, dec_dim: int = 256, *, device=None,
                  dtype=None):
         super().__init__()
         if cfg.arch != "wan22":
-            raise NotImplementedError("only the Wan2.2 VAE is ported")
+            raise NotImplementedError(
+                "only the Wan2.2 VAE is ported; the Wan2.1 VAE comes with the 14B "
+                "modules (ROADMAP queue 1, item 6)")
+        kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.decoder = Decoder3d(cfg, dec_dim, device=device, dtype=dtype)
-        self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, (1, 1, 1), device=device,
-                                  dtype=dtype)
+        self.encoder = Encoder3d(cfg, **kw)
+        self.conv1 = CausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim, (1, 1, 1), **kw)
+        self.decoder = Decoder3d(cfg, dec_dim, **kw)
+        self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, (1, 1, 1), **kw)
 
     def _scale(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         z = self.cfg.z_dim
@@ -319,6 +451,23 @@ class WanVAE(nn.Module):
         else:
             mean, std = np.zeros(z, np.float32), np.ones(z, np.float32)
         return (torch.from_numpy(mean).to(device), torch.from_numpy(std).to(device))
+
+    def _encode(self, video, io):
+        x = patchify(video, self.cfg.patchify).permute(0, 4, 1, 2, 3)
+        mu = self.conv1(self.encoder(x, io))[:, :self.cfg.z_dim].permute(0, 2, 3, 4, 1)
+        mean, std = self._scale(video.device)
+        return (mu - mean) / std     # promotes to fp32, as the reference does
+
+    def encode(self, video: torch.Tensor) -> torch.Tensor:
+        """Video [B, T, H, W, 3] in [-1, 1] → normalised latent
+        [B, 1+(T-1)/4, H/16, W/16, z] (the mean; fp32)."""
+        return self._encode(video, None)
+
+    def encode_chunk(self, chunk, caches):
+        """chunk: [B, Tc, H, W, 3]; caches: list | None for the first chunk.
+        Returns (latent chunk, caches for the next chunk)."""
+        io = CacheIO(caches)
+        return self._encode(chunk, io), io.out
 
     def _decode(self, z, first_chunk, io):
         mean, std = self._scale(z.device)
@@ -337,6 +486,20 @@ class WanVAE(nn.Module):
         the first chunk. Returns (video chunk, caches for the next chunk)."""
         io = CacheIO(caches)
         return self._decode(z_chunk, caches is None, io), io.out
+
+
+@torch.no_grad()
+def streaming_encode(vae: WanVAE, video: torch.Tensor) -> torch.Tensor:
+    """Chunked encode with carried caches (the reference's production
+    encode): pixel frame 0 alone, then chunks of 4. Equal to
+    :meth:`WanVAE.encode` with bounded activation memory."""
+    t = video.shape[1]
+    mu, caches = vae.encode_chunk(video[:, :1], None)
+    outs = [mu]
+    for s in range(1, t, 4):
+        mu, caches = vae.encode_chunk(video[:, s:s + 4], caches)
+        outs.append(mu)
+    return torch.cat(outs, dim=1)
 
 
 @torch.no_grad()

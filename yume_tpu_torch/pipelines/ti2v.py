@@ -8,17 +8,21 @@ continuation segment: the umT5 prompt encode
 (:meth:`TI2VPipeline.encode_text`), a segment sampler over the
 FramePack-packed DiT (:meth:`TI2VPipeline.generate_segment`) and the
 streaming VAE decode of the new tail (:meth:`TI2VPipeline.decode_auto`).
-:meth:`TI2VPipeline.generate_long` runs one segment per caption.
+:meth:`TI2VPipeline.generate_long` runs one segment per caption. A rollout
+can also start from video: :meth:`TI2VPipeline.encode_auto` (a decoded
+first segment, re-encoded before the CLI continues it) or
+:meth:`TI2VPipeline.encode_image_conditioning` (repeated image frames).
 
 Ported: ``generate_t2v`` with Euler (the 5B t2v path), UniPC of order 2 and
 3 and DPM++2M, the multistep solvers with classifier-free guidance
 (``ctx_null``); ``generate_t2v_dmd``, the distillation teacher's cond-only
-rollout; the segment samplers ``euler`` and ``teacache`` (fixed interval
-and adaptive threshold); and W8A8 through ``config.dit.w8a8``
-(:meth:`TI2VPipeline.with_w8a8` builds it on the same DiT parameters), in
-both forwards. Not ported yet: the TTS samplers (``sde``,
-``time_travel``), ``progress_cb``, the i2v entry points, the VAE encode,
-tiled decode.
+rollout; the segment samplers ``euler`` (with ``progress_cb``),
+``teacache`` (fixed interval and adaptive threshold) and the TTS samplers
+``sde``, ``time_travel`` and ``tts`` (both); W8A8 through
+``config.dit.w8a8`` (:meth:`TI2VPipeline.with_w8a8` builds it on the same
+DiT parameters), in both forwards; the VAE encode and the width-tiled
+decode (:meth:`TI2VPipeline.decode_tiled`). Not ported yet: the 14B i2v
+entry points (ROADMAP queue 1, item 6).
 
 Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
 ``sp_groups`` set, the pipeline is one rank of a run in which every rank
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Mapping, Optional, Tuple
+from typing import Callable, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,15 +51,21 @@ from ..diffusion import multistep, samplers
 from ..diffusion.schedule import sampling_sigmas, unipc_sigmas
 from ..models.dit import WanDiT
 from ..models.t5 import T5Encoder, encode_text
-from ..models.vae import WanVAE, streaming_decode
+from ..models.vae import WanVAE, streaming_decode, streaming_encode
 from ..parallel.mesh import SPGroups
 from ..parallel.sp_forward import sp_dit_forward
 from ..parallel.ulysses import agree
 from ..utils.convert import load_state_dict
+from ..utils.masks import masks_like
+from .tiled_decode import tiled_decode
 
 # the samplers whose every DiT call goes through _dit (and so through the
 # sequence-parallel forward when sp_groups is set)
 _SP_SAMPLERS = ("euler", "teacache")
+_TTS_SAMPLERS = ("sde", "time_travel", "tts")
+# the churn noise of a TTS segment comes from a generator seeded seed + this,
+# as the reference's PRNGKey(seed + 7919)
+_TTS_SEED_OFFSET = 7919
 # generate_t2v's solvers; the UniPC ones with their order
 _T2V_SOLVERS = {"euler": None, "dpmpp": None, "unipc": 2, "unipc3": 3}
 
@@ -79,7 +89,7 @@ def _random_init_(module: nn.Module, generator: torch.Generator, std: float = 0.
 
 @dataclasses.dataclass(eq=False)
 class TI2VPipeline:
-    """The 5B generation stack: DiT, VAE decoder and (optionally) umT5."""
+    """The 5B generation stack: DiT, VAE and (optionally) umT5."""
 
     config: PipelineConfig
     dit: WanDiT
@@ -132,7 +142,7 @@ class TI2VPipeline:
         load_state_dict(dit, dit_sd)
         vae = _materialize(lambda device: WanVAE(
             config.vae, device=device, dtype=dtype), device)
-        load_state_dict(vae, vae_sd, allow_unused=True)
+        load_state_dict(vae, vae_sd)
         t5 = None
         if t5_sd is not None:
             t5 = _materialize(lambda device: T5Encoder(
@@ -218,6 +228,22 @@ class TI2VPipeline:
             history_t=history_t)
         return out, -(-steps // cache_interval)
 
+    def _sample_segment_tts(self, latent, ctx, history_t, steps, shift, mode, noise_fn):
+        """The TTS samplers (reference sample_tts.py): 'sde' churn,
+        'time_travel' lookahead, or 'tts', both."""
+        lfz = self.config.latent_frame_zero
+        sig = sampling_sigmas(steps, shift)
+
+        def denoise(lat, t_frame):
+            return self._pad_v(lat, self._dit(lat, t_frame, ctx))
+
+        if mode == "sde":
+            return samplers.sde_euler_sample_segment(denoise, latent, sig, lfz, noise_fn,
+                                                     history_t=history_t)
+        return samplers.time_travel_sample_segment(denoise, latent, sig, lfz,
+                                                   history_t=history_t, sde=mode == "tts",
+                                                   noise_fn=noise_fn)
+
     @torch.no_grad()
     def generate_segment(
         self,
@@ -228,7 +254,9 @@ class TI2VPipeline:
         shift: float = 7.0,
         seed: int = 0,
         sampler: str = "euler",
+        progress_cb: Optional[Callable[[float], None]] = None,
         noise: Optional[torch.Tensor] = None,
+        churn_noise: Optional[Iterable[torch.Tensor]] = None,
         teacache_interval: int = 3,
         teacache_edge: Optional[int] = None,
         teacache_threshold: Optional[float] = None,
@@ -238,20 +266,28 @@ class TI2VPipeline:
         (per-frame timesteps), return the grown latent sequence. ``noise``
         overrides the seeded tail noise.
 
-        ``sampler``: 'euler', or 'teacache' (block-residual caching: the
-        full DiT every ``teacache_interval``-th step, or, with
+        ``sampler``: 'euler'; 'teacache' (block-residual caching: the full
+        DiT every ``teacache_interval``-th step, or, with
         ``teacache_threshold``, whenever the accumulated rel-L1 change of
         the tail reaches it; ``teacache_edge`` live blocks per side on
-        cached steps, None → num_layers // 4). The full-DiT step count of a
-        'teacache' segment is left in ``last_teacache_n_full``.
+        cached steps, None → num_layers // 4; the segment's full-DiT step
+        count is left in ``last_teacache_n_full``); or the TTS samplers
+        'sde' (SDE churn), 'time_travel' (lookahead) and 'tts' (both), whose
+        churn draws come from a generator seeded ``seed + 7919``, or in
+        order from ``churn_noise``.
+
+        ``progress_cb(t)`` is called once per Euler step (sampler 'euler'
+        only, as the reference) with the step's timestep σ_i·1000, the value
+        the reference's callback receives, computed on the host from the
+        sigma table: it reads nothing from the device.
 
         With ``sp_groups`` set every rank of the group makes this call with
         the same arguments (the same history, context, seed or noise)."""
         if self.sp_groups is not None and sampler not in _SP_SAMPLERS:
             raise NotImplementedError(
                 f"SP serving runs the samplers {_SP_SAMPLERS}, not {sampler!r}")
-        if sampler not in ("euler", "teacache"):
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        if sampler not in _SP_SAMPLERS + _TTS_SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
         if sampler == "teacache" and teacache_interval < 1:
             raise ValueError(f"teacache_interval must be >= 1, got {teacache_interval}")
         lfz = self.config.latent_frame_zero
@@ -271,9 +307,34 @@ class TI2VPipeline:
                 latent, ctx, history_t, steps, shift, teacache_interval,
                 teacache_edge, teacache_threshold)
             return out
-        return samplers.euler_sample_segment(
-            lambda lat, t_frame: self._pad_v(lat, self._dit(lat, t_frame, ctx)), latent,
-            sampling_sigmas(steps, shift), lfz, history_t=history_t)
+        if sampler in _TTS_SAMPLERS:
+            if churn_noise is None:
+                gen = torch.Generator(device=device).manual_seed(seed + _TTS_SEED_OFFSET)
+
+                def noise_fn(shape):
+                    return torch.randn(shape, generator=gen, device=device,
+                                       dtype=torch.float32)
+            else:
+                draws = iter(churn_noise)
+
+                def noise_fn(shape):
+                    return next(draws).to(device).reshape(shape)
+            return self._sample_segment_tts(latent, ctx, history_t, steps, shift, sampler,
+                                            noise_fn)
+        sig = sampling_sigmas(steps, shift)
+
+        def denoise(lat, t_frame):
+            return self._pad_v(lat, self._dit(lat, t_frame, ctx))
+
+        if progress_cb is not None:
+            t_steps = iter(np.float32(sig[:-1]) * np.float32(1000.0))
+            dit_fn = denoise
+
+            def denoise(lat, t_frame):
+                progress_cb(float(next(t_steps)))
+                return dit_fn(lat, t_frame)
+
+        return samplers.euler_sample_segment(denoise, latent, sig, lfz, history_t=history_t)
 
     # -- text to video: the first segment ------------------------------------
 
@@ -406,6 +467,46 @@ class TI2VPipeline:
         sized for a 16 GB chip); equal to ``WanVAE.decode``."""
         vae_dtype = next(self.vae.parameters()).dtype
         return streaming_decode(self.vae, z.to(vae_dtype), chunk_latent_frames=2)
+
+    def decode_tiled(self, z: torch.Tensor, n_tiles: int = 5) -> torch.Tensor:
+        """Width-tiled decode with blended overlaps (the webapp's large-frame
+        decode; :func:`.tiled_decode.tiled_decode`), each tile through the
+        streaming :meth:`decode_auto`, which bounds its peak."""
+        return tiled_decode(self.decode_auto, z, n_tiles=n_tiles,
+                            scale_factor=self.config.vae.stride[1])
+
+    # -- video to latents ----------------------------------------------------
+
+    @torch.no_grad()
+    def encode_auto(self, video: torch.Tensor) -> torch.Tensor:
+        """Video [B, T, H, W, 3] in [-1, 1] → normalised latents: one
+        full-clip encode in the video's dtype while its largest activation
+        (T·H·W·160 channels·2 bytes) stays under 2 GiB, otherwise the
+        streaming encode (pixel frame 0, then chunks of 4) in the VAE's
+        parameter dtype. Both compute the same function."""
+        pixels = video.shape[1] * video.shape[2] * video.shape[3]
+        if pixels * 160 * 2 < (2 << 30):
+            return self.vae.encode(video)
+        vae_dtype = next(self.vae.parameters()).dtype
+        return streaming_encode(self.vae, video.to(vae_dtype))
+
+    @torch.no_grad()
+    def encode_image_conditioning(self, img: torch.Tensor,
+                                  frame_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """i2v conditioning (reference wan23/textimage2video.py:381-517):
+        encode the (repeated) conditioning frames ``img`` [B, T, H, W, 3],
+        zero-pad the latents to ``frame_num``'s latent length, and return
+        them with ``masks_like``'s mask2 (zero over the history, one over
+        the trailing ``latent_frame_zero`` frames)."""
+        z = self.vae.encode(img)
+        f_target = (frame_num - 1) // self.config.vae.stride[0] + 1
+        pad = f_target - z.shape[1]
+        if pad > 0:
+            z = torch.cat([z, z.new_zeros((z.shape[0], pad) + tuple(z.shape[2:]))], dim=1)
+        _, mask2 = masks_like(tuple(z.shape), zero=True,
+                              latent_frame_zero=self.config.latent_frame_zero,
+                              device=z.device)
+        return z, mask2
 
     def generate_long(
         self,

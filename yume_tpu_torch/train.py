@@ -7,7 +7,7 @@ fine-tuning of the 5B DiT on one GPU (counterpart of yume_tpu/train.py).
 
 Same flags and smoke configs as the reference's train.py, plus ``--device``
 (default ``cuda``). Batches are synthetic latents made from a seed per step;
-the parameters are random (a checkpoint reader is not ported). On the card
+the parameters are random (the trainer loads no checkpoint yet). On the card
 the DiT computes in bf16 (the attention kernels take bf16), on the CPU the
 smoke run computes in fp32 as the reference's does. Parameters are stored
 in fp32, as flax creates them.
@@ -19,10 +19,11 @@ reference, ``--resume`` restores the generator and starts a fresh
 discriminator.
 
 Not ported, and refused with the ROADMAP item that brings them:
-``--data_dir`` (the VAE encoder and real videos, queue 1 item 3),
-``--ckpt_dir`` and ``--export_torch_dir`` (a safetensors reader and writer,
-queue 1 item 7), ``--sp > 1`` (sequence-parallel training, queue 1 item 8;
-SP serving is ported) and ``--config i2v-14B`` (queue 1 item 6).
+``--data_dir`` (the data path: video reading, datasets and the loader,
+queue 1 item 3), ``--ckpt_dir`` and ``--export_torch_dir`` (the trainer's
+checkpoint load and resume, and a safetensors writer, queue 1 item 7),
+``--sp > 1`` (sequence-parallel training, queue 1 item 8; SP serving is
+ported) and ``--config i2v-14B`` (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -85,9 +86,10 @@ def build_argparser():
 
 def _refuse_unported(args):
     unported = [
-        (args.data_dir, "--data_dir needs the VAE encoder and real videos "
-                        "(ROADMAP queue 1, item 3)"),
-        (args.ckpt_dir, "--ckpt_dir needs a safetensors reader (ROADMAP queue 1, item 7)"),
+        (args.data_dir, "--data_dir needs the data path: video reading, the datasets "
+                        "and the loader (ROADMAP queue 1, item 3)"),
+        (args.ckpt_dir, "--ckpt_dir needs the trainer's checkpoint load and resume "
+                        "(ROADMAP queue 1, item 7)"),
         (args.export_torch_dir, "--export_torch_dir needs a safetensors writer "
                                 "(ROADMAP queue 1, item 7)"),
         (args.sp > 1, "--sp > 1 is sequence-parallel training, which needs a "

@@ -1,6 +1,9 @@
 """Train-state checkpoints as torch files (the save/restore part of
-yume_tpu/utils/checkpoint.py; Orbax is not ported), and the reader of
-torch state dicts (:func:`load_torch_state_dict`).
+yume_tpu/utils/checkpoint.py; Orbax is not ported), and the readers of
+released weights: torch state dicts (:func:`load_torch_state_dict`) and
+safetensors files, single or sharded with an index
+(:func:`load_safetensors_state_dict`, a reader of the format written here
+by hand, so it needs no ``safetensors`` package).
 
 ``<output_dir>/checkpoint-<step>.pt`` holds the step, the trained tensors,
 the optimizer state and the EMA. :func:`restore_checkpoint` copies the
@@ -11,9 +14,11 @@ parameters stay the model's own tensors.
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
-from typing import Optional
+import struct
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -65,6 +70,96 @@ def load_torch_state_dict(path: str) -> dict:
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
     return {k: v.float() for k, v in sd.items() if torch.is_tensor(v)}
+
+
+_WRAPPER_SEGMENTS = frozenset(
+    ("module", "_fsdp_wrapped_module", "_checkpoint_wrapped_module", "_orig_mod"))
+
+
+def normalize_torch_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop FSDP/compile wrapper segments anywhere in the key path (whole
+    segments, not substrings: ``module`` is a substring of
+    ``_fsdp_wrapped_module``), as checkpoints saved through those wrappers
+    carry them."""
+    return {".".join(s for s in k.split(".") if s not in _WRAPPER_SEGMENTS): v
+            for k, v in sd.items()}
+
+
+# safetensors dtype names → torch dtypes (little-endian raw data)
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+_INDEX = "diffusion_pytorch_model.safetensors.index.json"
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """One ``.safetensors`` file → {name: CPU tensor} in the file's dtypes.
+
+    The format: an unsigned little-endian 8-byte header length N, N bytes
+    of JSON ({name: {"dtype", "shape", "data_offsets": [begin, end]}} and an
+    optional ``__metadata__``), then the raw little-endian data, offsets
+    counted from its start."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        if size < 8:
+            raise ValueError(f"{path}: not a safetensors file ({size} bytes)")
+        (n,) = struct.unpack("<Q", f.read(8))
+        if n > size - 8:
+            raise ValueError(f"{path}: header of {n} bytes in a {size}-byte file")
+        header = json.loads(f.read(n))
+        base = 8 + n
+        out = {}
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: {name} has unsupported dtype {info['dtype']}")
+            shape = [int(d) for d in info["shape"]]
+            begin, end = (int(o) for o in info["data_offsets"])
+            numel = 1
+            for d in shape:
+                numel *= d
+            if not 0 <= begin <= end <= size - base or \
+                    end - begin != numel * torch.empty((), dtype=dtype).element_size():
+                raise ValueError(f"{path}: {name} has data offsets {begin}..{end} for "
+                                 f"{info['dtype']} {shape}")
+            f.seek(base + begin)
+            raw = bytearray(f.read(end - begin))
+            out[name] = torch.frombuffer(raw, dtype=torch.uint8).view(dtype).reshape(shape) \
+                if raw else torch.empty(shape, dtype=dtype)
+    return out
+
+
+def load_safetensors_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A safetensors checkpoint → one flat state dict of CPU tensors in the
+    files' dtypes. ``path`` is a file, a directory of ``*.safetensors``, or
+    a sharded directory whose ``diffusion_pytorch_model.safetensors.index.json``
+    names the shards in its ``weight_map`` (every name it maps must be in
+    its shard)."""
+    weight_map = None
+    if os.path.isdir(path):
+        index = os.path.join(path, _INDEX)
+        if os.path.exists(index):
+            with open(index) as f:
+                weight_map = json.load(f)["weight_map"]
+            files = sorted({os.path.join(path, v) for v in weight_map.values()})
+        else:
+            files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                           if f.endswith(".safetensors"))
+    else:
+        files = [path]
+    sd: Dict[str, torch.Tensor] = {}
+    for f in files:
+        sd.update(read_safetensors(f))
+    if weight_map is not None:
+        missing = sorted(set(weight_map) - set(sd))
+        if missing:
+            raise KeyError(f"{path}: the index maps {len(missing)} tensors no shard holds, "
+                           f"e.g. {missing[:5]}")
+    return sd
 
 
 def restore_checkpoint(output_dir: str, state: TrainState) -> TrainState:

@@ -9,6 +9,10 @@ produce the same reference-named state dicts, as float32 numpy arrays:
 * :func:`t5_state_dict` inverts ``convert_t5_state_dict``;
 * :func:`vae22_state_dict` inverts ``convert_vae22_state_dict`` (encoder
   included, with the reference's tensor shapes);
+* :func:`pipeline_state_dicts` applies the three to a JAX
+  ``TI2VPipeline``'s parameters, whole: what
+  ``TI2VPipeline.from_state_dicts`` loads strictly, and what a checkpoint
+  directory in the released layout holds;
 * :func:`disc_state_dict` / :func:`disc_tree` map the ADD discriminator's
   parameters and spectral vectors both ways, and :func:`dino_state_dict`
   selects a timm DINO checkpoint's projector tensors;
@@ -222,6 +226,18 @@ def vae22_state_dict(params: Mapping, num_res_blocks: int = 2) -> Dict[str, np.n
         i += 1
     middle_and_head("decoder")
     return sd
+
+
+def pipeline_state_dicts(pipe) -> Dict[str, Dict[str, np.ndarray]]:
+    """A JAX ``TI2VPipeline``'s DiT, VAE (encoder and decoder) and umT5
+    (when it has one) → ``{"dit", "vae", "t5"}`` reference-named state
+    dicts, nothing dropped."""
+    cfg = pipe.config
+    out = {"dit": dit_state_dict(pipe.dit_params, cfg.dit.num_layers),
+           "vae": vae22_state_dict(pipe.vae_params, cfg.vae.num_res_blocks)}
+    if pipe.t5_params is not None:
+        out["t5"] = t5_state_dict(pipe.t5_params, cfg.t5.num_layers)
+    return out
 
 
 # ---------------------------------------------------------------------------
