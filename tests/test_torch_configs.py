@@ -118,3 +118,43 @@ def test_video_and_metrics_equal(tmp_path):
     tvideo.save_image(v[0], path)
     np.testing.assert_array_equal(tvideo.load_image(path, size=(4, 6)),
                                   jvideo.load_image(path, size=(4, 6)))
+
+
+def test_i2v_constants_equal():
+    """The port's copies of the Wan2.1 latent normalisation and the CLIP
+    normalisation (the JAX modules import jax, so the port keeps its own)."""
+    from yume_tpu.models import clip as jclip
+    from yume_tpu.models import vae as jvae
+    from yume_tpu_torch.models import clip as tclip
+    from yume_tpu_torch.models import vae as tvae
+
+    for got, want in ((tvae.WAN21_LATENT_MEAN, jvae.WAN21_LATENT_MEAN),
+                      (tvae.WAN21_LATENT_STD, jvae.WAN21_LATENT_STD),
+                      (tclip.CLIP_MEAN, jclip.CLIP_MEAN), (tclip.CLIP_STD, jclip.CLIP_STD)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("config", ["ti2v-5B", "i2v-14B"])
+def test_smoke_configs_equal(config, monkeypatch):
+    """``sample.smoke_config`` against the config the JAX CLI's
+    ``load_pipeline`` builds its pipeline from with ``--smoke`` (taken at
+    the pipeline's ``from_config``, before anything is initialised)."""
+    from yume_tpu import sample as jsample
+    from yume_tpu.pipelines.i2v import I2VPipeline
+    from yume_tpu.pipelines.ti2v import TI2VPipeline
+    from yume_tpu_torch import sample as tsample
+
+    class Built(Exception):
+        pass
+
+    def capture(cls, cfg, *a, **kw):
+        raise Built(cfg)
+
+    for cls in (I2VPipeline, TI2VPipeline):
+        monkeypatch.setattr(cls, "from_config", classmethod(capture))
+    with pytest.raises(Built) as built:
+        jsample.load_pipeline(jsample.build_argparser().parse_args(
+            ["--config", config, "--smoke"]))
+    want = built.value.args[0]
+    assert tsample.smoke_config(tconfigs.CONFIGS[config]()) == port_config(want)

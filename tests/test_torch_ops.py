@@ -275,7 +275,8 @@ def test_port_imports_no_jax():
               "yume_tpu_torch.training.lora", "yume_tpu_torch.utils.checkpoint",
               "yume_tpu_torch.sample", "yume_tpu_torch.serving.webapp",
               "yume_tpu_torch.pipelines.tiled_decode", "yume_tpu_torch.utils.offload",
-              "yume_tpu_torch.utils.video", "yume_tpu_torch.data.controls"):
+              "yume_tpu_torch.utils.video", "yume_tpu_torch.data.controls",
+              "yume_tpu_torch.models.clip", "yume_tpu_torch.pipelines.i2v"):
         assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke

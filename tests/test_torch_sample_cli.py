@@ -3,8 +3,10 @@ the hand-written safetensors reader against the ``safetensors`` package
 (bit for bit, fp32, fp16, bf16 and integers, sharded with an index),
 ``load_pipeline`` on a checkpoint directory in the released layout against
 JAX's ``load_torch_weights`` pipeline (``generate_t2v`` and a continuation
-segment on injected noise), ``main`` in every 5B mode at the reference's
-smoke config, the refusals of what is not ported, and the defaults.
+segment on injected noise), the same for the 14B's released layout
+(``Wan2.1_VAE.pth`` and the CLIP file too; ``generate`` on injected noise),
+``main`` in every 5B and 14B mode at the reference's smoke configs, the
+refusals of what is not ported, and the defaults.
 
 Tolerances, as ``test_torch_pipeline.py``: context 1e-5, latents 1e-4,
 video 1e-3 (fp32; XLA:CPU and ATen sum float32 in another order, both
@@ -310,9 +312,11 @@ def test_entry_points_default_to_cuda():
 # -- refusals -------------------------------------------------------------------------
 
 
+# argv and what the refusal must name: a ROADMAP queue 1 item, or for a flag
+# that means nothing for the model asked for, the model it is for
 SAMPLE_REFUSED = {
-    "config_14b": (["--config", "i2v-14B"], "item 6"),
-    "distilled": (["--distilled"], "item 6"),
+    "config_14b": (["--config", "i2v-14B"], "item 3"),     # without --jpg_dir
+    "distilled": (["--distilled"], "i2v-14B"),
     "cfg_parallel": (["--cfg_parallel"], "item 6"),
     "int8": (["--int8"], "item 6"),
     "int4": (["--int4"], "item 6"),
@@ -330,11 +334,19 @@ WEBAPP_REFUSED = {
 }
 
 
+for _name in ("cfg_parallel", "int8", "int4", "pp", "sp", "input_video", "video_root_dir"):
+    _argv, _item = SAMPLE_REFUSED[_name]
+    SAMPLE_REFUSED[f"14b_{_name}"] = (["--config", "i2v-14B", "--jpg_dir", "jpg"] + _argv,
+                                      _item)
+
+
 @pytest.mark.parametrize("case", sorted(SAMPLE_REFUSED))
 def test_sample_refuses_unported(case, tmp_path):
     argv, item = SAMPLE_REFUSED[case]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    match = f"ROADMAP queue 1, {item}" if item.startswith("item") else item
+    with pytest.raises((NotImplementedError, SystemExit), match=match) as refused:
         sample.main(["--smoke", "--device", "cpu", "--output_dir", str(tmp_path)] + argv)
+    assert refused.type is (NotImplementedError if item.startswith("item") else SystemExit)
 
 
 @pytest.mark.parametrize("case", sorted(WEBAPP_REFUSED))
@@ -377,3 +389,216 @@ def test_save_video_falls_back_to_npy(tmp_path, monkeypatch, capsys):
     assert not os.path.exists(path)
     np.testing.assert_array_equal(np.load(path + ".npy"), to_uint8(video))
     assert f"wrote {path}.npy" in capsys.readouterr().out
+
+
+
+# -- the 14B ---------------------------------------------------------------------------
+
+
+def _jax_smoke_config_14b():
+    """The JAX CLI's 14B smoke config (yume_tpu/sample.py:143-163)."""
+    import dataclasses
+
+    from yume_tpu.configs import CONFIGS, CLIPConfig, DiTConfig, T5Config, VAEConfig
+
+    return dataclasses.replace(
+        CONFIGS["i2v-14B"](),
+        dit=DiTConfig(model_type="i2v", in_dim=18, out_dim=8, dim=128, ffn_dim=256,
+                      freq_dim=64, text_dim=32, text_len=32, num_heads=4, num_layers=2,
+                      framepack=True, image_context_len=5, image_dim=12),
+        vae=VAEConfig(z_dim=8, base_dim=8, dim_mult=(1, 2, 2), num_res_blocks=1,
+                      temporal_downsample=(True, False), stride=(2, 4, 4), patchify=1,
+                      arch="wan21"),
+        t5=T5Config(vocab_size=4096, dim=32, dim_attn=32, dim_ffn=48, num_heads=2,
+                    num_layers=1, text_len=32),
+        clip=CLIPConfig(image_size=16, patch_size=8, dim=12, num_heads=2, num_layers=1,
+                        out_tokens=5),
+        latent_frame_zero=2).check_i2v_channels()
+
+
+@pytest.fixture(scope="module")
+def released_14b(tmp_path_factory):
+    """The JAX 14B smoke pipeline's modules with perturbed parameters, written
+    as the released files: the DiT through the reference's exporter as
+    sharded safetensors, ``Wan2.1_VAE.pth``, umT5, and the CLIP file (the
+    visual tower's tensors under ``visual.``, with a last block and a text
+    tensor the tower does not use). Then JAX's ``load_torch_weights`` into a
+    pipeline without parameters, and the port's ``load_pipeline``. JAX's
+    loader converts a Wan2.1 VAE as the released file's four stages
+    (``convert_vae21_state_dict``'s ``n_stages`` default); the smoke VAE has
+    three, so the fixture passes that count to it."""
+    import functools
+
+    from test_torch_pipeline import _params
+    from yume_tpu.utils import checkpoint as jcheckpoint
+    from yume_tpu.models.clip import CLIPVisual
+    from yume_tpu.models.dit import WanDiT
+    from yume_tpu.models.t5 import T5Encoder
+    from yume_tpu.models.vae import WanVAE
+    from yume_tpu.pipelines.i2v import I2VPipeline as JaxPipeline
+    from yume_tpu.sample import load_torch_weights
+    from yume_tpu.utils.checkpoint import export_dit_state_dict, save_sharded_safetensors
+
+    d = tmp_path_factory.mktemp("ckpt14b")
+    c = _jax_smoke_config_14b()
+    dit, vae = WanDiT(c.dit, dtype=jnp.float32), WanVAE(c.vae)
+    t5, clip = T5Encoder(c.t5, dtype=jnp.float32), CLIPVisual(c.clip)
+    ids = jnp.zeros((1, 32), jnp.int32)
+    src = JaxPipeline(
+        c, dit, _params(dit, 71, jnp.zeros((1, 3, 8, 8, 18)), jnp.zeros((1, 3)),
+                        jnp.zeros((1, 32, 32)), packed=False,
+                        clip_context=jnp.zeros((1, 5, 12))),
+        vae, _params(vae, 72, jnp.zeros((1, 5, 32, 32, 3))),
+        t5, _params(t5, 73, ids, jnp.ones_like(ids)),
+        clip, _params(clip, 74, jnp.zeros((1, 16, 16, 3))))
+    sds = convert.pipeline_state_dicts(src)
+    save_sharded_safetensors(export_dit_state_dict(src.dit_params, c.dit.num_layers), str(d))
+    released_clip = {f"visual.{k}": torch.from_numpy(v) for k, v in sds["clip"].items()}
+    released_clip["visual.transformer.1.norm1.weight"] = torch.ones(12)
+    released_clip["textual.token_embedding.weight"] = torch.zeros(4, 12)
+    torch.save(released_clip, str(d / sample.CLIP_FILE))
+    for name, key in ((sample.VAE21_FILE, "vae"), (sample.T5_FILE, "t5")):
+        torch.save({k: torch.from_numpy(v) for k, v in sds[key].items()}, str(d / name))
+    jpipe = JaxPipeline(c, dit, None, vae, None, t5, None, clip, None)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcheckpoint, "convert_vae21_state_dict",
+                   functools.partial(jcheckpoint.convert_vae21_state_dict,
+                                     n_stages=len(c.vae.dim_mult)))
+        load_torch_weights(jpipe, str(d))
+    with torch_threads(2):
+        args = sample.build_argparser().parse_args(
+            ["--config", "i2v-14B", "--smoke", "--device", "cpu", "--ckpt_dir", str(d)])
+        cfg, tpipe = sample.load_pipeline(args)
+        yield d, sds, jpipe, tpipe
+
+
+def test_smoke_config_14b_is_the_references():
+    from yume_tpu_torch.configs import i2v_14b
+
+    assert sample.smoke_config(i2v_14b()) == port_config(_jax_smoke_config_14b())
+
+
+def test_released_layout_14b_loads_whole(released_14b):
+    d, sds, _, tpipe = released_14b
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    assert isinstance(tpipe, I2VPipeline)
+    for name, module in (("dit", tpipe.dit), ("vae", tpipe.vae), ("t5", tpipe.t5),
+                         ("clip", tpipe.clip)):
+        got = module.state_dict()
+        assert set(got) == set(sds[name]), name
+        for k, v in sds[name].items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+
+def test_released_layout_14b_generate_matches_jax(released_14b):
+    """The umT5 context and ``generate`` (an image segment, 5 frames of
+    32×32, 2 CFG Euler steps) on JAX's noise: latents and video."""
+    import jax
+
+    from yume_tpu_torch.data.tokenizer import Tokenizer
+
+    _, _, jpipe, tpipe = released_14b
+    tok = Tokenizer(seq_len=32, vocab_size=4096, warn_fallback=False)
+    ctxs = []
+    for text in ("Person moves forward (W).", ""):
+        ids, mask = tok([text])
+        jctx = jpipe.encode_text(jnp.asarray(ids), jnp.asarray(mask))
+        tctx = tpipe.encode_text(ids, mask)
+        assert_close(tctx, jctx, CTX_TOL)
+        ctxs.append((jctx, tctx))
+    img = np.random.default_rng(75).uniform(-1, 1, (1, 1, 32, 32, 3)).astype(np.float32)
+    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (1, 3, 8, 8, 8), jnp.float32))
+    want_lat, want_video = jpipe.generate(jnp.asarray(img), ctxs[0][0], ctxs[1][0],
+                                          frame_num=5, steps=2)
+    got_lat, got_video = tpipe.generate(torch.from_numpy(img), ctxs[0][1], ctxs[1][1],
+                                        frame_num=5, steps=2, noise=torch.from_numpy(noise))
+    assert np.abs(np.asarray(want_lat)[:, -2:] - noise[:, -2:]).max() > 1e-2
+    assert_close(got_lat, want_lat, LATENT_TOL)
+    assert_close(got_video, want_video, VIDEO_TOL)
+
+
+def test_released_layout_14b_is_strict(released_14b, tmp_path):
+    d, sds, _, tpipe = released_14b
+    for name in (sample.T5_FILE, sample.VAE21_FILE):
+        os.symlink(d / name, tmp_path / name)
+    with pytest.raises(RuntimeError, match=f"missing: DiT .*{sample.CLIP_FILE}"):
+        sample.load_torch_weights(tpipe.config, str(tmp_path), device="cpu")
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    clip = dict(sds["clip"])
+    clip.pop("pre_norm.bias")
+    with pytest.raises(KeyError, match="lacks 1 keys"):
+        I2VPipeline.from_state_dicts(tpipe.config, sds["dit"], sds["vae"], clip_sd=clip,
+                                     device="cpu", dtype=torch.float32)
+
+
+MODES_14B = {
+    "euler": [],
+    "teacache": ["--teacache"],
+    "teacache_interval": ["--teacache", "--teacache_interval", "2"],
+    "sde_time_travel": ["--sde", "--time_travel"],
+    "distilled": ["--distilled"],
+    "w8a8": ["--w8a8"],
+    "memory_optimization": ["--memory_optimization", "--caption_file", "{captions}"],
+}
+# the first segment's (sampler, teacache_interval, teacache_threshold)
+GENERATE_KW_14B = {"euler": ("euler", 3, None), "teacache": ("teacache", 3, 0.1),
+                   "teacache_interval": ("teacache", 2, None),
+                   "sde_time_travel": ("tts", 3, None), "distilled": ("euler", 3, None),
+                   "w8a8": ("euler", 3, None), "memory_optimization": ("euler", 3, None)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES_14B))
+def test_main_14b_writes_segments(mode, inputs, tmp_path, monkeypatch):
+    """``--config i2v-14B --jpg_dir`` with 2 samples: ``generate`` with the
+    mode's sampler writes ``segment_000``, one ``generate_next`` of 32
+    frames (Euler, as the reference passes no sampler) writes
+    ``segment_001``; ``ctx_null`` is the negative prompt's context unless
+    ``--distilled``. Under ``--memory_optimization`` umT5 waits on the host
+    while the DiT runs, and the VAE and CLIP while umT5 runs."""
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    seen, nexts, devices = [], [], []
+    real_gen, real_next = I2VPipeline.generate, I2VPipeline.generate_next
+
+    def spy_gen(self, frames, ctx, ctx_null, **kw):
+        if not kw.get("history_mode"):
+            seen.append((kw["sampler"], kw["teacache_interval"], kw["teacache_threshold"],
+                         ctx_null is None, tuple(frames.shape)))
+        real_dit = self.dit.forward
+
+        def dit_forward(*a, **k):
+            devices.append((next(self.t5.parameters()).device.type,
+                            next(self.vae.parameters()).device.type,
+                            next(self.clip.parameters()).device.type))
+            return real_dit(*a, **k)
+        self.dit.forward = dit_forward
+        try:
+            return real_gen(self, frames, ctx, ctx_null, **kw)
+        finally:
+            del self.dit.forward
+
+    def spy_next(self, video, ctx, ctx_null, **kw):
+        nexts.append((tuple(video.shape), kw, ctx_null is None))
+        return real_next(self, video, ctx, ctx_null, **kw)
+
+    monkeypatch.setattr(I2VPipeline, "generate", spy_gen)
+    monkeypatch.setattr(I2VPipeline, "generate_next", spy_next)
+    fill = dict(captions=str(inputs / "captions.txt"))
+    argv = [a.format(**fill) for a in MODES_14B[mode]]
+    with torch_threads(2):
+        assert sample.main(["--config", "i2v-14B", "--smoke", "--device", "cpu",
+                            "--jpg_dir", str(inputs / "jpg"), "--sample_num", "2",
+                            "--output_dir", str(tmp_path)] + argv) == 0
+    for s in range(2):
+        assert os.path.getsize(tmp_path / f"segment_{s:03d}.mp4") > 0, s
+    assert not os.path.exists(tmp_path / "segment_002.mp4")
+    distilled = mode == "distilled"
+    assert seen == [GENERATE_KW_14B[mode] + (distilled, (1, 1, 32, 32, 3))]
+    assert len(nexts) == 1
+    shape, kw, no_null = nexts[0]
+    assert shape == (1, 5, 32, 32, 3) and kw["frame_zero"] == 32 and no_null == distilled
+    assert "sampler" not in kw and kw["seed"] == 1
+    if mode == "memory_optimization":
+        assert devices and all(d == ("cpu", "cpu", "cpu") for d in devices)

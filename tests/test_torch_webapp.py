@@ -153,3 +153,22 @@ def test_index_ui_bilingual(server):
                    "/api/generate_long", "/api/refine_prompt", "/api/log/tail",
                    "/api/status", "continue_from_last", "image_b64"):
         assert marker in html, marker
+
+
+def test_status_reads_generating_once_started(server, monkeypatch):
+    """A status poll right after ``started`` reads ``generating``, however
+    late the request's thread gets going (a client that polled until the
+    status left ``generating`` read the previous request's ``loaded`` or
+    ``done`` when it polled first)."""
+    port, app = server
+    assert _post(port, "/api/load", {})["status"] in ("loaded", "done")
+    before, go = app.status, threading.Event()
+    monkeypatch.setattr(app, "_generate", lambda req: go.wait(timeout=60))
+    try:
+        assert _post(port, "/api/generate_long", {"mode": "t2v"})["status"] == "started"
+        assert _get(port, "/api/status")["status"] == "generating"
+    finally:
+        go.set()
+        assert app.lock.acquire(timeout=60)
+        app.lock.release()
+        app.status = before

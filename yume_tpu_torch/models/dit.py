@@ -47,10 +47,17 @@ rank shards the tokens (:mod:`..parallel.sp_forward`); ``attn_fn`` replaces
 the blocks' self-attention, while the cross-attention stays local against
 the replicated text, as in the reference.
 
+The 14B i2v model (``cfg.image_context_len`` > 0) adds the CLIP branch:
+``img_emb`` (LayerNorm, Linear, exact GELU, Linear, LayerNorm; eps 1e-6 as
+the reference's flax LayerNorm) embeds the 257 CLIP tokens, which go in
+front of the embedded text, and every block's cross-attention is
+:class:`I2VCrossAttention`: K1 over the text keys and over the image keys,
+the two outputs summed in x's dtype.
+
 Ported: the FramePack-packed forward (``forward``), the unpacked
 forward over every frame at full resolution (``packed=False``, the t2v
-first segment: one AdaLN table row per latent frame, grid RoPE) and MVDT.
-Not ported yet: the 14B branch.
+first segment: one AdaLN table row per latent frame, grid RoPE), MVDT and
+the 14B i2v branch (``clip_context``).
 """
 
 from __future__ import annotations
@@ -240,6 +247,49 @@ class CrossAttention(nn.Module):
         return _dense(o, self.o, x.dtype)
 
 
+class I2VCrossAttention(CrossAttention):
+    """14B image and text cross-attention (reference
+    wan/modules/model.py:336-400): the context is the 257 embedded CLIP
+    tokens followed by the text; separate k/v projections for the image
+    tokens (``k_img``, ``v_img``, ``norm_k_img``), one attention over each
+    part with the same q (K1 twice), the outputs summed in x's dtype."""
+
+    def __init__(self, cfg: DiTConfig, *, device=None, dtype=None):
+        super().__init__(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.k_img = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.v_img = nn.Linear(cfg.dim, cfg.dim, **kw)
+        if cfg.qk_norm:
+            self.norm_k_img = RMSNorm(cfg.dim, cfg.eps, **kw)
+
+    def forward(self, x, context):
+        c = self.cfg
+        b, l, _ = x.shape
+        n, d = c.num_heads, c.head_dim
+        ctx_img, ctx_txt = context[:, :c.image_context_len], context[:, c.image_context_len:]
+        if c.w8a8:
+            q = _w8a8_dense(x, self, "q", (self.q,))
+        else:
+            q = _dense(x, self.q, x.dtype)
+        if c.qk_norm:
+            q = fused_adaln.rms_norm(q, self.norm_q.weight, eps=c.eps)
+        q = q.reshape(b, l, n, d)
+        # the context-side projections stay exact (512 text and 257 image rows)
+        k = _dense(ctx_txt, self.k, x.dtype)
+        v = _dense(ctx_txt, self.v, x.dtype)
+        k_img = _dense(ctx_img, self.k_img, x.dtype)
+        v_img = _dense(ctx_img, self.v_img, x.dtype)
+        if c.qk_norm:
+            k = self.norm_k(k)
+            k_img = self.norm_k_img(k_img)
+        o_txt = attention(q, k.reshape(b, -1, n, d), v.reshape(b, -1, n, d))
+        o_img = attention(q, k_img.reshape(b, -1, n, d), v_img.reshape(b, -1, n, d))
+        o = (o_txt + o_img).reshape(b, l, c.dim)
+        if c.w8a8:
+            return _w8a8_dense(o, self, "o", (self.o,))
+        return _dense(o, self.o, x.dtype)
+
+
 class DiTBlock(nn.Module):
     """AdaLN-modulated self-attn + cross-attn + FFN block (reference
     WanAttentionBlock). ``attn_fn``/``kv_len`` go to the self-attention
@@ -252,7 +302,8 @@ class DiTBlock(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.modulation = nn.Parameter(torch.zeros(1, 6, cfg.dim, **kw))
         self.self_attn = SelfAttention(cfg, **kw)
-        self.cross_attn = CrossAttention(cfg, **kw)
+        cross_cls = I2VCrossAttention if cfg.image_context_len else CrossAttention
+        self.cross_attn = cross_cls(cfg, **kw)
         if cfg.cross_attn_norm:
             self.norm3 = nn.LayerNorm(cfg.dim, eps=cfg.eps, **kw)
         self.ffn = nn.Sequential(nn.Linear(cfg.dim, cfg.ffn_dim, **kw),
@@ -460,6 +511,13 @@ class WanDiT(nn.Module):
             nn.Linear(cfg.dim, cfg.dim, **kw))
         self.time_projection = nn.Sequential(
             nn.SiLU(), nn.Linear(cfg.dim, 6 * cfg.dim, **kw))
+        if cfg.image_context_len:
+            # MLPProj of the 14B CLIP branch (reference wan/modules/model.py:530-541)
+            self.img_emb = nn.Module()
+            self.img_emb.proj = nn.Sequential(
+                nn.LayerNorm(cfg.image_dim, eps=1e-6, **kw),
+                nn.Linear(cfg.image_dim, cfg.image_dim, **kw), nn.GELU(),
+                nn.Linear(cfg.image_dim, cfg.dim, **kw), nn.LayerNorm(cfg.dim, eps=1e-6, **kw))
         self.blocks = nn.ModuleList(DiTBlock(cfg, **kw) for _ in range(cfg.num_layers))
         self.head = Head(cfg, **kw)
         if cfg.mvdt:
@@ -504,8 +562,29 @@ class WanDiT(nn.Module):
         h = _gelu(_dense(context, self.text_embedding[0], self.dtype))
         return _dense(h, self.text_embedding[2], self.dtype)
 
-    def _context(self, context: torch.Tensor) -> torch.Tensor:
-        return self._text_embed(context)
+    def _img_embed(self, clip_ctx: torch.Tensor) -> torch.Tensor:
+        """The 14B MLPProj of the CLIP tokens: fp32 LayerNorm, Linear, exact
+        GELU, Linear in the compute dtype, fp32 LayerNorm, cast back."""
+        ln1, fc1, _, fc2, ln2 = self.img_emb.proj
+        f32 = torch.float32
+
+        def norm(x, ln):
+            return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                                ln.bias.float(), ln.eps)
+
+        h = F.gelu(_dense(norm(clip_ctx, ln1), fc1, self.dtype))
+        return norm(_dense(h, fc2, self.dtype).to(f32), ln2).to(self.dtype)
+
+    def _context(self, context: torch.Tensor,
+                 clip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The embedded text, after the embedded CLIP tokens for the 14B
+        i2v model."""
+        ctx = self._text_embed(context)
+        if self.cfg.image_context_len:
+            if clip_context is None:
+                raise ValueError("the i2v model needs clip_context")
+            ctx = torch.cat([self._img_embed(clip_context), ctx], dim=1)
+        return ctx
 
     def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin,
                mvdt: Optional[dict] = None, block_cache=None,
@@ -584,7 +663,8 @@ class WanDiT(nn.Module):
 
     def forward(self, x: torch.Tensor, t_frame: torch.Tensor, context: torch.Tensor,
                 *, packed: bool = True, latent_frame_zero: int = 8,
-                mvdt_noise=None, mvdt_keep: Optional[int] = None,
+                clip_context: Optional[torch.Tensor] = None, mvdt_noise=None,
+                mvdt_keep: Optional[int] = None,
                 block_cache: Optional[List[torch.Tensor]] = None,
                 cache_list: Tuple[int, ...] = (), return_cache: bool = False):
         """Velocity for the trailing ``latent_frame_zero`` frames (packed),
@@ -592,7 +672,8 @@ class WanDiT(nn.Module):
         resolution, no FramePack history).
 
         x: [B, F, H, W, C_in] channels-last latents; t_frame: [B, F]
-        per-frame timesteps (0..1000); context: [B, text_len, text_dim].
+        per-frame timesteps (0..1000); context: [B, text_len, text_dim];
+        clip_context: [B, 257, image_dim] CLIP features (the 14B i2v model).
         Returns [B, latent_frame_zero, H, W, C_out] ([B, F, H, W, C_out]
         unpacked) in fp32, and with
         ``return_cache`` also the residuals of the ``cache_list`` blocks;
@@ -600,8 +681,8 @@ class WanDiT(nn.Module):
         ``mvdt_noise`` ([B, L] uniform noise or a ``torch.Generator``) with
         ``mvdt_keep`` runs the MVDT masked pass on ``mvdt_keep`` of the L
         tokens (see :meth:`_maybe_mask`)."""
-        emb = (self.embed_packed(x, t_frame, context, latent_frame_zero) if packed
-               else self.embed_unpacked(x, t_frame, context))
+        emb = (self.embed_packed(x, t_frame, context, latent_frame_zero, clip_context)
+               if packed else self.embed_unpacked(x, t_frame, context, clip_context))
         out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
                               emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
                               mvdt_keep=mvdt_keep, block_cache=block_cache,
@@ -612,12 +693,13 @@ class WanDiT(nn.Module):
 
     # -- token-level entry points for sequence parallelism --------------------
 
-    def embed_packed(self, x, t_frame, context, latent_frame_zero):
+    def embed_packed(self, x, t_frame, context, latent_frame_zero, clip_context=None):
         """Embedding and conditioning of the packed forward, without the
         blocks: a dict of the packed tokens [B, L, dim], the distinct
         timesteps ``t_values`` [B, 2] (history, tail), the per-token index
         ``idx`` [B, L], the embedded text ``ctx``, the RoPE tables ``cos``
-        and ``sin`` [L, D/2], ``l_hist`` and the tail's token grid. A
+        and ``sin`` [L, D/2], ``l_hist`` and the tail's token grid
+        (``clip_context``: see :meth:`forward`). A
         sequence-parallel forward embeds on every rank and shards the token
         axis between this and :meth:`trunk_head` (the reference's
         sp_dit_forward, wan23/distributed/sequence_parallel.py:64-146)."""
@@ -647,12 +729,13 @@ class WanDiT(nn.Module):
         t_vals = torch.stack([t_frame[:, 0], t_frame[:, -1]], dim=1).float()
         idx = (torch.arange(l, device=x.device) >= l_hist).to(torch.int32)
         return dict(tokens=tokens, t_values=t_vals,
-                    idx=idx[None, :].expand(b, l).contiguous(), ctx=self._context(context),
+                    idx=idx[None, :].expand(b, l).contiguous(),
+                    ctx=self._context(context, clip_context),
                     cos=torch.from_numpy(cos).to(x.device),
                     sin=torch.from_numpy(sin).to(x.device),
                     l_hist=l_hist, tail_grid=tail_grid)
 
-    def embed_unpacked(self, x, t_frame, context):
+    def embed_unpacked(self, x, t_frame, context, clip_context=None):
         """Embedding and conditioning of the unpacked forward, with the keys
         of :meth:`embed_packed`: every frame's tokens at full resolution
         [B, L, dim], ``t_values`` = ``t_frame`` [B, F] in fp32 (one table
@@ -667,8 +750,9 @@ class WanDiT(nn.Module):
         cos, sin = _grid_rope_on((gf, gh, gw), c.head_dim, c.rope_max_len, c.rope_theta,
                                  x.device)
         return dict(tokens=tokens, t_values=t_frame.float(),
-                    idx=idx[None, :].expand(b, l).contiguous(), ctx=self._context(context),
-                    cos=cos, sin=sin, l_hist=0, tail_grid=(gf, gh, gw))
+                    idx=idx[None, :].expand(b, l).contiguous(),
+                    ctx=self._context(context, clip_context), cos=cos, sin=sin,
+                    l_hist=0, tail_grid=(gf, gh, gw))
 
     def trunk_head(self, tokens, t_values, idx, ctx, cos, sin, *, attn_fn=None,
                    kv_len=None, mvdt_noise=None, mvdt_keep=None, block_cache=None,

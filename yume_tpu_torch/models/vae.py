@@ -1,13 +1,17 @@
-"""Wan2.2 causal 3D video VAE, encoder and decoder, in PyTorch
-(counterpart of yume_tpu/models/vae.py).
+"""The Wan2.2 and Wan2.1 causal 3D video VAEs, encoder and decoder, in
+PyTorch (counterpart of yume_tpu/models/vae.py).
 
 Public tensors are channels-last ``[B, T, H, W, C]`` as in the reference;
 inside, the encoder and decoder run channels-first ``[B, C, T, H, W]`` for
 ``F.conv3d``, converting at :meth:`WanVAE.encode`, :meth:`WanVAE.decode`
 and their chunk forms. Parameter names and shapes follow the reference
-torch VAE (``encoder.downsamples.{i}.downsamples.{j}.residual.2``,
-``decoder.upsamples.{i}.upsamples.{j}...``, ``...resample.1``,
-``...time_conv`` ...), so a released state dict loads as it is.
+torch VAEs (Wan2.2: ``encoder.downsamples.{i}.downsamples.{j}.residual.2``,
+``decoder.upsamples.{i}.upsamples.{j}...``; Wan2.1, ``cfg.arch`` 'wan21':
+flat ``encoder.downsamples.{k}`` and ``decoder.upsamples.{k}`` lists of
+residual blocks and resamples; both ``...resample.1``, ``...time_conv``
+...), so a released state dict (``Wan2.2_VAE.pth``, ``Wan2.1_VAE.pth``)
+loads as it is. The Wan2.1 stages have no average-pool or repeat
+shortcuts, and its upsamples halve the channels.
 
 Semantics are the reference's cached (streaming) encode and decode:
 
@@ -24,8 +28,7 @@ The VAE holds no Pallas kernel, so its convolutions go to cuDNN. Each layer
 computes in the dtype of its input, casting its weights to it.
 
 Ported: ``encode``, ``encode_chunk``, :func:`streaming_encode`, ``decode``,
-``decode_chunk`` and :func:`streaming_decode`. Not ported yet: the Wan2.1
-variant (ROADMAP queue 1, item 6).
+``decode_chunk`` and :func:`streaming_decode`, for both variants.
 """
 
 from __future__ import annotations
@@ -55,6 +58,16 @@ WAN22_LATENT_STD = np.array([
     0.7069, 0.5338, 0.4889, 0.4917, 0.4069, 0.4999, 0.6866, 0.4093,
     0.5709, 0.6065, 0.6415, 0.4944, 0.5726, 1.2042, 0.5458, 1.6887,
     0.3971, 1.0600, 0.3943, 0.5537, 0.5444, 0.4089, 0.7468, 0.7744,
+], np.float32)
+
+# Wan2.1 16-channel latent normalisation
+WAN21_LATENT_MEAN = np.array([
+    -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921,
+], np.float32)
+WAN21_LATENT_STD = np.array([
+    2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+    3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160,
 ], np.float32)
 
 
@@ -229,13 +242,17 @@ def dup_up3d(x, out_ch: int, ft: int, fs: int, first_chunk: bool):
 class Upsample(nn.Module):
     """Spatial (and optionally temporal) upsample (reference Resample
     'upsample2d' / 'upsample3d'). ``resample.1`` is the 3×3 spatial conv
-    after the nearest 2× upsample; ``time_conv`` doubles the frame count."""
+    after the nearest 2× upsample, to ``out_dim`` channels (``dim`` when
+    None; the Wan2.1 upsamples halve them); ``time_conv`` doubles the frame
+    count."""
 
-    def __init__(self, dim: int, temporal: bool, *, device=None, dtype=None):
+    def __init__(self, dim: int, temporal: bool, out_dim: int | None = None, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.temporal = temporal
-        self.resample = nn.Sequential(nn.Identity(), nn.Conv2d(dim, dim, 3, **kw))
+        self.resample = nn.Sequential(nn.Identity(),
+                                      nn.Conv2d(dim, out_dim or dim, 3, **kw))
         if temporal:
             self.time_conv = nn.Conv3d(dim, 2 * dim, (3, 1, 1), **kw)
 
@@ -425,29 +442,103 @@ class Decoder3d(nn.Module):
         return self.head[2](F.silu(self.head[0](x)), io)
 
 
+class Wan21Encoder3d(nn.Module):
+    """The Wan2.1 encoder (reference wan/modules/vae.py:265-366): residual
+    blocks and downsamples in one flat ``downsamples`` list, no shortcuts
+    around the stages."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        mults = tuple(cfg.dim_mult)
+        dims = [cfg.base_dim * m for m in (1,) + mults]
+        t_down = tuple(cfg.temporal_downsample)
+        self.conv1 = CausalConv3d(3, dims[0], **kw)
+        layers = []
+        for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+            for _ in range(cfg.num_res_blocks):
+                layers.append(ResBlock(din, dout, **kw))
+                din = dout
+            if i != len(mults) - 1:
+                layers.append(Downsample(dout, t_down[i] if i < len(t_down) else False,
+                                         **kw))
+        self.downsamples = nn.ModuleList(layers)
+        self.middle = nn.ModuleList([ResBlock(dims[-1], dims[-1], **kw),
+                                     SpatialAttention(dims[-1], **kw),
+                                     ResBlock(dims[-1], dims[-1], **kw)])
+        self.head = nn.ModuleList([ChannelRMSNorm(dims[-1], **kw), nn.SiLU(),
+                                   CausalConv3d(dims[-1], 2 * cfg.z_dim, **kw)])
+
+    forward = Encoder3d.forward
+
+
+class Wan21Decoder3d(nn.Module):
+    """The Wan2.1 decoder (reference wan/modules/vae.py:369-460): residual
+    blocks and upsamples in one flat ``upsamples`` list, each upsample
+    halving the channels and the next stage's input halved to match."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        mults = tuple(cfg.dim_mult)
+        dims = [cfg.base_dim * m for m in (mults[-1],) + mults[::-1]]
+        t_up = tuple(reversed(cfg.temporal_downsample))
+        self.conv1 = CausalConv3d(cfg.z_dim, dims[0], **kw)
+        self.middle = nn.ModuleList([ResBlock(dims[0], dims[0], **kw),
+                                     SpatialAttention(dims[0], **kw),
+                                     ResBlock(dims[0], dims[0], **kw)])
+        layers = []
+        for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+            d = din // 2 if i in (1, 2, 3) else din
+            for _ in range(cfg.num_res_blocks + 1):
+                layers.append(ResBlock(d, dout, **kw))
+                d = dout
+            if i != len(mults) - 1:
+                layers.append(Upsample(dout, t_up[i] if i < len(t_up) else False,
+                                       out_dim=dout // 2, **kw))
+        self.upsamples = nn.ModuleList(layers)
+        self.head = nn.ModuleList([ChannelRMSNorm(dims[-1], **kw), nn.SiLU(),
+                                   CausalConv3d(dims[-1], 3, **kw)])
+
+    def forward(self, z, first_chunk: bool = True, io: CacheIO | None = None):
+        x = self.conv1(z, io)
+        x = self.middle[0](x, io)
+        x = self.middle[1](x)
+        x = self.middle[2](x, io)
+        for layer in self.upsamples:
+            x = layer(x, first_chunk, io) if isinstance(layer, Upsample) else layer(x, io)
+        return self.head[2](F.silu(self.head[0](x)), io)
+
+
 class WanVAE(nn.Module):
-    """Wan2.2 VAE with latent normalisation: the encoder (``encoder``, then
+    """The Wan VAE with latent normalisation: the encoder (``encoder``, then
     ``conv1`` to mean and log-variance) and the decoder (``conv2``, then
-    ``decoder``)."""
+    ``decoder``); Wan2.2's stages or, with ``cfg.arch`` 'wan21', Wan2.1's."""
 
     def __init__(self, cfg: VAEConfig, dec_dim: int = 256, *, device=None,
                  dtype=None):
         super().__init__()
-        if cfg.arch != "wan22":
-            raise NotImplementedError(
-                "only the Wan2.2 VAE is ported; the Wan2.1 VAE comes with the 14B "
-                "modules (ROADMAP queue 1, item 6)")
+        if cfg.arch not in ("wan22", "wan21"):
+            raise ValueError(f"unknown VAE arch {cfg.arch!r}")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.encoder = Encoder3d(cfg, **kw)
+        if cfg.arch == "wan21":
+            self.encoder = Wan21Encoder3d(cfg, **kw)
+        else:
+            self.encoder = Encoder3d(cfg, **kw)
         self.conv1 = CausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim, (1, 1, 1), **kw)
-        self.decoder = Decoder3d(cfg, dec_dim, **kw)
+        if cfg.arch == "wan21":
+            self.decoder = Wan21Decoder3d(cfg, **kw)
+        else:
+            self.decoder = Decoder3d(cfg, dec_dim, **kw)
         self.conv2 = CausalConv3d(cfg.z_dim, cfg.z_dim, (1, 1, 1), **kw)
 
     def _scale(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         z = self.cfg.z_dim
         if z == len(WAN22_LATENT_MEAN):
             mean, std = WAN22_LATENT_MEAN, WAN22_LATENT_STD
+        elif z == len(WAN21_LATENT_MEAN):
+            mean, std = WAN21_LATENT_MEAN, WAN21_LATENT_STD
         else:
             mean, std = np.zeros(z, np.float32), np.ones(z, np.float32)
         return (torch.from_numpy(mean).to(device), torch.from_numpy(std).to(device))
@@ -460,7 +551,7 @@ class WanVAE(nn.Module):
 
     def encode(self, video: torch.Tensor) -> torch.Tensor:
         """Video [B, T, H, W, 3] in [-1, 1] → normalised latent
-        [B, 1+(T-1)/4, H/16, W/16, z] (the mean; fp32)."""
+        [B, 1+(T-1)/s_t, H/s, W/s, z] (the mean; fp32)."""
         return self._encode(video, None)
 
     def encode_chunk(self, chunk, caches):
@@ -478,7 +569,7 @@ class WanVAE(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Normalised latent [B, Tz, h, w, z] → video
-        [B, 1+(Tz-1)*4, h*16, w*16, 3] in [-1, 1]."""
+        [B, 1+(Tz-1)*s_t, h*s, w*s, 3] in [-1, 1]."""
         return self._decode(z, True, None)
 
     def decode_chunk(self, z_chunk, caches):

@@ -21,8 +21,8 @@ rollout; the segment samplers ``euler`` (with ``progress_cb``),
 ``sde``, ``time_travel`` and ``tts`` (both); W8A8 through
 ``config.dit.w8a8`` (:meth:`TI2VPipeline.with_w8a8` builds it on the same
 DiT parameters), in both forwards; the VAE encode and the width-tiled
-decode (:meth:`TI2VPipeline.decode_tiled`). Not ported yet: the 14B i2v
-entry points (ROADMAP queue 1, item 6).
+decode (:meth:`TI2VPipeline.decode_tiled`). The 14B i2v pipeline is
+:mod:`.i2v`.
 
 Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
 ``sp_groups`` set, the pipeline is one rank of a run in which every rank
@@ -87,6 +87,43 @@ def _random_init_(module: nn.Module, generator: torch.Generator, std: float = 0.
             p.zero_()
 
 
+def module_factories(config: PipelineConfig, dtype: torch.dtype):
+    """The DiT's, the VAE's and umT5's factories (``factory(device=...)``),
+    stored and computed in ``dtype``."""
+    return (lambda device: WanDiT(config.dit, dtype, device=device, param_dtype=dtype),
+            lambda device: WanVAE(config.vae, device=device, dtype=dtype),
+            lambda device: T5Encoder(config.t5, dtype, device=device, param_dtype=dtype))
+
+
+def build_modules(factories, device, *, generator: Optional[torch.Generator] = None,
+                  state_dicts: Optional[tuple] = None) -> list:
+    """One module a factory (None: left out), built on ``device`` in eval
+    mode: loaded strictly from the state dict in the same place of
+    ``state_dicts`` or, without them, drawn in order from ``generator``."""
+    out = []
+    for i, factory in enumerate(factories):
+        module = None
+        if factory is not None:
+            module = _materialize(factory, device)
+            if state_dicts is None:
+                _random_init_(module, generator)
+            else:
+                load_state_dict(module, state_dicts[i])
+            module.eval()
+        out.append(module)
+    return out
+
+
+def w8a8_twin(config: PipelineConfig, dit: WanDiT) -> Tuple[PipelineConfig, WanDiT]:
+    """``config`` with ``dit.w8a8`` on, and a second ``WanDiT`` in that mode
+    whose parameters are ``dit``'s own tensors (no copy). Its int8 weights
+    are made on first use."""
+    dit_cfg = dataclasses.replace(config.dit, w8a8=True)
+    twin = WanDiT(dit_cfg, dit.dtype, device="meta")
+    twin.load_state_dict(dit.state_dict(), assign=True)
+    return dataclasses.replace(config, dit=dit_cfg), twin.eval()
+
+
 @dataclasses.dataclass(eq=False)
 class TI2VPipeline:
     """The 5B generation stack: DiT, VAE and (optionally) umT5."""
@@ -116,18 +153,9 @@ class TI2VPipeline:
         and initialised directly on ``device`` from a seeded
         ``torch.Generator`` (real weights come from checkpoints)."""
         gen = torch.Generator(device=device).manual_seed(seed)
-        dit = _materialize(lambda device: WanDiT(
-            config.dit, dtype, device=device, param_dtype=dtype), device)
-        vae = _materialize(lambda device: WanVAE(
-            config.vae, device=device, dtype=dtype), device)
-        t5 = None
-        if init_t5:
-            t5 = _materialize(lambda device: T5Encoder(
-                config.t5, dtype, device=device, param_dtype=dtype), device)
-        for m in (dit, vae, t5):
-            if m is not None:
-                _random_init_(m, gen)
-        return cls(config, dit.eval(), vae.eval(), t5.eval() if t5 is not None else None)
+        dit_f, vae_f, t5_f = module_factories(config, dtype)
+        return cls(config, *build_modules((dit_f, vae_f, t5_f if init_t5 else None), device,
+                                          generator=gen))
 
     @classmethod
     def from_state_dicts(cls, config: PipelineConfig, dit_sd: Mapping,
@@ -135,31 +163,18 @@ class TI2VPipeline:
                          device="cuda",
                          dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Pipeline from reference-named state dicts (torch tensors or numpy
-        arrays, e.g. from :mod:`..utils.convert`), stored and computed in
-        ``dtype``."""
-        dit = _materialize(lambda device: WanDiT(
-            config.dit, dtype, device=device, param_dtype=dtype), device)
-        load_state_dict(dit, dit_sd)
-        vae = _materialize(lambda device: WanVAE(
-            config.vae, device=device, dtype=dtype), device)
-        load_state_dict(vae, vae_sd)
-        t5 = None
-        if t5_sd is not None:
-            t5 = _materialize(lambda device: T5Encoder(
-                config.t5, dtype, device=device, param_dtype=dtype), device)
-            load_state_dict(t5, t5_sd)
-        return cls(config, dit.eval(), vae.eval(), t5.eval() if t5 is not None else None)
+        arrays, e.g. from :mod:`..utils.convert`), loaded strictly, stored
+        and computed in ``dtype``."""
+        dit_f, vae_f, t5_f = module_factories(config, dtype)
+        return cls(config, *build_modules(
+            (dit_f, vae_f, t5_f if t5_sd is not None else None), device,
+            state_dicts=(dit_sd, vae_sd, t5_sd)))
 
     def with_w8a8(self) -> "TI2VPipeline":
-        """This pipeline with ``config.dit.w8a8`` on: a second ``WanDiT``
-        whose parameters are this one's own tensors (no copy), beside the
-        same VAE and text encoder. Its int8 weights are made on first use."""
-        dit_cfg = dataclasses.replace(self.config.dit, w8a8=True)
-        dit = WanDiT(dit_cfg, self.dit.dtype, device="meta")
-        dit.load_state_dict(self.dit.state_dict(), assign=True)
-        return dataclasses.replace(
-            self, config=dataclasses.replace(self.config, dit=dit_cfg),
-            dit=dit.eval(), last_teacache_n_full=None)
+        """This pipeline with ``config.dit.w8a8`` on (:func:`w8a8_twin`),
+        beside the same VAE and text encoder."""
+        config, dit = w8a8_twin(self.config, self.dit)
+        return dataclasses.replace(self, config=config, dit=dit, last_teacache_n_full=None)
 
     # -- conditioning --------------------------------------------------------
 

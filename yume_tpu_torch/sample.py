@@ -1,27 +1,39 @@
-"""Sampling entry point of the 5B model: a text-to-video or image-conditioned
-first segment, then autoregressive continuation segments, one per caption
-(counterpart of yume_tpu/sample.py).
+"""Sampling entry point (counterpart of yume_tpu/sample.py). The 5B model
+(``--config ti2v-5B``): a text-to-video or image-conditioned first segment,
+then autoregressive continuation segments, one per caption. The 14B model
+(``--config i2v-14B``, Yume-1.0): an image-conditioned first segment of
+``frame_num`` frames with classifier-free guidance, then one
+``generate_next`` of 32 new frames per caption, each re-conditioned on the
+whole video so far.
 
     python -m yume_tpu_torch.sample --smoke --device cpu --t2v --sample_num 2
     python -m yume_tpu_torch.sample --t2v --steps 4 --w8a8 --teacache   # 5B on the card
     python -m yume_tpu_torch.sample --jpg_dir ./jpg --caption_file caption.txt \
         --ckpt_dir ./Yume-5B-720P
+    python -m yume_tpu_torch.sample --config i2v-14B --smoke --device cpu \
+        --jpg_dir ./jpg --sample_num 2
+    python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir ./jpg --width 960 \
+        --height 544 --steps 50 --ckpt_dir ./Yume-I2V-540P   # 14B on the card
 
 Same flags as the reference's CLI, plus ``--device`` (default ``cuda``).
 ``--smoke`` runs the reference's tiny smoke config; the model computes in
 fp32 on the CPU and in bf16 on the card. Without ``--ckpt_dir`` the weights
 are random, made from ``--seed`` (speed and capability runs only);
 ``--ckpt_dir`` loads the released layout (DiT safetensors, sharded with an
-index or not, ``Wan2.2_VAE.pth``, ``models_t5_umt5-xxl-enc-bf16.pth``)
-strictly. ``--teacache`` refreshes adaptively at a rel-L1 threshold of 0.1
-(the headline configuration) unless ``--teacache_interval`` asks for a
-fixed interval.
+index or not, ``Wan2.2_VAE.pth`` or for the 14B ``Wan2.1_VAE.pth``,
+``models_t5_umt5-xxl-enc-bf16.pth``, and for the 14B
+``models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``) strictly.
+``--teacache`` refreshes adaptively at a rel-L1 threshold of 0.1 (the
+headline configuration) unless ``--teacache_interval`` asks for a fixed
+interval. The 14B takes ``--distilled`` (one cond-only forward a step, no
+negative prompt); its continuations run Euler whatever the sampler, as the
+reference's.
 
 Not ported, and refused with the ROADMAP queue 1 item that brings them:
-``--config i2v-14B``, ``--distilled``, ``--cfg_parallel``, ``--int8`` and
-``--int4`` (item 6); ``--pp`` (item 8); ``--sp > 1`` (a CLI launch of the
-SP groups, item 4); ``--input_video`` and ``--video_root_dir`` (item 3's
-data path).
+``--cfg_parallel``, ``--int8`` and ``--int4`` (item 6); ``--pp`` (item 8);
+``--sp > 1`` (a CLI launch of the SP groups, item 4); ``--input_video`` and
+``--video_root_dir`` (item 3's data path), and with them a 14B run without
+``--jpg_dir``.
 """
 
 from __future__ import annotations
@@ -40,7 +52,11 @@ import torch
 TEACACHE_THRESHOLD = 0.1
 DIT_FILES = "DiT (*.safetensors [+ diffusion_pytorch_model.safetensors.index.json])"
 VAE_FILE = "Wan2.2_VAE.pth"
+VAE21_FILE = "Wan2.1_VAE.pth"
 T5_FILE = "models_t5_umt5-xxl-enc-bf16.pth"
+CLIP_FILE = "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"
+# pixel frames each 14B continuation adds (the reference's frame_zero)
+I2V_FRAME_ZERO = 32
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -92,7 +108,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help=f"with --teacache: the adaptive refresh threshold (default "
                         f"{TEACACHE_THRESHOLD}); not with --teacache_interval")
     p.add_argument("--distilled", action="store_true",
-                   help="not ported (ROADMAP queue 1, item 6)")
+                   help="14B: distilled weights, one cond-only forward a step (no "
+                        "negative prompt, Euler)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel degree; > 1 is not ported to the CLI "
                         "(ROADMAP queue 1, item 4)")
@@ -103,8 +120,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--w8a8", action="store_true",
                    help="int8 × int8 matmuls for the DiT blocks' projections")
     p.add_argument("--memory_optimization", action="store_true",
-                   help="keep umT5 and the VAE in host memory, each on the device "
-                        "only for its phase")
+                   help="keep umT5 and the VAE (and the 14B's CLIP) in host memory, "
+                        "each on the device only for its phase")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output_dir", default="./outputs")
     p.add_argument("--smoke", action="store_true", help="tiny shapes, random weights")
@@ -123,14 +140,18 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args):
+def refuse_unported(args, webapp: bool = False):
     """NotImplementedError, naming the ROADMAP queue 1 item, for every flag
-    whose path the port does not have yet (the webapp's flags too)."""
+    whose path the port does not have yet (the webapp's flags too: the
+    webapp serves the 5B)."""
+    i2v = args.config == "i2v-14B"
+    if getattr(args, "distilled", False) and not i2v:
+        raise SystemExit("--distilled is the 14B pipeline's cond-only serving "
+                         "(--config i2v-14B); the 5B segment sampler runs no CFG")
     unported = [
-        (args.config != "ti2v-5B", "--config i2v-14B needs the 14B modules (ROADMAP "
-                                   "queue 1, item 6)"),
-        (getattr(args, "distilled", False), "--distilled is the 14B pipeline's few-step "
-                                            "serving (ROADMAP queue 1, item 6)"),
+        (webapp and args.config != "ti2v-5B", "the webapp serves the 5B; a 14B webapp "
+                                              "comes with the rest of the 14B (ROADMAP "
+                                              "queue 1, item 6)"),
         (getattr(args, "cfg_parallel", False), "--cfg_parallel is the 14B CFG batch "
                                                "path (ROADMAP queue 1, item 6)"),
         (getattr(args, "int8", False) or getattr(args, "int4", False)
@@ -165,9 +186,26 @@ def teacache_settings(args):
 
 
 def smoke_config(cfg):
-    """The reference's tiny 5B smoke config (yume_tpu/sample.py)."""
-    from .configs import DiTConfig, T5Config, VAEConfig
+    """The reference's tiny smoke config of the 5B or the 14B
+    (yume_tpu/sample.py): the 14B's keeps the msk/y channels and the CLIP
+    branch."""
+    from .configs import CLIPConfig, DiTConfig, T5Config, VAEConfig
 
+    if cfg.name == "i2v-14B":
+        return dataclasses.replace(
+            cfg,
+            dit=DiTConfig(model_type="i2v", in_dim=18, out_dim=8, dim=128, ffn_dim=256,
+                          freq_dim=64, text_dim=32, text_len=32, num_heads=4, num_layers=2,
+                          framepack=True, image_context_len=5, image_dim=12),
+            vae=VAEConfig(z_dim=8, base_dim=8, dim_mult=(1, 2, 2), num_res_blocks=1,
+                          temporal_downsample=(True, False), stride=(2, 4, 4), patchify=1,
+                          arch="wan21"),
+            t5=T5Config(vocab_size=4096, dim=32, dim_attn=32, dim_ffn=48, num_heads=2,
+                        num_layers=1, text_len=32),
+            clip=CLIPConfig(image_size=16, patch_size=8, dim=12, num_heads=2, num_layers=1,
+                            out_tokens=5),
+            latent_frame_zero=2,
+        ).check_i2v_channels()
     return dataclasses.replace(
         cfg,
         dit=DiTConfig(model_type="ti2v", in_dim=8, out_dim=8, dim=128, ffn_dim=256,
@@ -182,11 +220,13 @@ def smoke_config(cfg):
 
 
 def load_pipeline(args):
-    """(config, TI2VPipeline) on ``args.device``: the smoke or the full 5B
-    config, W8A8 with ``--w8a8``; released weights from ``--ckpt_dir``,
-    otherwise random ones from ``--seed``. The pipeline computes in fp32 on
-    the CPU and in bf16 on the card."""
+    """(config, pipeline) on ``args.device``: a TI2VPipeline for the 5B, an
+    I2VPipeline for the 14B, at the smoke or the full config, W8A8 with
+    ``--w8a8``; released weights from ``--ckpt_dir``, otherwise random ones
+    from ``--seed``. The pipeline computes in fp32 on the CPU and in bf16 on
+    the card."""
     from .configs import CONFIGS
+    from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
 
     refuse_unported(args)
@@ -206,32 +246,43 @@ def load_pipeline(args):
             "no --ckpt_dir: running with RANDOM weights (capability/perf runs only; "
             "outputs are noise). Pass --ckpt_dir with the released torch checkpoints "
             "for real generation.", stacklevel=2)
+    if cfg.name == "i2v-14B":
+        return cfg, I2VPipeline.from_config(cfg, device=device, seed=args.seed, dtype=dtype)
     return cfg, TI2VPipeline.from_config(cfg, device=device, seed=args.seed, init_t5=True,
                                          dtype=dtype)
 
 
 def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bfloat16):
-    """A TI2VPipeline from released torch checkpoints in ``ckpt_dir``: the
-    DiT's safetensors (one file, several, or shards with an index), the
-    VAE's and umT5's ``.pth``. Strict, as the reference: a missing file
-    raises before anything loads, and so does a missing or unknown tensor
-    (wrapper segments such as ``module.`` are dropped from the DiT's keys)."""
+    """A TI2VPipeline (5B) or an I2VPipeline (14B) from released torch
+    checkpoints in ``ckpt_dir``: the DiT's safetensors (one file, several,
+    or shards with an index), the VAE's (``Wan2.2_VAE.pth`` or
+    ``Wan2.1_VAE.pth``) and umT5's ``.pth``, and the 14B's CLIP ``.pth``.
+    Strict, as the reference: a missing file raises before anything loads,
+    and so does a missing or unknown tensor (wrapper segments such as
+    ``module.`` are dropped from the DiT's keys)."""
+    from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
-    from .utils.checkpoint import (load_safetensors_state_dict, load_torch_state_dict,
-                                   normalize_torch_keys)
+    from .utils.checkpoint import (clip_visual_from_released, load_safetensors_state_dict,
+                                   load_torch_state_dict, normalize_torch_keys)
 
+    i2v = config.name == "i2v-14B"
+    vae_file = VAE21_FILE if config.vae.arch == "wan21" else VAE_FILE
+    files = [vae_file, T5_FILE] + ([CLIP_FILE] if i2v else [])
     has_dit = any(f.endswith(".safetensors") for f in os.listdir(ckpt_dir))
-    vae_path = os.path.join(ckpt_dir, VAE_FILE)
-    t5_path = os.path.join(ckpt_dir, T5_FILE)
-    missing = [name for name, ok in ((DIT_FILES, has_dit), (VAE_FILE, os.path.exists(vae_path)),
-                                     (T5_FILE, os.path.exists(t5_path))) if not ok]
+    missing = ([] if has_dit else [DIT_FILES]) + [
+        f for f in files if not os.path.exists(os.path.join(ckpt_dir, f))]
     if missing:
         raise RuntimeError(f"checkpoint dir {ckpt_dir!r} is missing: {', '.join(missing)}; "
                            "refusing to run with random-init modules")
-    return TI2VPipeline.from_state_dicts(
-        config, normalize_torch_keys(load_safetensors_state_dict(ckpt_dir)),
-        load_torch_state_dict(vae_path), load_torch_state_dict(t5_path),
-        device=device, dtype=dtype)
+    dit_sd = normalize_torch_keys(load_safetensors_state_dict(ckpt_dir))
+    vae_sd, t5_sd = (load_torch_state_dict(os.path.join(ckpt_dir, f)) for f in files[:2])
+    if i2v:
+        clip_sd = clip_visual_from_released(
+            load_torch_state_dict(os.path.join(ckpt_dir, CLIP_FILE)), config.clip.num_layers)
+        return I2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, clip_sd,
+                                            device=device, dtype=dtype)
+    return TI2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, device=device,
+                                         dtype=dtype)
 
 
 def _first_image(jpg_dir: str) -> str:
@@ -249,16 +300,26 @@ def main(argv=None) -> int:
 
     args = build_argparser().parse_args(argv)
     teacache = teacache_settings(args) if args.teacache else (3, None)
+    if args.config == "i2v-14B" and not (args.jpg_dir or args.input_video
+                                         or args.video_root_dir):
+        raise NotImplementedError(
+            "not ported yet: a 14B run starts from an image (--jpg_dir); --input_video "
+            "and --video_root_dir need the video reader and data path (ROADMAP queue 1, "
+            "item 3)")
     cfg, pipe = load_pipeline(args)
     os.makedirs(args.output_dir, exist_ok=True)
     timer = PhaseTimer(pipe.device)
     slot = None
     if args.memory_optimization:
-        # umT5 and the VAE wait in host memory; each visits the device only
-        # for its phase, the DiT stays resident
+        # umT5 and the VAE (with the 14B's CLIP) wait in host memory; each
+        # visits the device only for its phase, the DiT stays resident
         slot = OffloadSlot(pipe.device)
         slot.register("t5", pipe.t5)
-        slot.register("vae", pipe.vae)
+        if cfg.name == "i2v-14B":
+            slot.register("vae", torch.nn.ModuleList([pipe.vae, pipe.clip]))
+            pipe.phase_cb = lambda name: slot.use("vae") if name == "vae" else slot.park()
+        else:
+            slot.register("vae", pipe.vae)
     tok = Tokenizer(resolve_tokenizer_path(args.tokenizer, args.ckpt_dir),
                     seq_len=cfg.t5.text_len, vocab_size=cfg.t5.vocab_size,
                     warn_fallback=not args.smoke)
@@ -295,8 +356,9 @@ def main(argv=None) -> int:
             if pipe.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = stack.enter_context(torch.profiler.profile(activities=acts))
-        _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
-             slot, timer)
+        run = _run_i2v if cfg.name == "i2v-14B" else _run
+        run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
+            slot, timer)
     if prof is not None:
         os.makedirs(args.profile_dir, exist_ok=True)
         path = os.path.join(args.profile_dir, "trace.json")
@@ -371,6 +433,42 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
             vae_phase()
             tail = pipe.decode_auto(latents[:, -lfz:])
         out = save(tail, f"segment_{s:03d}.mp4")
+        print(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
+
+
+def _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
+             slot, timer):
+    """The 14B branch (reference fastvideo/sample/sample.py): the image in
+    ``--jpg_dir`` conditions a CFG segment of ``frame_num`` frames
+    (``segment_000``); then each further sample re-conditions on the whole
+    video so far and adds 32 frames (``generate_next``), written alone. As
+    the reference, the continuations take no sampler and run Euler."""
+    from .utils.video import load_image, save_video
+
+    interval, threshold = teacache
+    ctx = encode(captions[0])
+    ctx_null = None if args.distilled else encode(args.neg_prompt or cfg.sample_neg_prompt)
+    img = load_image(_first_image(args.jpg_dir), size=(size[1], size[0]))
+    t0 = time.time()
+    with timer.phase("generate"):
+        _, video = pipe.generate(
+            torch.from_numpy(img)[None, None].to(pipe.device), ctx, ctx_null,
+            frame_num=frame_num, steps=steps, shift=args.shift, guide_scale=args.guide_scale,
+            seed=args.seed, sampler=sampler, teacache_interval=interval,
+            teacache_edge=args.teacache_edge, teacache_threshold=threshold)
+    out = save_video(video[0].float().cpu().numpy(),
+                     os.path.join(args.output_dir, "segment_000.mp4"), fps=cfg.sample_fps)
+    print(f"--> segment 0 written to {out} ({time.time() - t0:.1f}s, frames={video.shape[1]})")
+    for s in range(1, args.sample_num):
+        ctx = encode(captions[min(s, len(captions) - 1)])
+        t1 = time.time()
+        with timer.phase("generate_next"):
+            _, video = pipe.generate_next(video, ctx, ctx_null, frame_zero=I2V_FRAME_ZERO,
+                                          steps=steps, shift=args.shift,
+                                          guide_scale=args.guide_scale, seed=args.seed + s)
+        out = save_video(video[0, -I2V_FRAME_ZERO:].float().cpu().numpy(),
+                         os.path.join(args.output_dir, f"segment_{s:03d}.mp4"),
+                         fps=cfg.sample_fps)
         print(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
 
 

@@ -149,7 +149,7 @@ class WebApp:
     def __init__(self, args):
         from ..sample import refuse_unported, teacache_settings
 
-        refuse_unported(args)
+        refuse_unported(args, webapp=True)
         if args.refiner_model:
             from ..data.prompt_refine import get_refiner
 
@@ -383,6 +383,9 @@ class Handler(BaseHTTPRequestHandler):
                 return self._json({"error": "model not loaded: POST /api/load"}, 409)
             if not app.lock.acquire(blocking=False):
                 return self._json({"error": "busy"}, 429)
+            # before the reply: a poll right after "started" must not read the
+            # previous request's status
+            app.status = "generating"
             threading.Thread(target=app.generate, args=(req,), daemon=True).start()
             self._json({"status": "started"})
         elif self.path == "/api/refine_prompt":

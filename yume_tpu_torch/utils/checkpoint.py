@@ -85,6 +85,28 @@ def normalize_torch_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
             for k, v in sd.items()}
 
 
+_CLIP_BLOCK = re.compile(r"transformer\.(\d+)\.")
+_CLIP_VISUAL_HEAD = ("patch_embedding.", "cls_embedding", "pos_embedding", "pre_norm.")
+
+
+def clip_visual_from_released(sd: Mapping[str, Any], num_layers: int = 32) -> Dict[str, Any]:
+    """The tensors ``CLIPVisual`` loads from the released CLIP checkpoint
+    (``models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``): the
+    ``visual.`` ones without the prefix, up to the 31st of its
+    ``num_layers`` blocks (the ``use_31_block`` output never uses the last
+    block, the post-norm or the head; the text tower is not needed). A
+    tensor the tower needs and the file lacks raises when it loads."""
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith("visual."):
+            continue
+        k = k[len("visual."):]
+        block = _CLIP_BLOCK.match(k)
+        if (block and int(block.group(1)) < num_layers - 1) or k.startswith(_CLIP_VISUAL_HEAD):
+            out[k] = v
+    return out
+
+
 # safetensors dtype names → torch dtypes (little-endian raw data)
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,

@@ -9,10 +9,13 @@ produce the same reference-named state dicts, as float32 numpy arrays:
 * :func:`t5_state_dict` inverts ``convert_t5_state_dict``;
 * :func:`vae22_state_dict` inverts ``convert_vae22_state_dict`` (encoder
   included, with the reference's tensor shapes);
-* :func:`pipeline_state_dicts` applies the three to a JAX
-  ``TI2VPipeline``'s parameters, whole: what
-  ``TI2VPipeline.from_state_dicts`` loads strictly, and what a checkpoint
-  directory in the released layout holds;
+* :func:`vae21_state_dict` inverts ``convert_vae21_state_dict`` (the
+  Wan2.1 VAE's flat stage lists);
+* :func:`clip_visual_state_dict` inverts ``convert_clip_visual_state_dict``
+  (the released file's ``visual.`` tensors, without the prefix);
+* :func:`pipeline_state_dicts` applies them to a JAX ``TI2VPipeline``'s or
+  ``I2VPipeline``'s parameters, whole: what ``from_state_dicts`` loads
+  strictly, and what a checkpoint directory in the released layout holds;
 * :func:`disc_state_dict` / :func:`disc_tree` map the ADD discriminator's
   parameters and spectral vectors both ways, and :func:`dino_state_dict`
   selects a timm DINO checkpoint's projector tensors;
@@ -155,6 +158,31 @@ def vae22_state_dict(params: Mapping, num_res_blocks: int = 2) -> Dict[str, np.n
     (encoder and decoder)."""
     p = _root(params)
     sd: Dict[str, np.ndarray] = {}
+    causal, res_block, resample, middle_and_head = _vae_common(p, sd)
+
+    def stages(side: str, stage: str, seq: str, kind: str, n_blocks: int):
+        i = 0
+        while _has(p, f"{side}/{stage}_{i}"):
+            base = f"{side}.{seq}.{i}.{seq}"
+            for j in range(n_blocks):
+                res_block(f"{side}/{stage}_{i}/block_{j}", f"{base}.{j}")
+            if _has(p, f"{side}/{stage}_{i}/{kind}"):
+                resample(f"{side}/{stage}_{i}/{kind}", f"{base}.{n_blocks}")
+            i += 1
+
+    causal("encoder/conv1", "encoder.conv1")
+    stages("encoder", "down", "downsamples", "downsample", num_res_blocks)
+    middle_and_head("encoder")
+    causal("conv1", "conv1")
+    causal("conv2", "conv2")
+    causal("decoder/conv1", "decoder.conv1")
+    stages("decoder", "up", "upsamples", "upsample", num_res_blocks + 1)
+    middle_and_head("decoder")
+    return sd
+
+
+def _vae_common(p: Mapping, sd: Dict[str, np.ndarray]):
+    """The leaf mappers shared by both VAE variants, writing into ``sd``."""
 
     def causal(src: str, dst: str):
         sd[f"{dst}.weight"] = _conv3d(get_in(p, f"{src}/conv/kernel"))
@@ -177,66 +205,94 @@ def vae22_state_dict(params: Mapping, num_res_blocks: int = 2) -> Dict[str, np.n
         sd[f"{dst}.weight"] = _f32(get_in(p, f"{src}/kernel")).T[:, :, None, None]
         sd[f"{dst}.bias"] = _f32(get_in(p, f"{src}/bias"))
 
-    def attn(src: str, dst: str):
-        gamma(f"{src}/norm", f"{dst}.norm", images=True)
-        conv1x1(f"{src}/to_qkv", f"{dst}.to_qkv")
-        conv1x1(f"{src}/proj", f"{dst}.proj")
-
-    def resample(src: str, dst_seq: str, dst_time: str):
+    def resample(src: str, dst: str):
         # flax (1, kH, kW, I, O) → torch Conv2d (O, I, kH, kW)
-        sd[f"{dst_seq}.1.weight"] = _f32(get_in(p, f"{src}/conv_spatial/kernel"))[0] \
+        sd[f"{dst}.resample.1.weight"] = _f32(get_in(p, f"{src}/conv_spatial/kernel"))[0] \
             .transpose(3, 2, 0, 1)
-        sd[f"{dst_seq}.1.bias"] = _f32(get_in(p, f"{src}/conv_spatial/bias"))
+        sd[f"{dst}.resample.1.bias"] = _f32(get_in(p, f"{src}/conv_spatial/bias"))
         if _has(p, f"{src}/time_conv"):
-            sd[f"{dst_time}.weight"] = _conv3d(get_in(p, f"{src}/time_conv/kernel"))
-            sd[f"{dst_time}.bias"] = _f32(get_in(p, f"{src}/time_conv/bias"))
+            sd[f"{dst}.time_conv.weight"] = _conv3d(get_in(p, f"{src}/time_conv/kernel"))
+            sd[f"{dst}.time_conv.bias"] = _f32(get_in(p, f"{src}/time_conv/bias"))
 
     def middle_and_head(side: str):
         res_block(f"{side}/mid_block_1", f"{side}.middle.0")
-        attn(f"{side}/mid_attn", f"{side}.middle.1")
+        gamma(f"{side}/mid_attn/norm", f"{side}.middle.1.norm", images=True)
+        conv1x1(f"{side}/mid_attn/to_qkv", f"{side}.middle.1.to_qkv")
+        conv1x1(f"{side}/mid_attn/proj", f"{side}.middle.1.proj")
         res_block(f"{side}/mid_block_2", f"{side}.middle.2")
         gamma(f"{side}/head_norm", f"{side}.head.0")
         causal(f"{side}/head_conv", f"{side}.head.2")
 
-    causal("encoder/conv1", "encoder.conv1")
-    i = 0
-    while _has(p, f"encoder/down_{i}"):
-        base = f"encoder.downsamples.{i}.downsamples"
-        for j in range(num_res_blocks):
-            res_block(f"encoder/down_{i}/block_{j}", f"{base}.{j}")
-        if _has(p, f"encoder/down_{i}/downsample"):
-            resample(f"encoder/down_{i}/downsample", f"{base}.{num_res_blocks}.resample",
-                     f"{base}.{num_res_blocks}.time_conv")
-        i += 1
-    middle_and_head("encoder")
+    return causal, res_block, resample, middle_and_head
 
+
+def vae21_state_dict(params: Mapping, num_res_blocks: int = 2) -> Dict[str, np.ndarray]:
+    """Wan2.1 WanVAE (``arch='wan21'``) parameter tree → reference
+    ``Wan2.1_VAE.pth`` state dict: the stages' residual blocks and
+    resamples in one flat list per side, numbered in order."""
+    p = _root(params)
+    sd: Dict[str, np.ndarray] = {}
+    causal, res_block, resample, middle_and_head = _vae_common(p, sd)
+
+    def flat(side: str, kind: str, seq: str, n_blocks: int):
+        k = blk = i = 0
+        while _has(p, f"{side}/block_{blk}"):
+            for _ in range(n_blocks):
+                res_block(f"{side}/block_{blk}", f"{side}.{seq}.{k}")
+                k += 1
+                blk += 1
+            if _has(p, f"{side}/{kind}_{i}"):
+                resample(f"{side}/{kind}_{i}", f"{side}.{seq}.{k}")
+                k += 1
+            i += 1
+
+    causal("encoder/conv1", "encoder.conv1")
+    flat("encoder", "downsample", "downsamples", num_res_blocks)
+    middle_and_head("encoder")
     causal("conv1", "conv1")
     causal("conv2", "conv2")
-
     causal("decoder/conv1", "decoder.conv1")
-    i = 0
-    while _has(p, f"decoder/up_{i}"):
-        base = f"decoder.upsamples.{i}.upsamples"
-        for j in range(num_res_blocks + 1):
-            res_block(f"decoder/up_{i}/block_{j}", f"{base}.{j}")
-        if _has(p, f"decoder/up_{i}/upsample"):
-            n = num_res_blocks + 1
-            resample(f"decoder/up_{i}/upsample", f"{base}.{n}.resample",
-                     f"{base}.{n}.time_conv")
-        i += 1
+    flat("decoder", "upsample", "upsamples", num_res_blocks + 1)
     middle_and_head("decoder")
     return sd
 
 
+def clip_visual_state_dict(params: Mapping, num_layers: int = 32) -> Dict[str, np.ndarray]:
+    """CLIPVisual parameter tree → the ``CLIPVisual`` state dict: the
+    released CLIP file's ``visual.`` tensors, without the prefix, for the
+    ``num_layers − 1`` blocks the tower runs."""
+    p = _root(params)
+    sd = {"patch_embedding.weight": _f32(get_in(p, "patch_embedding/kernel"))
+          .transpose(3, 2, 0, 1),                      # HWIO → OIHW
+          "cls_embedding": _f32(get_in(p, "cls_embedding")),
+          "pos_embedding": _f32(get_in(p, "pos_embedding")),
+          "pre_norm.weight": _f32(get_in(p, "pre_norm/scale")),
+          "pre_norm.bias": _f32(get_in(p, "pre_norm/bias"))}
+    for i in range(num_layers - 1):
+        src, dst = f"blocks_{i}", f"transformer.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{dst}.{norm}.weight"] = _f32(get_in(p, f"{src}/{norm}/scale"))
+            sd[f"{dst}.{norm}.bias"] = _f32(get_in(p, f"{src}/{norm}/bias"))
+        for ours, theirs in (("to_qkv", "attn.to_qkv"), ("proj", "attn.proj"),
+                             ("mlp_0", "mlp.0"), ("mlp_2", "mlp.2")):
+            sd[f"{dst}.{theirs}.weight"] = _f32(get_in(p, f"{src}/{ours}/kernel")).T
+            sd[f"{dst}.{theirs}.bias"] = _f32(get_in(p, f"{src}/{ours}/bias"))
+    return sd
+
+
 def pipeline_state_dicts(pipe) -> Dict[str, Dict[str, np.ndarray]]:
-    """A JAX ``TI2VPipeline``'s DiT, VAE (encoder and decoder) and umT5
-    (when it has one) → ``{"dit", "vae", "t5"}`` reference-named state
+    """A JAX ``TI2VPipeline``'s or ``I2VPipeline``'s DiT, VAE (encoder and
+    decoder; Wan2.2 or Wan2.1 by its config), umT5 and CLIP visual tower
+    (those it has) → ``{"dit", "vae", "t5", "clip"}`` reference-named state
     dicts, nothing dropped."""
     cfg = pipe.config
+    vae = vae21_state_dict if cfg.vae.arch == "wan21" else vae22_state_dict
     out = {"dit": dit_state_dict(pipe.dit_params, cfg.dit.num_layers),
-           "vae": vae22_state_dict(pipe.vae_params, cfg.vae.num_res_blocks)}
+           "vae": vae(pipe.vae_params, cfg.vae.num_res_blocks)}
     if pipe.t5_params is not None:
         out["t5"] = t5_state_dict(pipe.t5_params, cfg.t5.num_layers)
+    if getattr(pipe, "clip_params", None) is not None:
+        out["clip"] = clip_visual_state_dict(pipe.clip_params, cfg.clip.num_layers)
     return out
 
 
