@@ -40,9 +40,12 @@ result line:
    packed tokens): K1 self and cross over the 512 text and the 257 CLIP
    keys beside SDPA, K2 (AdaLN, norm3, the Head's fp32 out; which of its
    two kernels ran), K3, K4 on the 14B FramePack tables, K5, and K6 at the
-   14B block's four projection shapes, bit for bit; K1's self cases hold out to
-   two bf16 ulps of the largest |out| and the lse to ``K7_LSE_TOL``, on a
-   few heads); then K7's ring invariant
+   14B block's four projection shapes, bit for bit; and at phase 6f's
+   packed shapes (the 5B video segments' 11,180 and 11,660 tokens: K1 self
+   and cross, K2–K5 on their FramePack tables, K6 at the block's four
+   shapes; the data-path trainer's 2,260: K1–K5 and K8/K9, self and cross);
+   K1's self cases hold out to two bf16 ulps of the largest |out| and the
+   lse to ``K7_LSE_TOL``, on a few heads); then K7's ring invariant
    against K1 and its VJP with an lse cotangent;
 4. reference: a 2-layer full-width DiT on the card (kernels, bf16) against
    the same weights on the CPU (plain versions, fp32), once in bf16 matmuls
@@ -100,6 +103,26 @@ result line:
       written); then a fresh 14B pipeline's bf16 and W8A8 forward at
       28,350 tokens (K6 240), their relative L2 (at most
       ``T2V_W8A8_REL_TOL``), and one profiled CFG step.
+   f. (after those are freed) the video-input mode and the data path on a
+      seeded 37-frame 1280×704 clip written with cv2's mp4v writer, with
+      its ``.txt`` controls and a camera ``.npy``, each path with the counts
+      set to 0 just before it and read just after: which reader decodes
+      it (the native decoder built from ``native/*.cpp``, or OpenCV);
+      ``sample.main --video_root_dir <tree> --steps 4 --sample_num 2
+      --w8a8 --teacache`` (the streaming ``encode_auto`` of 33 frames, two
+      segments and their tail decodes; K1–K6 must launch); ``sample.main
+      --config i2v-14B --input_video <clip> --width 960 --height 544
+      --steps 2 --sample_num 1`` (the first frame 16 times before the 33,
+      one ``generate_next`` of 32 frames at 28,350 packed tokens: exactly 4
+      forwards, K1 480, K2 484, K3 320, K4 160, K5 160, K6 0); ``train.main
+      --data_dir <tree> --lora_rank 16 --remat --max_train_steps 3
+      --num_frames 33 --height 352 --width 640`` with random encoders and
+      a random head (each step split into the host wait for its batch, the
+      device encode and the train step; finite losses, gradient norms
+      above 0; K1–K5, K8, K9 launch, K6, K7, K10 do not); and the
+      preprocess CLI's ``main --max_samples 1``, whose latents and context
+      ``LatentDataset`` reads back bit for bit. The segments' and the
+      batches' packed token counts must be the ones phase 3 checks.
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
    path with the counts set to 0 just before it and read just after:
@@ -168,8 +191,14 @@ T2V_F, T2V_H, T2V_W = 31, 22, 40
 # frames to 11,070 (29,430)
 I2V_SIZE, I2V_FRAMES, I2V_NEXT_FRAMES = (960, 544), 81, 113
 I2V_F_HIST, I2V_LFZ, I2V_H, I2V_W = 12, 9, 68, 120
-I2V_L, I2V_L_HIST, I2V_L_NEXT = 28350, 9990, 29430
+I2V_L, I2V_L_NEXT = 28350, 29430
 I2V_DIM, I2V_HEADS, I2V_FFN, CLIP_TOKENS, CLIP_DIM = 5120, 40, 13824, 257, 1280
+# phase 6f's packed shapes: the 5B video mode's two segments after a 33-frame
+# clip, over 9 and 17 history latent frames at 44×80 (11,180 and 11,660
+# packed tokens), and the data-path trainer's batch of 33 frames at 352×640,
+# 1 history and 8 tail latent frames at 22×40 (2,260)
+VIDEO_5B_HIST, VIDEO_5B_L = (9, 17), (11180, 11660)
+VIDEO_TRAIN_HIST, VIDEO_TRAIN_L = 1, 2260
 K1_TOL = 2e-2            # bf16 kernel vs fp32 plain, N(0, 1) inputs
 BWD_REL_TOL = 2e-2       # K8/K9: share of the largest plain gradient
 REL_TOL = 2.0 ** -7      # one bf16 ulp of the output magnitude (K2–K6)
@@ -703,9 +732,6 @@ def i2v_kernels(results, gen):
     key), each beside SDPA; K2's AdaLN (K = 2), norm3 and the Head's fp32
     out, with which of its kernels ran; K3; K4 with 40 heads on the 14B
     FramePack RoPE tables; K5 beside ``F.rms_norm``."""
-    from yume_tpu_torch.models import dit as tdit
-    from yume_tpu_torch.ops import fused_adaln as fa
-    from yume_tpu_torch.ops import rope
     from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
 
     n, l, dim, hs = I2V_HEADS, I2V_L, I2V_DIM, 2
@@ -725,57 +751,106 @@ def i2v_kernels(results, gen):
         del kc, vc
     del q
 
+    _run_glue(results, _packed_glue(gen, I2V_F_HIST, I2V_LFZ, I2V_H, I2V_W, l, "14B",
+                                    dim, n))
+
+
+def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
+    """K2–K5 cases (as :func:`_run_glue` takes them) at the packed shape of
+    ``f_hist`` history and ``lfz`` tail latent frames on an h×w latent grid,
+    ``l`` tokens, at width ``dim``: the AdaLN tables K = 2 split where the tail begins
+    (which of K2's kernels ran is logged), norm3 beside ``F.layer_norm``,
+    the Head's fp32 out, K3, K4 with ``heads`` heads on this history's
+    FramePack RoPE tables, K5 beside ``F.rms_norm``."""
+    from yume_tpu_torch.models import dit as tdit
+    from yume_tpu_torch.ops import fused_adaln as fa
+    from yume_tpu_torch.ops import rope
+
+    packed = tdit.packed_token_count(f_hist, lfz, h, w, (1, 2, 2))
+    require(packed == l, f"{label}: {packed} packed tokens, expected {l}")
+    l_hist = l - lfz * (h // 2) * (w // 2)
     x, y = _randn(gen, 1, l, dim), _randn(gen, 1, l, dim)
     s_tab = _randn(gen, 1, 2, dim, dtype=torch.float32, scale=0.1)
     t_tab = _randn(gen, 1, 2, dim, dtype=torch.float32, scale=0.1)
-    idx = (torch.arange(l, device="cuda") >= I2V_L_HIST).to(torch.int32)[None]
+    idx = (torch.arange(l, device="cuda") >= l_hist).to(torch.int32)[None]
     w1 = 1.0 + _randn(gen, 1, 1, dim, dtype=torch.float32, scale=0.1)
     b1 = _randn(gen, 1, 1, dim, dtype=torch.float32, scale=0.1)
-    grids = tdit.packed_grids(tdit.framepack_plan(I2V_F_HIST), I2V_H, I2V_W, (1, 2, 2))
-    grids.append((I2V_LFZ, I2V_H // 2, I2V_W // 2))
+    grids = tdit.packed_grids(tdit.framepack_plan(f_hist), h, w, (1, 2, 2))
+    grids.append((lfz, h // 2, w // 2))
     cos, sin = (torch.from_numpy(t).cuda() for t in rope.framepack_rope(grids, D))
-    require(cos.shape == (l, D // 2), f"14B RoPE tables {tuple(cos.shape)}")
+    require(cos.shape == (l, D // 2), f"{label} RoPE tables {tuple(cos.shape)}")
     wq = 1.0 + _randn(gen, dim, dtype=torch.float32, scale=0.1)
     wk = 1.0 + _randn(gen, dim, dtype=torch.float32, scale=0.1)
     wq_lib = wq.to(x.dtype)
     w1_lib, b1_lib = w1.reshape(dim).to(x.dtype), b1.reshape(dim).to(x.dtype)
     act, elems, tabs = nbytes(x), x.numel(), nbytes(s_tab, t_tab, idx)
-    shape = f"[1,{l},{dim}]"
-    _run_glue(results, [
-        ("adaln_norm", f"14B AdaLN {shape} K=2",
+    return [
+        ("adaln_norm", f"{label} AdaLN [1,{l},{dim}] K=2",
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.bfloat16),
          None, 2 * act + tabs, 8 * elems),
-        ("adaln_norm", "14B norm3 gate=0 K=1",
+        ("adaln_norm", f"{label} norm3 gate=0 K=1",
          lambda: fa.adaln_norm(x, w1, b1, None, gate=0.0),
          lambda: fa._adaln_norm_ref(x, w1, b1, None, 1e-6, 0.0, torch.bfloat16),
          lambda: F.layer_norm(x, (dim,), w1_lib, b1_lib, eps=1e-6),
          2 * act + nbytes(w1, b1), 7 * elems),
-        ("adaln_norm", "14B head fp32 out",
+        ("adaln_norm", f"{label} head fp32 out",
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx, out_dtype=torch.float32),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.float32),
          None, 3 * act + tabs, 8 * elems),
-        ("adaln_residual", f"14B residual {shape}",
+        ("adaln_residual", f"{label} residual [1,{l},{dim}]",
          lambda: fa.adaln_residual(x, y, s_tab, idx),
          lambda: fa._adaln_residual_ref(x, y, s_tab, idx),
          None, 3 * act + nbytes(s_tab, idx), 2 * elems),
-        ("qk_norm_rope", f"14B q and k, {n} heads, FramePack RoPE",
-         lambda: fa.qk_norm_rope(x, y, wq, wk, cos, sin, n, eps=1e-6),
-         lambda: fa._qk_norm_rope_ref(x, y, wq, wk, cos, sin, n, 1e-6),
+        ("qk_norm_rope", f"{label} q and k, {heads} heads, FramePack RoPE, "
+         f"{f_hist}-frame history",
+         lambda: fa.qk_norm_rope(x, y, wq, wk, cos, sin, heads, eps=1e-6),
+         lambda: fa._qk_norm_rope_ref(x, y, wq, wk, cos, sin, heads, 1e-6),
          None, 4 * act + nbytes(wq, wk, cos, sin), 2 * 8 * elems),
-        ("rms_norm", f"14B cross q {shape}",
+        ("rms_norm", f"{label} cross q [1,{l},{dim}]",
          lambda: fa.rms_norm(x, wq, eps=1e-6),
          lambda: fa._rms_ref(x, wq, 1e-6),
          lambda: F.rms_norm(x, (dim,), wq_lib, eps=1e-6),
          2 * act + nbytes(wq), 4 * elems),
-    ])
+    ]
+
+
+def video_kernels(results, gen):
+    """K1–K5 at phase 6f's packed shapes, each against its plain version:
+    the 5B video mode's two segments over 9 and 17 history frames at 44×80
+    (11,180 and 11,660 tokens) and the data-path trainer's batch of 1
+    history and 8 tail frames at 22×40 (2,260 tokens). K1 self (held on four
+    heads, on every head at 2,260) and cross over the 512 text keys, each
+    beside SDPA; K2–K5 as :func:`_packed_glue`. K6 at the two segments'
+    tokens is in :func:`quant_matmul_kernel`, K8 and K9 at the trainer's in
+    :func:`flash_backward_kernels`."""
+    from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
+
+    geoms = [(f"video seg {i + 1}", f_hist, 44, 80, l, 4)
+             for i, (f_hist, l) in enumerate(zip(VIDEO_5B_HIST, VIDEO_5B_L))]
+    geoms.append(("data path", VIDEO_TRAIN_HIST, 22, 40, VIDEO_TRAIN_L, N))
+    for label, f_hist, h, w, l, hs in geoms:
+        q, k, v = (_randn(gen, 1, l, N, D) for _ in range(3))
+        case = f"{label} self [1,{l},24,128]"
+        err, tol, lse_err = _k1_self_check(case, q, k, v, hs)
+        _k1_record(results, case, q, k, v, l, err, lambda: _k1_plain_by_heads(q, k, v, hs),
+                   lambda: _sdpa(q, k, v), reps=5, plain_reps=3, tol=tol,
+                   lse_max_abs_err=lse_err)
+        del k, v
+        kc, vc = _randn(gen, 1, TEXT_LEN, N, D), _randn(gen, 1, TEXT_LEN, N, D)
+        err = max_err(flash_attention(q, kc, vc), plain_attention(q, kc, vc))
+        _k1_record(results, f"{label} cross [1,{l}] Lk=512", q, kc, vc, TEXT_LEN, err,
+                   lambda: plain_attention(q, kc, vc), lambda: _sdpa(q, kc, vc))
+        del q, kc, vc
+        _run_glue(results, _packed_glue(gen, f_hist, 8, h, w, l, label))  # 8 tail frames
 
 
 def flash_backward_kernels(results, gen):
     """K8 (dQ) and K9 (dK, dV) against ``plain_attention_bwd`` at the 5B
     trainer's shapes: self-attention over its 2,805 packed tokens, cross-
     attention over 512 text rows and MVDT's self-attention over the 1,963
-    kept tokens. Tolerance: 2e-2 of the largest plain gradient (the kernels
+    kept tokens, and phase 6f's data-path batch of 2,260 tokens, self and
+    cross. Tolerance: 2e-2 of the largest plain gradient (the kernels
     round P and dS to bf16 before their products and write bf16; about 3
     bf16 ulps of the largest entry). Each kernel runs three times on the same
     inputs and must give the same bits (no atomics). Times by CUDA events
@@ -790,7 +865,11 @@ def flash_backward_kernels(results, gen):
 
     for case, lq, lk in ((f"self [1,{TRAIN_L},24,128]", TRAIN_L, TRAIN_L),
                          ("cross Lk=512", TRAIN_L, TEXT_LEN),
-                         (f"MVDT self [1,{TRAIN_KEEP},24,128]", TRAIN_KEEP, TRAIN_KEEP)):
+                         (f"MVDT self [1,{TRAIN_KEEP},24,128]", TRAIN_KEEP, TRAIN_KEEP),
+                         (f"data path self [1,{VIDEO_TRAIN_L},24,128]", VIDEO_TRAIN_L,
+                          VIDEO_TRAIN_L),
+                         (f"data path cross [1,{VIDEO_TRAIN_L}] Lk=512", VIDEO_TRAIN_L,
+                          TEXT_LEN)):
         q, do = _randn(gen, 1, lq, N, D), _randn(gen, 1, lq, N, D)
         k, v = _randn(gen, 1, lk, N, D), _randn(gen, 1, lk, N, D)
         out, lse = fl.flash_attention(q, k, v, return_lse=True)
@@ -1046,12 +1125,13 @@ K6_SHAPES_14B = [  # the 14B block's projections
 
 def quant_matmul_kernel(results, gen):
     """K6 against its plain version at the four W8A8 projection shapes of
-    one 5B block, at the packed segment's M = 12,095 tokens and the unpacked
-    t2v stream's 27,280, and at the 14B block's four at its segment's
-    28,350, on N(0, 1) bf16 activations and weights: the
+    one 5B block, at the packed segment's M = 12,095 tokens, the unpacked
+    t2v stream's 27,280 and the 5B video segments' 11,180 and 11,660 (phase
+    6f), and at the 14B block's four at its segment's 28,350, on N(0, 1)
+    bf16 activations and weights: the
     output must equal the plain version's bit for bit (``differing`` 0),
     and so must the pre-pass's int8 rows and scales (``q8_quantize``). Per
-    shape, and per layer at M = 12,095 and per 14B layer: the call's time by CUDA events
+    shape, and per layer at every M but 27,280: the call's time by CUDA events
     (``ms``) and its kernels' device time from the profiler (``device_ms``:
     the pre-pass and the GEMM apart), TOP/s and the share of the bound, the
     pre-pass against its own bound (x read once, xq and a_scale written
@@ -1069,6 +1149,7 @@ def quant_matmul_kernel(results, gen):
     # segment, the t2v stream, the 14B segment's 28,350 packed tokens
     runs = [(L, K6_SHAPES, "", "per_layer"), (m_t2v, K6_SHAPES, f" M={m_t2v}", None),
             (I2V_L, K6_SHAPES_14B, f" M={I2V_L}", "per_layer_14b")]
+    runs += [(m, K6_SHAPES, f" M={m}", f"per_layer_{m}") for m in VIDEO_5B_L]
     for m, shapes, suffix, layer_key in runs:
         layer = dict.fromkeys(keys, 0.0)
         layer_ops = 0.0
@@ -2018,6 +2099,325 @@ def i2v_phase(counters):
     return out
 
 
+# phase 6f: the video-input mode and the data path, on a seeded clip of
+# 37 frames of 1280×704 written with cv2's mp4v writer (the sample CLI reads
+# its first 33; the trainer a random window of 33 at 352×640)
+VIDEO_FRAMES, VIDEO_SIZE, VIDEO_READ = 37, (1280, 704), 33
+# 33 frames are 9 latent frames: at 704×1280 the 5B's history, at 352×640
+# the trainer's batch (1 history and 8 tail frames, 22×40)
+VIDEO_LATENT_F = 9
+# the 14B's history: the first frame 16 times, then the 33 frames (49 ≡ 1
+# mod 4), and generate_next of 32 frames: 81 frames, 28,350 packed tokens
+VIDEO_I2V_HISTORY = 49
+OTHER_PATHS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "bias_act",
+               "flash_attention_partial")
+
+
+def _write_clip(path, n_frames, size, seed):
+    """A seeded moving pattern, [n_frames, H, W, 3] uint8, through cv2's
+    mp4v writer (the card's host has no imageio)."""
+    import cv2
+    import numpy as np
+
+    (w, h), rng = size, np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 16, (w, h))
+    require(vw.isOpened(), f"cv2 cannot write {path}")
+    for i in range(n_frames):
+        f = np.stack([(xx // 4 + 5 * i) % 256, (yy // 3 + 3 * i) % 256,
+                      ((xx + yy) // 8 + 7 * i) % 256], -1) + rng.integers(0, 8, (h, w, 3))
+        vw.write(np.clip(f, 0, 255).astype(np.uint8))
+    vw.release()
+
+
+def video_phase(counters):
+    """Phase 6f: the video-input mode and the data path at full width,
+    after phase 6e's pipelines are freed, each path with the launch counts
+    set to 0 just before it and read just after:
+    a. the test tree ``<root>/Keys_W_Mouse_·/walk_frames_0-37.mp4`` (a
+       seeded 37-frame 1280×704 clip, cv2's mp4v writer), its ``.txt``
+       controls and a camera ``.npy``; which reader decodes it (the native
+       libavcodec decoder built from ``native/*.cpp``, or OpenCV) and the
+       decode time of 33 frames;
+    b. ``sample.main --video_root_dir <root> --steps 4 --sample_num 2 --w8a8
+       --teacache`` (Yume-5B, random bf16 weights): the streaming
+       ``encode_auto`` of the 33 frames, two W8A8 + adaptive TeaCache
+       segments and their tail decodes; K1–K6 must launch;
+    c. ``sample.main --config i2v-14B --input_video <clip> --width 960
+       --height 544 --steps 2 --sample_num 1``: the first frame 16 times
+       before the 33 frames, one ``generate_next`` of 32 frames (81 frames,
+       28,350 packed tokens) with CFG, exactly 4 forwards and
+       ``I2V_PER_FORWARD`` launches each; the history encode, the forwards
+       and the decode with the peak;
+    d. ``train.main --data_dir <root> --lora_rank 16 --remat
+       --max_train_steps 3 --num_frames 33 --height 352 --width 640``
+       (random encoders, and a random head so that the adapters get a
+       gradient): each step's host wait for its batch, the batch's device
+       encode and the train step; finite losses, gradient norms finite and
+       above 0; K1–K5, K8 and K9 launch, K6, K7 and K10 do not;
+    e. ``python -m yume_tpu_torch.data.preprocess --data_dir <root>
+       --max_samples 1`` (its ``main``): ``LatentDataset`` reads back the
+       latents, the context and the mask it wrote, bit for bit.
+    Returns each path's launches and figures."""
+    import shutil
+
+    import numpy as np
+
+    from yume_tpu_torch import sample, train
+    from yume_tpu_torch.data import dataset, native, preprocess
+    from yume_tpu_torch.data.latent_dataset import LatentDataset
+    from yume_tpu_torch.models.dit import WanDiT, packed_token_count
+    from yume_tpu_torch.models.vae import WanVAE
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"video: {left:.2f} GiB left allocated after the i2v phase")
+    require(left < 1.0, "the i2v phase left memory allocated")
+    root = os.path.join(REPO, "build", "video")
+    shutil.rmtree(root, ignore_errors=True)
+    clips = os.path.join(root, "clips")
+    base = os.path.join(clips, "Keys_W_Mouse_·", f"walk_frames_0-{VIDEO_FRAMES}")
+    os.makedirs(os.path.dirname(base))
+    out = {"launches": {}}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def read_counts(path, needed=(), absent=OTHER_PATHS, exact=None):
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"  kernel launches in the {path} run: {launches}")
+        missing = [k for k in needed if launches[k] == 0]
+        stray = [k for k in absent if launches[k]]
+        wrong = {k: (launches[k], v) for k, v in (exact or {}).items() if launches[k] != v}
+        require(not (missing or stray or wrong), f"{path}: kernels not launched {missing}, "
+                f"launched {stray}, counted/expected {wrong}")
+        out["launches"][path] = launches
+
+    # a. the tree and its reader
+    t0 = time.perf_counter()
+    _write_clip(base + ".mp4", VIDEO_FRAMES, VIDEO_SIZE, seed=7)
+    with open(base + ".txt", "w", encoding="utf-8") as f:
+        f.write(f"Start Frame: 0\nEnd Frame: {VIDEO_FRAMES}\nKeys: W\nMouse: ·\n")
+    c2w = np.tile(np.eye(4), (VIDEO_FRAMES, 1, 1))
+    c2w[:, 2, 3] = 0.05 * np.arange(VIDEO_FRAMES)
+    np.save(base + ".npy", c2w)
+    write_s = time.perf_counter() - t0
+    decoder = native.decoder()
+    t0 = time.perf_counter()
+    frames = dataset.read_video_frames(base + ".mp4", list(range(VIDEO_READ)),
+                                       size=VIDEO_SIZE[::-1])
+    decode_s = time.perf_counter() - t0
+    require(frames.shape == (VIDEO_READ, VIDEO_SIZE[1], VIDEO_SIZE[0], 3)
+            and np.isfinite(frames).all() and np.abs(frames).max() <= 1.0,
+            f"video a: read {frames.shape}")
+    out["tree"] = {"reader": dataset.last_reader, "decoder": decoder, "write_s": write_s,
+                   "decode_s": decode_s, "mp4_bytes": os.path.getsize(base + ".mp4"),
+                   "video_length": dataset.video_length(base + ".mp4")}
+    log(f"video a: a {VIDEO_FRAMES}-frame {VIDEO_SIZE[0]}x{VIDEO_SIZE[1]} clip written by "
+        f"cv2 (mp4v) in {write_s:.3f} s; decoder: {decoder}; {VIDEO_READ} frames read by "
+        f"{dataset.last_reader} in {decode_s:.3f} s; video_length "
+        f"{out['tree']['video_length']}")
+    require(out["tree"]["video_length"] == VIDEO_FRAMES, "video a: video_length")
+    del frames
+
+    # b. the 5B video mode
+    rec = _Recorder(TI2VPipeline, ("encode_auto", "generate_segment", "decode_auto",
+                                   "encode_text"))
+    steps = _Recorder(WanDiT, ("forward",))
+    out5 = os.path.join(root, "cli5b")
+    argv = ["--video_root_dir", clips, "--steps", str(SERVING_STEPS), "--sample_num", "2",
+            "--w8a8", "--teacache", "--output_dir", out5]
+    log("video b: python -m yume_tpu_torch.sample " + " ".join(argv[:-2]))
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = sample.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"video 5b: sample.main returned {rc}")
+        read_counts("video 5b", needed=SERVING_KERNELS + ("q8_dot",))
+        calls = rec.take()
+        fwd_ms = [round(c["s"] * 1e3, 1) for c in steps.take(quiet=True)]
+    finally:
+        rec.restore()
+        steps.restore()
+    enc = [c for c in calls if c["call"] == "encode_auto"]
+    require(len(enc) == 1 and enc[0]["shape"] == [1, VIDEO_LATENT_F, 44, 80, 48],
+            f"video 5b: encode_auto calls {enc}")
+    segs = [c for c in calls if c["call"] == "generate_segment"]
+    decs = [c for c in calls if c["call"] == "decode_auto"]
+    require([c["shape"][1] for c in segs] == [VIDEO_LATENT_F + 8, VIDEO_LATENT_F + 16]
+            and [c["shape"][1] for c in decs] == [29, 29], "video 5b: segments or decodes")
+    # the packed shapes phase 3 holds K1–K6 at
+    seg_l = tuple(packed_token_count(c["shape"][1] - 8, 8, 44, 80, (1, 2, 2)) for c in segs)
+    require(seg_l == VIDEO_5B_L, f"video 5b: segments at {seg_l} packed tokens, phase 3 "
+            f"checks {VIDEO_5B_L}")
+    files = _video_files(out5, ["video000_seg000.mp4", "video000_seg001.mp4"])
+    out["5b"] = {"wall_s": wall, "encode_s": enc[0]["s"], "encode_peak_gib": enc[0]["peak_gib"],
+                 "segment_s": [c["s"] for c in segs], "decode_s": [c["s"] for c in decs],
+                 "peak_gib": max(c["peak_gib"] for c in calls), "dit_forward_ms": fwd_ms,
+                 "files": files}
+    log(f"  video 5b: sample.main wall {wall:.3f} s; encode_auto of {VIDEO_READ} frames "
+        f"(streaming) {enc[0]['s']:.3f} s, peak {enc[0]['peak_gib']:.2f} GiB; segments "
+        f"{[round(c['s'], 3) for c in segs]} s; tail decodes "
+        f"{[round(c['s'], 3) for c in decs]} s; DiT forwards (ms) {fwd_ms}; files {files}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(torch.cuda.memory_allocated() < 2**30, "video 5b: the CLI left memory allocated")
+
+    # c. the 14B video mode
+    (w, h) = I2V_SIZE
+    rec = _Recorder(I2VPipeline, ("encode_text", "clip_features", "make_conditioning",
+                                  "generate", "decode_auto"))
+    steps = _Recorder(WanDiT, ("forward",))
+    out14 = os.path.join(root, "cli14b")
+    argv = ["--config", "i2v-14B", "--input_video", base + ".mp4", "--width", str(w),
+            "--height", str(h), "--steps", str(I2V_STEPS), "--sample_num", "1",
+            "--output_dir", out14]
+    log("video c: python -m yume_tpu_torch.sample " + " ".join(argv[:-2]))
+    n_fwd = 2 * I2V_STEPS
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = sample.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"video 14b: sample.main returned {rc}")
+        read_counts("video 14b", exact={k: v * n_fwd for k, v in I2V_PER_FORWARD.items()})
+        calls = rec.take()
+        forwards = steps.take(quiet=True)
+    finally:
+        rec.restore()
+        steps.restore()
+    by_call = {}
+    for c in calls:
+        by_call.setdefault(c["call"], []).append(c)
+    require(len(forwards) == n_fwd and all(c["shape"] == [1, I2V_LFZ, I2V_H, I2V_W, 16]
+                                           for c in forwards),
+            f"video 14b: DiT forwards {[c['shape'] for c in forwards]}")
+    require([c["shape"] for c in by_call["decode_auto"]] == [[1, I2V_FRAMES, h, w, 3]],
+            f"video 14b: decoded {[c['shape'] for c in by_call['decode_auto']]}")
+    cond = by_call["make_conditioning"][0]
+    files = _video_files(out14, ["video000_seg000.mp4"])
+    fwd_ms = [round(c["s"] * 1e3, 1) for c in forwards]
+    out["14b"] = {"wall_s": wall, "history_frames": VIDEO_I2V_HISTORY, "packed_tokens": I2V_L,
+                  "dit_forward_ms": fwd_ms, "history_encode_s": cond["s"],
+                  "history_encode_peak_gib": cond["peak_gib"],
+                  "decode_s": by_call["decode_auto"][0]["s"],
+                  "decode_peak_gib": by_call["decode_auto"][0]["peak_gib"],
+                  "peak_gib": max(c["peak_gib"] for c in calls), "files": files,
+                  "calls_s": {k: [round(c["s"], 3) for c in v] for k, v in by_call.items()}}
+    log(f"  video 14b: sample.main wall {wall:.3f} s; history of {VIDEO_I2V_HISTORY} frames "
+        f"(the first 16 times, then {VIDEO_READ}); {n_fwd} forwards at {I2V_L} packed tokens "
+        f"(ms) {fwd_ms}; history encode {cond['s']:.3f} s (peak {cond['peak_gib']:.2f} GiB); "
+        f"decode of {I2V_FRAMES} frames {out['14b']['decode_s']:.3f} s (peak "
+        f"{out['14b']['decode_peak_gib']:.2f} GiB); peak {out['14b']['peak_gib']:.2f} GiB; "
+        f"calls (s) {out['14b']['calls_s']}; files {files}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(torch.cuda.memory_allocated() < 2**30, "video 14b: the CLI left memory allocated")
+
+    # d. the trainer on the tree: LoRA rank 16, random encoders
+    tw, th = 640, 352
+    argv = ["--data_dir", clips, "--lora_rank", "16", "--remat", "--max_train_steps", "3",
+            "--num_frames", str(VIDEO_READ), "--height", str(th), "--width", str(tw),
+            "--checkpointing_steps", "0", "--output_dir", os.path.join(root, "train")]
+    log("video d: python -m yume_tpu_torch.train " + " ".join(argv[:-2]))
+    # train.main starts from a zero head, which gives the adapters a zero
+    # gradient; a random head (as phase 7's LoRA step) makes K8 and K9 run
+    # on a real upstream gradient and each step's grad norm positive
+    real_init = train.init_params_
+
+    def init_random_head(model, generator):
+        real_init(model, generator)
+        with torch.no_grad():
+            head = model.head.head
+            head.weight.normal_(0.0, head.weight.shape[1] ** -0.5, generator=generator)
+
+    real_encode, batches = WanVAE.encode, []
+
+    def encode(self, video):
+        z = real_encode(self, video)
+        batches.append(tuple(z.shape))
+        return z
+
+    train.init_params_, WanVAE.encode = init_random_head, encode
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train.main(argv)
+        wall = time.perf_counter() - t0
+        read_counts("video train", needed=("flash_attention", "adaln_norm", "adaln_residual",
+                                           "qk_norm_rope", "rms_norm",
+                                           "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                    absent=("q8_dot", "flash_attention_partial", "bias_act"))
+    finally:
+        train.init_params_, WanVAE.encode = real_init, real_encode
+    run = train.main.last_run
+    require(all(map(math.isfinite, run["losses"])) and len(run["grad_norms"]) == 3
+            and all(math.isfinite(g) and g > 0 for g in run["grad_norms"]),
+            f"video train: losses {run['losses']}, grad norms {run['grad_norms']}")
+    # the packed shape phase 3 holds K1–K5, K8 and K9 at
+    train_l = {packed_token_count(s[1] - 8, 8, s[2], s[3], (1, 2, 2)) for s in batches}
+    require(len(batches) == 3 and train_l == {VIDEO_TRAIN_L},
+            f"video train: batches {batches}, {train_l} packed tokens, phase 3 checks "
+            f"{VIDEO_TRAIN_L}")
+    split = [round(s - a - b, 4) for s, a, b in zip(run["step_times"], run["batch_wait_s"],
+                                                     run["encode_s"])]
+    out["train"] = {k: run[k] for k in ("losses", "grad_norms", "step_times", "batch_wait_s",
+                                        "encode_s")}
+    out["train"].update(train_step_s=split, wall_s=wall,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  video train: step times {[round(t, 4) for t in run['step_times']]} s = host wait "
+        f"{[round(t, 4) for t in run['batch_wait_s']]} + device encode "
+        f"{[round(t, 4) for t in run['encode_s']]} + train step {split}; losses "
+        f"{[round(x, 5) for x in run['losses']]}; grad norms {run['grad_norms']}; peak "
+        f"{out['train']['peak_gib']:.2f} GiB; wall {wall:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. the preprocess CLI and LatentDataset
+    made = {}
+    real_encode, real_text = WanVAE.encode, TI2VPipeline.encode_text
+    WanVAE.encode = lambda self, v: made.setdefault("latents", real_encode(self, v))
+    TI2VPipeline.encode_text = lambda self, ids, mask: made.setdefault(
+        "context", real_text(self, ids, mask))
+    pre = os.path.join(root, "latents")
+    argv = ["--data_dir", clips, "--output_dir", pre, "--max_samples", "1"]
+    log("video e: python -m yume_tpu_torch.data.preprocess " + " ".join(argv))
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        preprocess.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        WanVAE.encode, TI2VPipeline.encode_text = real_encode, real_text
+    read_counts("video preprocess")
+    item = LatentDataset(os.path.join(pre, "videos2caption.json"))[0]
+    same = {k: bool(np.array_equal(item[k], made[k][0].float().cpu().numpy()))
+            for k in ("latents", "context")}
+    require(all(same.values()) and item["latents"].shape == (VIDEO_LATENT_F, 22, 40, 48),
+            f"video preprocess: read back {same}, latents {item['latents'].shape}")
+    out["preprocess"] = {"wall_s": wall, "latents": list(item["latents"].shape),
+                         "context": list(item["context"].shape),
+                         "mask_tokens": int(item["context_mask"].sum()), "bit_equal": same}
+    log(f"  video preprocess: main wall {wall:.3f} s; LatentDataset read back latents "
+        f"{list(item['latents'].shape)} and context {list(item['context'].shape)} bit for bit "
+        f"({same})")
+    del made, item
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # kernel families of a device trace, by kernel name (first match wins)
 KERNEL_FAMILIES = [
     ("K1 flash fwd", ("flash_fwd_kernel",)),
@@ -2657,6 +3057,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     attention_and_glue_kernels(results, gen)
     i2v_kernels(results, gen)
+    video_kernels(results, gen)
     quant_matmul_kernel(results, gen)
     flash_backward_kernels(results, gen)
     partial_attention_kernel(results, gen)
@@ -2675,6 +3076,7 @@ def main() -> int:
     launches, euler_launches, t2v_launches = pipeline_phase(counters)
     serving = serving_phase(counters)
     i2v = i2v_phase(counters)
+    video = video_phase(counters)
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
     sp = sp_phase()
@@ -2707,7 +3109,11 @@ def main() -> int:
                  # phase 6e: the 14B CLI run (8 forwards), one bf16 and one
                  # W8A8 forward at 28,350 tokens
                  **{f"launches_{p.replace(' ', '_')}": n[key]
-                    for p, n in i2v["launches"].items()}}
+                    for p, n in i2v["launches"].items()},
+                 # phase 6f: the 5B and 14B video modes, the trainer on the
+                 # tree, the preprocess CLI
+                 **{f"launches_{p.replace(' ', '_')}": n[key]
+                    for p, n in video["launches"].items()}}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],
@@ -2760,6 +3166,7 @@ def main() -> int:
     train = {k: {f: v for f, v in r.items() if f != "launches"} for k, r in train_runs.items()}
     log("serving: " + json.dumps(serving["paths"]))
     log("i2v: " + json.dumps({k: v for k, v in i2v.items() if k != "launches"}))
+    log("video: " + json.dumps({k: v for k, v in video.items() if k != "launches"}))
     log("train: " + json.dumps(train))
     log("sp: " + json.dumps(sp))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

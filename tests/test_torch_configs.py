@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's jax-free modules stay equal to
 them: every config dataclass (field names, types, defaults and factory
 configs), the sigma ladders, the offline tokenizer, the key/mouse control
-vocabulary, the template prompt refiner, the video and PSNR helpers.
+vocabulary, the camera-trajectory metrics and Plücker rays, the template
+prompt refiner, the video and PSNR helpers.
 
 Exact comparisons: these are copies, not re-implementations.
 """
@@ -13,6 +14,7 @@ import pytest
 
 from torch_parity import port_config
 from yume_tpu import configs as jconfigs
+from yume_tpu.data import camera as jcamera
 from yume_tpu.data import controls as jcontrols
 from yume_tpu.data import prompt_refine as jrefine
 from yume_tpu.data import tokenizer as jtok
@@ -20,6 +22,7 @@ from yume_tpu.diffusion import schedule as jschedule
 from yume_tpu.utils import metrics as jmetrics
 from yume_tpu.utils import video as jvideo
 from yume_tpu_torch import configs as tconfigs
+from yume_tpu_torch.data import camera as tcamera
 from yume_tpu_torch.data import controls as tcontrols
 from yume_tpu_torch.data import prompt_refine as trefine
 from yume_tpu_torch.data import tokenizer as ttok
@@ -97,6 +100,50 @@ def test_controls_equal(tmp_path):
         path = tmp_path / "c.txt"
         path.write_text(text, encoding="utf-8")
         assert tcontrols.parse_control_txt(str(path)) == jcontrols.parse_control_txt(str(path))
+
+
+def _trajectory(seed, n=24):
+    """A c2w sequence that walks and turns, with a repeated pose (the
+    functions skip zero-length steps)."""
+    rng = np.random.default_rng(seed)
+    mats = []
+    for i in range(n):
+        a = 0.05 * i + 0.01 * rng.standard_normal()
+        m = np.eye(4)
+        m[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        m[:3, 3] = [0.02 * i, 0.001 * rng.standard_normal(), 0.1 * i]
+        mats.append(m)
+    if n > 5:
+        mats[5] = mats[4]
+    return np.array(mats)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_camera_metrics_equal(stride):
+    c2w = _trajectory(stride)
+    (coords, angles) = tcamera.traj_position_change(c2w, stride)
+    want_coords, want_angles = jcamera.traj_position_change(c2w, stride)
+    np.testing.assert_array_equal(np.array(coords), np.array(want_coords))
+    assert angles == want_angles
+    assert tcamera.traj_rotation_change(c2w, stride) == jcamera.traj_rotation_change(c2w,
+                                                                                     stride)
+    np.testing.assert_array_equal(tcamera.normalize_c2w_matrices(c2w),
+                                  jcamera.normalize_c2w_matrices(c2w))
+    for lo, hi in ((0, 24), (3, 17), (10, 11)):
+        metrics = tcamera.metrics_in_range(c2w, lo, hi, stride=stride)
+        assert metrics == jcamera.metrics_in_range(c2w, lo, hi, stride=stride)
+        assert tcamera.metrics_caption(*metrics) == jcamera.metrics_caption(*metrics)
+
+
+def test_plucker_rays_equal():
+    rng = np.random.default_rng(3)
+    K = np.abs(rng.standard_normal((2, 3, 4))) * 10 + 1
+    c2w = np.stack([_trajectory(s, 3) for s in (4, 5)])
+    np.testing.assert_array_equal(tcamera.plucker_rays(K, c2w, 5, 7),
+                                  jcamera.plucker_rays(K, c2w, 5, 7))
+    flip = np.array([True, False, True])
+    np.testing.assert_array_equal(tcamera.plucker_rays(K, c2w, 5, 7, flip_x=flip),
+                                  jcamera.plucker_rays(K, c2w, 5, 7, flip_x=flip))
 
 
 def test_template_refiner_equal():

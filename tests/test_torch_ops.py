@@ -276,7 +276,11 @@ def test_port_imports_no_jax():
               "yume_tpu_torch.sample", "yume_tpu_torch.serving.webapp",
               "yume_tpu_torch.pipelines.tiled_decode", "yume_tpu_torch.utils.offload",
               "yume_tpu_torch.utils.video", "yume_tpu_torch.data.controls",
-              "yume_tpu_torch.models.clip", "yume_tpu_torch.pipelines.i2v"):
+              "yume_tpu_torch.models.clip", "yume_tpu_torch.pipelines.i2v",
+              "yume_tpu_torch.data.camera", "yume_tpu_torch.data.native",
+              "yume_tpu_torch.data.dataset", "yume_tpu_torch.data.transforms",
+              "yume_tpu_torch.data.loader", "yume_tpu_torch.data.latent_dataset",
+              "yume_tpu_torch.data.preprocess"):
         assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke
@@ -284,6 +288,9 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
+            # the native data path builds from native/*.cpp at first use
+            "from yume_tpu_torch.data import native\n"
+            "native.have_native(); native.decoder()\n"
             + "".join(f"{stmt}\n" for stmt in smoke) +
             "bad = sorted(k for k in sys.modules\n"
             "             if k.startswith('jax') or k.split('.')[0] == 'yume_tpu')\n"

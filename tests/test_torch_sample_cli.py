@@ -313,17 +313,17 @@ def test_entry_points_default_to_cuda():
 
 
 # argv and what the refusal must name: a ROADMAP queue 1 item, or for a flag
-# that means nothing for the model asked for, the model it is for
+# that means nothing for the model asked for, the model it is for (a 14B run
+# without an image or a video: JAX's message)
 SAMPLE_REFUSED = {
-    "config_14b": (["--config", "i2v-14B"], "item 3"),     # without --jpg_dir
+    "config_14b": (["--config", "i2v-14B"], "pipeline needs --jpg_dir .image mode., "
+                                            "--input_video, or --video_root_dir"),
     "distilled": (["--distilled"], "i2v-14B"),
     "cfg_parallel": (["--cfg_parallel"], "item 6"),
     "int8": (["--int8"], "item 6"),
     "int4": (["--int4"], "item 6"),
     "pp": (["--pp", "2"], "item 8"),
     "sp": (["--sp", "2"], "item 4"),
-    "input_video": (["--input_video", "clip.mp4"], "item 3"),
-    "video_root_dir": (["--video_root_dir", "videos"], "item 3"),
 }
 WEBAPP_REFUSED = {
     "config_14b": (["--config", "i2v-14B"], "item 6"),
@@ -334,7 +334,7 @@ WEBAPP_REFUSED = {
 }
 
 
-for _name in ("cfg_parallel", "int8", "int4", "pp", "sp", "input_video", "video_root_dir"):
+for _name in ("cfg_parallel", "int8", "int4", "pp", "sp"):
     _argv, _item = SAMPLE_REFUSED[_name]
     SAMPLE_REFUSED[f"14b_{_name}"] = (["--config", "i2v-14B", "--jpg_dir", "jpg"] + _argv,
                                       _item)

@@ -52,7 +52,7 @@ def test_smoke_runs(tmp_path, extra, capsys):
         assert os.path.exists(tmp_path / "generated_test_video" / "val_latents_step2.npy")
 
 
-@pytest.mark.parametrize("flag", [["--data_dir", "x"], ["--ckpt_dir", "x"],
+@pytest.mark.parametrize("flag", [["--ckpt_dir", "x"],
                                   ["--sp", "2", "--sp_kind", "ring", "--Distil"],
                                   ["--sp", "2"], ["--config", "i2v-14B"],
                                   ["--export_torch_dir", "x"]])

@@ -141,34 +141,36 @@ class TI2VPipeline:
 
     @property
     def device(self) -> torch.device:
-        return next(self.dit.parameters()).device
+        return next((self.dit if self.dit is not None else self.vae).parameters()).device
 
     # -- construction --------------------------------------------------------
 
     @classmethod
     def from_config(cls, config: PipelineConfig, *, device="cuda", seed: int = 0,
-                    init_t5: bool = False,
+                    init_t5: bool = False, init_dit: bool = True,
                     dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Random-initialised pipeline at the config's full width, allocated
         and initialised directly on ``device`` from a seeded
-        ``torch.Generator`` (real weights come from checkpoints)."""
+        ``torch.Generator`` (real weights come from checkpoints). Without
+        ``init_dit`` it holds only the encoders and the VAE (the trainer's
+        encode path)."""
         gen = torch.Generator(device=device).manual_seed(seed)
         dit_f, vae_f, t5_f = module_factories(config, dtype)
-        return cls(config, *build_modules((dit_f, vae_f, t5_f if init_t5 else None), device,
-                                          generator=gen))
+        return cls(config, *build_modules((dit_f if init_dit else None, vae_f,
+                                           t5_f if init_t5 else None), device, generator=gen))
 
     @classmethod
-    def from_state_dicts(cls, config: PipelineConfig, dit_sd: Mapping,
+    def from_state_dicts(cls, config: PipelineConfig, dit_sd: Optional[Mapping],
                          vae_sd: Mapping, t5_sd: Optional[Mapping] = None, *,
                          device="cuda",
                          dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Pipeline from reference-named state dicts (torch tensors or numpy
         arrays, e.g. from :mod:`..utils.convert`), loaded strictly, stored
-        and computed in ``dtype``."""
+        and computed in ``dtype``; ``dit_sd=None`` leaves the DiT out."""
         dit_f, vae_f, t5_f = module_factories(config, dtype)
         return cls(config, *build_modules(
-            (dit_f, vae_f, t5_f if t5_sd is not None else None), device,
-            state_dicts=(dit_sd, vae_sd, t5_sd)))
+            (dit_f if dit_sd is not None else None, vae_f, t5_f if t5_sd is not None else None),
+            device, state_dicts=(dit_sd, vae_sd, t5_sd)))
 
     def with_w8a8(self) -> "TI2VPipeline":
         """This pipeline with ``config.dit.w8a8`` on (:func:`w8a8_twin`),

@@ -6,14 +6,26 @@ then autoregressive continuation segments, one per caption. The 14B model
 ``generate_next`` of 32 new frames per caption, each re-conditioned on the
 whole video so far.
 
+The video-input mode (``--input_video`` clip.mp4, or ``--video_root_dir``
+scanning ``<dir>/<category>/*.mp4`` with sibling ``.txt`` control files,
+the reference's ``mp4_data`` over ``test_video/``) continues generation
+from the first ``--video_frames`` frames of each clip, captioned from its
+key/mouse controls: on the 5B the clip is VAE-encoded as history latents
+and ``--sample_num`` segments continue it; on the 14B its first frame is
+repeated in front of it and each ``generate_next`` re-conditions on the
+growing decoded video. Each sample writes ``video<NNN>_seg<SSS>.mp4``.
+
     python -m yume_tpu_torch.sample --smoke --device cpu --t2v --sample_num 2
     python -m yume_tpu_torch.sample --t2v --steps 4 --w8a8 --teacache   # 5B on the card
     python -m yume_tpu_torch.sample --jpg_dir ./jpg --caption_file caption.txt \
         --ckpt_dir ./Yume-5B-720P
+    python -m yume_tpu_torch.sample --video_root_dir ./test_video --sample_num 2
     python -m yume_tpu_torch.sample --config i2v-14B --smoke --device cpu \
         --jpg_dir ./jpg --sample_num 2
     python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir ./jpg --width 960 \
         --height 544 --steps 50 --ckpt_dir ./Yume-I2V-540P   # 14B on the card
+    python -m yume_tpu_torch.sample --config i2v-14B --input_video clip.mp4 \
+        --width 960 --height 544
 
 Same flags as the reference's CLI, plus ``--device`` (default ``cuda``).
 ``--smoke`` runs the reference's tiny smoke config; the model computes in
@@ -26,14 +38,13 @@ index or not, ``Wan2.2_VAE.pth`` or for the 14B ``Wan2.1_VAE.pth``,
 ``--teacache`` refreshes adaptively at a rel-L1 threshold of 0.1 (the
 headline configuration) unless ``--teacache_interval`` asks for a fixed
 interval. The 14B takes ``--distilled`` (one cond-only forward a step, no
-negative prompt); its continuations run Euler whatever the sampler, as the
-reference's.
+negative prompt); its image mode's continuations run Euler whatever the
+sampler, as the reference's, while its video mode passes the sampler to
+every ``generate_next``, as the reference's does.
 
 Not ported, and refused with the ROADMAP queue 1 item that brings them:
 ``--cfg_parallel``, ``--int8`` and ``--int4`` (item 6); ``--pp`` (item 8);
-``--sp > 1`` (a CLI launch of the SP groups, item 4); ``--input_video`` and
-``--video_root_dir`` (item 3's data path), and with them a 14B run without
-``--jpg_dir``.
+``--sp > 1`` (a CLI launch of the SP groups, item 4).
 """
 
 from __future__ import annotations
@@ -71,9 +82,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "conditions the first segment")
     p.add_argument("--caption_file", default=None,
                    help="per-line segment control captions (≙ caption.txt)")
-    p.add_argument("--video_root_dir", default=None, help="not ported (ROADMAP queue 1, item 3)")
-    p.add_argument("--input_video", default=None, help="not ported (ROADMAP queue 1, item 3)")
-    p.add_argument("--video_frames", type=int, default=33)
+    p.add_argument("--video_root_dir", default=None,
+                   help="video-input mode: continue generation from each "
+                        "<dir>/<category>/*.mp4, captioned from its sibling .txt "
+                        "control file (≙ the reference's mp4_data over test_video/)")
+    p.add_argument("--input_video", default=None,
+                   help="continue generation from one .mp4 (caption from --prompt, "
+                        "or a sibling .txt control file)")
+    p.add_argument("--video_frames", type=int, default=33,
+                   help="frames read from each input video (the reference's 33)")
     p.add_argument("--num_euler_timesteps", "--steps", dest="steps", type=int, default=50)
     p.add_argument("--shift", type=float, default=None)
     p.add_argument("--guide_scale", type=float, default=5.0)
@@ -161,9 +178,6 @@ def refuse_unported(args, webapp: bool = False):
         (args.pp > 1, "--pp is pipeline parallelism (ROADMAP queue 1, item 8)"),
         (args.sp > 1, "--sp > 1 needs a CLI launch of the port's SP groups (ROADMAP "
                       "queue 1, item 4); TI2VPipeline with sp_groups is ported"),
-        (getattr(args, "input_video", None) or getattr(args, "video_root_dir", None),
-         "--input_video and --video_root_dir need the video reader and data path "
-         "(ROADMAP queue 1, item 3)"),
     ]
     for flag, why in unported:
         if flag:
@@ -252,14 +266,17 @@ def load_pipeline(args):
                                          dtype=dtype)
 
 
-def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bfloat16):
+def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bfloat16,
+                       load_dit: bool = True):
     """A TI2VPipeline (5B) or an I2VPipeline (14B) from released torch
     checkpoints in ``ckpt_dir``: the DiT's safetensors (one file, several,
     or shards with an index), the VAE's (``Wan2.2_VAE.pth`` or
     ``Wan2.1_VAE.pth``) and umT5's ``.pth``, and the 14B's CLIP ``.pth``.
     Strict, as the reference: a missing file raises before anything loads,
     and so does a missing or unknown tensor (wrapper segments such as
-    ``module.`` are dropped from the DiT's keys)."""
+    ``module.`` are dropped from the DiT's keys). ``load_dit=False`` builds
+    a 5B pipeline of the VAE and umT5 alone, without a DiT (the trainer's
+    encode path; the reference's ``load_dit=False``)."""
     from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
     from .utils.checkpoint import (clip_visual_from_released, load_safetensors_state_dict,
@@ -268,13 +285,13 @@ def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bflo
     i2v = config.name == "i2v-14B"
     vae_file = VAE21_FILE if config.vae.arch == "wan21" else VAE_FILE
     files = [vae_file, T5_FILE] + ([CLIP_FILE] if i2v else [])
-    has_dit = any(f.endswith(".safetensors") for f in os.listdir(ckpt_dir))
+    has_dit = not load_dit or any(f.endswith(".safetensors") for f in os.listdir(ckpt_dir))
     missing = ([] if has_dit else [DIT_FILES]) + [
         f for f in files if not os.path.exists(os.path.join(ckpt_dir, f))]
     if missing:
         raise RuntimeError(f"checkpoint dir {ckpt_dir!r} is missing: {', '.join(missing)}; "
                            "refusing to run with random-init modules")
-    dit_sd = normalize_torch_keys(load_safetensors_state_dict(ckpt_dir))
+    dit_sd = normalize_torch_keys(load_safetensors_state_dict(ckpt_dir)) if load_dit else None
     vae_sd, t5_sd = (load_torch_state_dict(os.path.join(ckpt_dir, f)) for f in files[:2])
     if i2v:
         clip_sd = clip_visual_from_released(
@@ -300,12 +317,10 @@ def main(argv=None) -> int:
 
     args = build_argparser().parse_args(argv)
     teacache = teacache_settings(args) if args.teacache else (3, None)
-    if args.config == "i2v-14B" and not (args.jpg_dir or args.input_video
-                                         or args.video_root_dir):
-        raise NotImplementedError(
-            "not ported yet: a 14B run starts from an image (--jpg_dir); --input_video "
-            "and --video_root_dir need the video reader and data path (ROADMAP queue 1, "
-            "item 3)")
+    video_mode = bool(args.input_video or args.video_root_dir)
+    if args.config == "i2v-14B" and not (args.jpg_dir or video_mode):
+        raise SystemExit("the 14B i2v pipeline needs --jpg_dir (image mode), "
+                         "--input_video, or --video_root_dir")
     cfg, pipe = load_pipeline(args)
     os.makedirs(args.output_dir, exist_ok=True)
     timer = PhaseTimer(pipe.device)
@@ -356,9 +371,12 @@ def main(argv=None) -> int:
             if pipe.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = stack.enter_context(torch.profiler.profile(activities=acts))
-        run = _run_i2v if cfg.name == "i2v-14B" else _run
-        run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
-            slot, timer)
+        if video_mode:
+            _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer)
+        else:
+            run = _run_i2v if cfg.name == "i2v-14B" else _run
+            run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num,
+                steps, slot, timer)
     if prof is not None:
         os.makedirs(args.profile_dir, exist_ok=True)
         path = os.path.join(args.profile_dir, "trace.json")
@@ -366,6 +384,113 @@ def main(argv=None) -> int:
         print(f"trace written to {path}")
     timer.summary()
     return 0
+
+
+# the camera-metrics suffix of every video-mode caption: a constant in the
+# reference (fastvideo/sample/sample.py:689), not computed from the clip
+_VIDEO_METRICS_SUFFIX = (
+    "Actual distance moved:4.3697374288015297 at 100 meters per second."
+    "Angular change rate (turn speed):4.520279996588001."
+    "View rotation speed:4.14601429683874179.")
+
+
+def iter_video_samples(args, size):
+    """Yield (video [1, F, H, W, 3] in [-1, 1] on the host, caption, tag)
+    from ``--input_video`` and then ``--video_root_dir``, whose
+    ``<category>/*.mp4`` scan is strided by the ``torch.distributed`` rank
+    so that each process serves other clips (the reference's
+    ``(step-1)*world_size+rank``, fastvideo/sample/sample.py:667). A clip's
+    sibling ``.txt`` control file gives the key/mouse caption; tags count
+    the scan's global index, so ranks sharing an output directory do not
+    collide."""
+    import glob
+
+    from .data.controls import control_caption, parse_control_txt
+    from .data.dataset import read_video_frames
+    from .data.loader import process_rank
+
+    n_frames = 5 if args.smoke else args.video_frames
+
+    def load(mp4, caption):
+        txt = mp4[:-4] + ".txt"
+        if os.path.exists(txt):
+            keys, mouse, _, _ = parse_control_txt(txt)
+            if keys is not None or mouse is not None:
+                caption = control_caption(keys or "None", mouse or "·")
+        video = read_video_frames(mp4, list(range(n_frames)), size=(size[1], size[0]))
+        return torch.from_numpy(video)[None], caption
+
+    if args.input_video:
+        yield load(args.input_video, args.prompt) + ("video000",)
+    if args.video_root_dir:
+        rank, world = process_rank()
+        files = [mp4 for sub in sorted(glob.glob(os.path.join(args.video_root_dir, "*/")))
+                 for mp4 in sorted(glob.glob(os.path.join(sub, "*.mp4")))]
+        for i, mp4 in enumerate(files[rank::world]):
+            yield load(mp4, args.prompt) + (f"video{rank + i * world:03d}",)
+
+
+def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer):
+    """The video-input mode (reference sample_one's video branch,
+    fastvideo/sample/sample.py:686-714). 5B: ``encode_auto`` of the clip
+    gives the history latents, then ``--sample_num`` segments, each tail
+    decoded and written. 14B: the clip's first frame repeated ``rep`` times
+    in front of it (16 at the 14B's temporal stride 4; ``rep`` makes the
+    history 1 mod the stride, so the causal VAE streams it exactly), then
+    ``generate_next`` of ``(latent_frame_zero - 1)·stride`` frames per
+    sample, the history growing by the decoded video each time."""
+    from .utils.video import save_video
+
+    interval, threshold = teacache
+    seg_kw = dict(sampler=sampler, teacache_interval=interval,
+                  teacache_edge=args.teacache_edge, teacache_threshold=threshold)
+    lfz, s0 = cfg.latent_frame_zero, cfg.vae.stride[0]
+
+    def save(video, name):
+        return save_video(video.float().cpu().numpy(), os.path.join(args.output_dir, name),
+                          fps=cfg.sample_fps)
+
+    n_out = 0
+    for video, caption, tag in iter_video_samples(args, size):
+        ctx = encode(caption + _VIDEO_METRICS_SUFFIX)
+        video = video.to(pipe.device)
+        t0 = time.time()
+        if cfg.name == "i2v-14B":
+            # --distilled: cond-only, as the image mode
+            ctx_null = None if args.distilled else encode(args.neg_prompt
+                                                          or cfg.sample_neg_prompt)
+            rep = 4 * s0 + ((1 - video.shape[1] - 4 * s0) % s0)
+            history = torch.cat([video[:, :1].expand(-1, rep, -1, -1, -1), video], dim=1)
+            frame_zero = (lfz - 1) * s0
+            for s in range(args.sample_num):
+                with timer.phase("generate_next"):
+                    _, history = pipe.generate_next(
+                        history, ctx, ctx_null, frame_zero=frame_zero, steps=steps,
+                        shift=args.shift, guide_scale=args.guide_scale, seed=args.seed + s,
+                        **seg_kw)
+                save(history[0, -frame_zero:], f"{tag}_seg{s:03d}.mp4")
+                n_out += 1
+        else:
+            with timer.phase("vae_encode"):
+                if slot is not None:
+                    slot.use("vae")
+                latents = pipe.encode_auto(video)
+            for s in range(args.sample_num):
+                with timer.phase("generate"):
+                    latents = pipe.generate_segment(latents, ctx, steps=steps,
+                                                    shift=args.shift or cfg.sample_shift,
+                                                    seed=args.seed + s, **seg_kw)
+                with timer.phase("vae_decode"):
+                    if slot is not None:
+                        slot.use("vae")
+                    tail = pipe.decode_auto(latents[:, -lfz:])
+                save(tail[0], f"{tag}_seg{s:03d}.mp4")
+                n_out += 1
+        print(f"--> {tag}: {args.sample_num} segment(s) in {time.time() - t0:.1f}s "
+              f"({caption[:60]})")
+    if n_out == 0:
+        raise FileNotFoundError(
+            f"no input videos found under {args.video_root_dir or args.input_video}")
 
 
 def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
