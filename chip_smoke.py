@@ -46,7 +46,14 @@ result line:
    shapes; the data-path trainer's 2,260: K1–K5 and K8/K9, self and cross);
    K1's self cases hold out to two bf16 ulps of the largest |out| and the
    lse to ``K7_LSE_TOL``, on a few heads); then K7's ring invariant
-   against K1 and its VJP with an lse cotangent;
+   against K1 and its VJP with an lse cotangent; and for the quantized
+   trunk and ``--cfg_parallel`` (phase 6g): K1 self and cross, K2–K5 at
+   batch 2 at the 14B's 28,350 tokens and K6 at the batch-2 forward's
+   56,700 rows; K6 bit for bit on stored int8 weights and on int8 relayed
+   from int4 at the 5B and 14B block shapes, beside ``torch._int_mm``,
+   with the relay's time per shape and per layer; the storage quantization
+   (int8, int4, the relay) of one full 14B block on the card, bit for bit
+   against the CPU's;
 4. reference: a 2-layer full-width DiT on the card (kernels, bf16) against
    the same weights on the CPU (plain versions, fp32), once in bf16 matmuls
    and once with W8A8, at a small input; then the gradient of a flow loss
@@ -123,6 +130,15 @@ result line:
       preprocess CLI's ``main --max_samples 1``, whose latents and context
       ``LatentDataset`` reads back bit for bit. The segments' and the
       batches' packed token counts must be the ones phase 3 checks.
+   g. (after those are freed) the quantized DiT trunk and batched CFG
+      (:func:`quantized_phase`): the 5B CLI with ``--int8 --w8a8
+      --teacache`` and with ``--int4 --w8a8`` (the bf16 trunk freed at
+      load, no weight quantized while they run), the webapp with ``--quant
+      int4``, the 14B CLI with ``--int4 --w8a8 --memory_optimization``
+      (the trunk streamed block by block under a stated peak, parked in the
+      phase shuttle), full-width 14B forwards on int8 and int4 trunks of
+      6e's weights against their dequantized trunks and 6e's bf16 forward,
+      and one batched CFG step against two forwards.
 7. train (after the pipeline is freed): the 5B trainer at full width and
    its geometry (2,805 packed tokens), random bf16 parameters, remat, each
    path with the counts set to 0 just before it and read just after:
@@ -155,6 +171,7 @@ device the script exits non-zero.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -755,13 +772,135 @@ def i2v_kernels(results, gen):
                                     dim, n))
 
 
-def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
+# a 14B block's projections as the quantized trunk stores them (self-attention
+# q, k and v as one), (name, N, K) in Linear layout
+I2V_BLOCK = ([("self_attn.qkv", 3 * I2V_DIM, I2V_DIM), ("self_attn.o", I2V_DIM, I2V_DIM)]
+             + [(f"cross_attn.{p}", I2V_DIM, I2V_DIM)
+                for p in ("q", "k", "v", "o", "k_img", "v_img")]
+             + [("ffn.0", I2V_FFN, I2V_DIM), ("ffn.2", I2V_DIM, I2V_FFN)])
+
+
+def block_quantization_check(gen) -> dict:
+    """The storage quantization of one full-width 14B block on the card
+    against the CPU's, bit for bit: ``_quantize_leaf`` (codes and scales),
+    ``_quantize_leaf4`` and its relay ``q4_to_q8``, each of the ten N(0,
+    0.02) bf16 projections as stored (``I2V_BLOCK``); with the card's time
+    for the block."""
+    from yume_tpu_torch.models import quantized as tq
+    from yume_tpu_torch.ops import quant_matmul as qm
+
+    weights = [_randn(gen, n, k, scale=0.02) for _, n, k in I2V_BLOCK]
+
+    def on_card():
+        return [(tq._quantize_leaf(w), tq._quantize_leaf4(w)) for w in weights]
+
+    ms = {"int8": median_ms(lambda: [tq._quantize_leaf(w) for w in weights], reps=3),
+          "int4": median_ms(lambda: [tq._quantize_leaf4(w) for w in weights], reps=3)}
+    q4s = [tq._quantize_leaf4(w) for w in weights]
+    ms["relay"] = median_ms(lambda: [qm.q4_to_q8(q) for q in q4s], reps=3)
+    differing = 0
+    for (name, _, _), w, (q8, q4) in zip(I2V_BLOCK, weights, on_card()):
+        wc = w.cpu()
+        c8, c4 = tq._quantize_leaf(wc), tq._quantize_leaf4(wc)
+        r, rc = qm.q4_to_q8(q4), qm.q4_to_q8(c4)
+        pairs = ((q8.q, c8.q), (q8.scale, c8.scale), (q4.q, c4.q), (q4.scale, c4.scale),
+                 (r.q, rc.q), (r.scale, rc.scale))
+        bad = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a.cpu(), b)]
+        differing += len(bad)
+        require(not bad, f"block quantization {name}: card and CPU differ in "
+                         f"{[('q8', 's8', 'q4', 's4', 'relay q', 'relay s')[i] for i in bad]}")
+    log(f"  14B block quantization on the card equals the CPU's bit for bit "
+        f"({len(I2V_BLOCK)} projections, int8, int4 and the relay); card ms for the block: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    del weights, q4s
+    return {"card_ms": ms, "differing": differing}
+
+
+def quantized_storage_kernels(results, gen) -> dict:
+    """K6 on the quantized trunk's weights, bit for bit against its plain
+    version at the 5B block's four projection shapes (M = 12,095) and the
+    14B's (M = 28,350): the stored int8 (``_quantize_leaf``: scales rounded
+    in bf16, no 1e-8 floor) and the int8 relayed from int4
+    (``q4_to_q8``); each beside ``torch._int_mm`` on the same int8 rows and
+    with its bound. The relay's own time per shape and per 14B layer (qkv
+    as one relay, o, cross q, cross o, ffn.0, ffn.2) against its bound
+    (int4 codes and scales read, int8 codes and scales written)."""
+    from yume_tpu_torch.models import quantized as tq
+    from yume_tpu_torch.ops import quant_matmul as qm
+
+    relay = {}
+    for label, m, shapes in (("5B", L, K6_SHAPES), ("14B", I2V_L, K6_SHAPES_14B)):
+        layer_ms = layer_bound = 0.0
+        for case, k, n, per_layer in shapes:
+            x = _randn(gen, m, k)
+            w = _randn(gen, n, k, scale=0.02)
+            q8, q4 = tq._quantize_leaf(w), tq._quantize_leaf4(w)
+            relayed = qm.q4_to_q8(q4)
+            r_ms = median_ms(lambda: qm.q4_to_q8(q4), reps=5)
+            r_bound = bound_ms(nbytes(q4.q, q4.scale, relayed.q, relayed.scale), 0.0,
+                               "fp32")[0]
+            layer_ms += per_layer * r_ms
+            layer_bound += per_layer * r_bound
+            relay[f"{label} {case}"] = {"ms": round(r_ms, 4), "bound_ms": round(r_bound, 4)}
+            xq, _ = qm.q8_quantize(x)
+            for kind, wq in (("stored Q8", q8), ("Q8 relayed from Q4", relayed)):
+                got = qm.q8_dot(x, wq)
+                want = qm._q8_matmul_ref(x, wq.q, wq.scale, torch.bfloat16)
+                n_diff = int((got != want).sum().item())
+                require(n_diff == 0, f"K6 {label} {case} {kind}: {n_diff} outputs differ")
+                qw_t = wq.q.t()
+                _record(results, "quant_matmul", f"{label} {case} M={m} {kind}",
+                        max_err(got, want), 0.0, median_ms(lambda: qm.q8_dot(x, wq)),
+                        median_ms(lambda: qm._q8_matmul_ref(x, wq.q, wq.scale,
+                                                            torch.bfloat16), reps=3),
+                        bound_ms(nbytes(x, wq.q, wq.scale, got), 2.0 * m * k * n, "int8"),
+                        median_ms(lambda: torch._int_mm(xq, qw_t)), differing=n_diff)
+                del got, want, qw_t
+            del x, w, q8, q4, relayed, xq
+        relay[f"{label} per layer"] = {"ms": round(layer_ms, 4),
+                                       "bound_ms": round(layer_bound, 4)}
+        log(f"  q4_to_q8 per {label} layer (qkv as one, 3 square, ffn.0, ffn.2): "
+            f"{layer_ms:.3f} ms, bound {layer_bound:.3f} ms")
+    return relay
+
+
+def batch2_kernels(results, gen):
+    """K1–K5 at batch 2 at the 14B segment's 28,350 packed tokens, the
+    shapes ``--cfg_parallel`` gives them (cond and uncond as one forward):
+    K1 self (held on one head), cross over 512 text and 257 CLIP keys with
+    a context per sample, each beside SDPA; K2–K5 as :func:`_packed_glue`
+    with per-sample tables. K6 at M = 56,700 is in
+    :func:`quant_matmul_kernel`."""
+    from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
+
+    n, l = I2V_HEADS, I2V_L
+    q, k, v = (_randn(gen, 2, l, n, D) for _ in range(3))
+    case = f"14B batch 2 self [2,{l},{n},128]"
+    err, tol, lse_err = _k1_self_check(case, q, k, v, 1)
+    _k1_record(results, case, q, k, v, l, err, lambda: _k1_plain_by_heads(q, k, v, 1),
+               lambda: _sdpa(q, k, v), reps=5, plain_reps=1, tol=tol, lse_max_abs_err=lse_err)
+    del k, v
+    for rows, what in ((TEXT_LEN, "text"), (CLIP_TOKENS, "CLIP")):
+        kc, vc = _randn(gen, 2, rows, n, D), _randn(gen, 2, rows, n, D)
+        err = max_err(flash_attention(q, kc, vc), plain_attention(q, kc, vc))
+        _k1_record(results, f"14B batch 2 cross Lk={rows} ({what})", q, kc, vc, rows, err,
+                   lambda: plain_attention(q, kc, vc), lambda: _sdpa(q, kc, vc), plain_reps=3)
+        del kc, vc
+    del q
+    _run_glue(results, _packed_glue(gen, I2V_F_HIST, I2V_LFZ, I2V_H, I2V_W, l,
+                                    "14B batch 2", I2V_DIM, n, batch=2))
+
+
+def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N, batch=1):
     """K2–K5 cases (as :func:`_run_glue` takes them) at the packed shape of
     ``f_hist`` history and ``lfz`` tail latent frames on an h×w latent grid,
     ``l`` tokens, at width ``dim``: the AdaLN tables K = 2 split where the tail begins
     (which of K2's kernels ran is logged), norm3 beside ``F.layer_norm``,
     the Head's fp32 out, K3, K4 with ``heads`` heads on this history's
-    FramePack RoPE tables, K5 beside ``F.rms_norm``."""
+    FramePack RoPE tables, K5 beside ``F.rms_norm``. With ``batch`` 2 (batched
+    CFG) the activations are [2, l, dim], the AdaLN and residual tables one
+    per sample [2, 2, dim] over idx [2, l], norm3's one [1, 1, dim] for
+    both."""
     from yume_tpu_torch.models import dit as tdit
     from yume_tpu_torch.ops import fused_adaln as fa
     from yume_tpu_torch.ops import rope
@@ -769,10 +908,11 @@ def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
     packed = tdit.packed_token_count(f_hist, lfz, h, w, (1, 2, 2))
     require(packed == l, f"{label}: {packed} packed tokens, expected {l}")
     l_hist = l - lfz * (h // 2) * (w // 2)
-    x, y = _randn(gen, 1, l, dim), _randn(gen, 1, l, dim)
-    s_tab = _randn(gen, 1, 2, dim, dtype=torch.float32, scale=0.1)
-    t_tab = _randn(gen, 1, 2, dim, dtype=torch.float32, scale=0.1)
-    idx = (torch.arange(l, device="cuda") >= l_hist).to(torch.int32)[None]
+    x, y = _randn(gen, batch, l, dim), _randn(gen, batch, l, dim)
+    s_tab = _randn(gen, batch, 2, dim, dtype=torch.float32, scale=0.1)
+    t_tab = _randn(gen, batch, 2, dim, dtype=torch.float32, scale=0.1)
+    idx = (torch.arange(l, device="cuda") >= l_hist).to(torch.int32)[None].expand(
+        batch, l).contiguous()
     w1 = 1.0 + _randn(gen, 1, 1, dim, dtype=torch.float32, scale=0.1)
     b1 = _randn(gen, 1, 1, dim, dtype=torch.float32, scale=0.1)
     grids = tdit.packed_grids(tdit.framepack_plan(f_hist), h, w, (1, 2, 2))
@@ -785,7 +925,7 @@ def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
     w1_lib, b1_lib = w1.reshape(dim).to(x.dtype), b1.reshape(dim).to(x.dtype)
     act, elems, tabs = nbytes(x), x.numel(), nbytes(s_tab, t_tab, idx)
     return [
-        ("adaln_norm", f"{label} AdaLN [1,{l},{dim}] K=2",
+        ("adaln_norm", f"{label} AdaLN [{batch},{l},{dim}] K=2",
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.bfloat16),
          None, 2 * act + tabs, 8 * elems),
@@ -798,7 +938,7 @@ def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
          lambda: fa.adaln_norm(x, s_tab, t_tab, idx, out_dtype=torch.float32),
          lambda: fa._adaln_norm_ref(x, s_tab, t_tab, idx, 1e-6, 1.0, torch.float32),
          None, 3 * act + tabs, 8 * elems),
-        ("adaln_residual", f"{label} residual [1,{l},{dim}]",
+        ("adaln_residual", f"{label} residual [{batch},{l},{dim}]",
          lambda: fa.adaln_residual(x, y, s_tab, idx),
          lambda: fa._adaln_residual_ref(x, y, s_tab, idx),
          None, 3 * act + nbytes(s_tab, idx), 2 * elems),
@@ -807,7 +947,7 @@ def _packed_glue(gen, f_hist, lfz, h, w, l, label, dim=DIM, heads=N):
          lambda: fa.qk_norm_rope(x, y, wq, wk, cos, sin, heads, eps=1e-6),
          lambda: fa._qk_norm_rope_ref(x, y, wq, wk, cos, sin, heads, 1e-6),
          None, 4 * act + nbytes(wq, wk, cos, sin), 2 * 8 * elems),
-        ("rms_norm", f"{label} cross q [1,{l},{dim}]",
+        ("rms_norm", f"{label} cross q [{batch},{l},{dim}]",
          lambda: fa.rms_norm(x, wq, eps=1e-6),
          lambda: fa._rms_ref(x, wq, 1e-6),
          lambda: F.rms_norm(x, (dim,), wq_lib, eps=1e-6),
@@ -1127,7 +1267,8 @@ def quant_matmul_kernel(results, gen):
     """K6 against its plain version at the four W8A8 projection shapes of
     one 5B block, at the packed segment's M = 12,095 tokens, the unpacked
     t2v stream's 27,280 and the 5B video segments' 11,180 and 11,660 (phase
-    6f), and at the 14B block's four at its segment's 28,350, on N(0, 1)
+    6f), and at the 14B block's four at its segment's 28,350 and at the
+    batch-2 forward's 56,700 (``--cfg_parallel``), on N(0, 1)
     bf16 activations and weights: the
     output must equal the plain version's bit for bit (``differing`` 0),
     and so must the pre-pass's int8 rows and scales (``q8_quantize``). Per
@@ -1148,7 +1289,8 @@ def quant_matmul_kernel(results, gen):
     # (M, shapes, case suffix, the per-layer sum's key or None): the 5B packed
     # segment, the t2v stream, the 14B segment's 28,350 packed tokens
     runs = [(L, K6_SHAPES, "", "per_layer"), (m_t2v, K6_SHAPES, f" M={m_t2v}", None),
-            (I2V_L, K6_SHAPES_14B, f" M={I2V_L}", "per_layer_14b")]
+            (I2V_L, K6_SHAPES_14B, f" M={I2V_L}", "per_layer_14b"),
+            (2 * I2V_L, K6_SHAPES_14B, f" M={2 * I2V_L} (batch 2)", "per_layer_14b_batch2")]
     runs += [(m, K6_SHAPES, f" M={m}", f"per_layer_{m}") for m in VIDEO_5B_L]
     for m, shapes, suffix, layer_key in runs:
         layer = dict.fromkeys(keys, 0.0)
@@ -1198,7 +1340,7 @@ def quant_matmul_kernel(results, gen):
                      bound_share=round(layer["bound_ms"] / layer["device_ms"], 4),
                      gemm_tops=round(layer_ops / layer["gemm_ms"] / 1e9, 1),
                      int_mm_tops=round(layer_ops / layer["library_device_ms"] / 1e9, 1))
-        log(f"  quant_matmul per {'14B' if m == I2V_L else '5B'} layer at M = {m} "
+        log(f"  quant_matmul per {'14B' if m in (I2V_L, 2 * I2V_L) else '5B'} layer at M = {m} "
             "(qkv + 3 square + ffn.0 + ffn.2): "
             + ", ".join(f"{k} {v:.3f}" for k, v in layer.items()))
         results["quant_matmul"][layer_key] = layer
@@ -1938,6 +2080,22 @@ I2V_W8A8_PER_FORWARD = 6 * 40
 # script's seeds
 
 
+def _i2v_forward_inputs(cfg):
+    """The seeded inputs of a 14B forward at 28,350 packed tokens (phases 6e
+    and 6g): bf16 latents [1, 21, 68, 120, 36], every frame at t = 500, two
+    text contexts and CLIP features."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f_lat = I2V_F_HIST + I2V_LFZ
+    x = torch.randn((1, f_lat, I2V_H, I2V_W, cfg.dit.in_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t_frame = torch.full((1, f_lat), 500.0, device="cuda")
+    ctx, ctx_null = (0.1 * torch.randn((1, cfg.dit.text_len, cfg.dit.text_dim), generator=gen,
+                                       device="cuda") for _ in range(2))
+    clip_ctx = torch.randn((1, CLIP_TOKENS, CLIP_DIM), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    return x, t_frame, ctx, ctx_null, clip_ctx
+
+
 def i2v_phase(counters):
     """Phase 6e: the Yume-1.0 i2v-14B serving path at full width (dim 5,120,
     40 layers, umT5-XXL, CLIP ViT-H/14, the Wan2.1 VAE; random bf16 weights)
@@ -2051,15 +2209,7 @@ def i2v_phase(counters):
         f"({sum(p.numel() for p in pipe.dit.parameters()) / 1e9:.3f}B DiT params; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     w8 = pipe.with_w8a8()
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    f_lat = I2V_F_HIST + I2V_LFZ
-    x = torch.randn((1, f_lat, I2V_H, I2V_W, cfg.dit.in_dim), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    t_frame = torch.full((1, f_lat), 500.0, device="cuda")
-    ctx, ctx_null = (0.1 * torch.randn((1, cfg.dit.text_len, cfg.dit.text_dim), generator=gen,
-                                       device="cuda") for _ in range(2))
-    clip_ctx = torch.randn((1, CLIP_TOKENS, CLIP_DIM), generator=gen,
-                           device="cuda").to(torch.bfloat16)
+    x, t_frame, ctx, ctx_null, clip_ctx = _i2v_forward_inputs(cfg)
 
     def forward(dit, context=ctx):
         return dit(x, t_frame, context, latent_frame_zero=I2V_LFZ, clip_context=clip_ctx)
@@ -2083,6 +2233,8 @@ def i2v_phase(counters):
         rel = ((res["w8a8"].float() - res["bf16"].float()).norm()
                / res["bf16"].float().norm()).item()
         out["w8a8_rel_l2"] = rel
+        # phase 6g's quantized trunks hold these weights (seed 0, the DiT drawn first)
+        out["_bf16_forward"] = res["bf16"].float().cpu()
         log(f"  i2v w8a8 forward: relative L2 from the bf16 forward {rel:.4e}  tol "
             f"{T2V_W8A8_REL_TOL:.0e}")
         require(rel <= T2V_W8A8_REL_TOL,
@@ -2416,6 +2568,562 @@ def video_phase(counters):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# phase 6g: the quantized DiT trunk and batched CFG
+Q_STEPS = 4
+# a W8A8 forward of a quantized trunk against the same trunk dequantized
+# (the exact bf16 product), relative L2: W8A8's activation rounding alone,
+# 3.58e-2 to 3.66e-2 against the bf16 trunk on the 14B (phase 6e)
+Q_REL_TOL = 5e-2
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def quantized_phase(counters, bf16_ref):
+    """Phase 6g: the quantized DiT trunk (``models/quantized.py``) and
+    batched CFG at full width, after phase 6f's paths are freed, each path
+    with the launch counts set to 0 just before it and read just after:
+    a. ``sample.main --t2v --steps 4 --sample_num 2 --int8 --w8a8
+       --teacache`` (Yume-5B, random bf16 weights): the trunk quantized at
+       load (the drop in allocated memory, the stored bytes from
+       ``quantized_bytes``), the t2v first segment and a TeaCache
+       continuation on it (full and cached forward times), the peak; K1–K6
+       launch and no weight is quantized while it runs;
+    b. ``sample.main --jpg_dir <1280×704 PNG> --steps 4 --int4 --w8a8``: the
+       same records for the int4 trunk (K6 on int8 relayed on each call);
+    c. the webapp with ``--quant int4 --w8a8``: an i2v upload request
+       quantizes the trunk and runs on it;
+    d. ``sample.main --config i2v-14B --jpg_dir <960×544 PNG> --width 960
+       --height 544 --steps 2 --int4 --w8a8 --memory_optimization``: the 14B
+       trunk streamed block by block into int4 (the load's peak under the
+       int4 trunk's bytes + two bf16 blocks + the non-block parameters + 1
+       GiB), parked in the phase shuttle as ``dit_q``; the peak by phase,
+       the 4 CFG forwards at 28,350 tokens, exactly ``I2V_PER_FORWARD`` and
+       240 K6 launches each;
+    e. the 14B trunk in int8 and in int4 (seed 0: the weights of phase 6e's
+       bf16 DiT), one W8A8 forward each against the same trunk dequantized
+       (at most ``Q_REL_TOL``) and against phase 6e's bf16 forward
+       (reported); the int4 relay's and the context-side dequantization's
+       share of a forward;
+    f. one CFG Euler step on the int4 W8A8 trunk with ``cfg_parallel`` (one
+       batch-2 forward) against two forwards, on d's umT5 contexts of the
+       prompt and the negative prompt: both times; the batch-2 forward and
+       the guided update equal to the two forwards' bit for bit, each
+       operation of the forward batch-invariant (:func:`batch2_cause`), and
+       what the exact products over the whole batch at once (as they ran
+       before) make of both.
+    Returns each path's launches and figures."""
+    import base64
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from yume_tpu_torch import sample
+    from yume_tpu_torch.configs import i2v_14b
+    from yume_tpu_torch.models import quantized as tq
+    from yume_tpu_torch.models.dit import DiTBlock, WanDiT
+    from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
+    from yume_tpu_torch.serving import webapp
+    from yume_tpu_torch.utils.offload import OffloadSlot
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"quantized: {left:.2f} GiB left allocated after the video phase")
+    require(left < 1.0, "the video phase left memory allocated")
+    root = os.path.join(REPO, "build", "quantized")
+    shutil.rmtree(root, ignore_errors=True)
+    pngs = {}
+    for name, (w, h) in (("5b", T2V_SIZE), ("14b", I2V_SIZE)):
+        os.makedirs(os.path.join(root, f"jpg{name}"))
+        img = np.random.default_rng(9).integers(0, 256, (h, w, 3), dtype=np.uint8)
+        pngs[name] = os.path.join(root, f"jpg{name}", "frame.png")
+        Image.fromarray(img).save(pngs[name])
+    out = {"launches": {}, "paths": {}}
+    others = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "bias_act",
+              "flash_attention_partial")
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        return qm.quantize_weight.calls
+
+    def read_counts(path, calls0, need=SERVING_KERNELS + ("q8_dot",)):
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"  kernel launches in the {path} run: {launches}")
+        missing = [k for k in need if launches[k] == 0]
+        require(not missing, f"{path}: kernels not launched: {missing}")
+        stray = [k for k in others if launches[k]]
+        require(not stray, f"{path}: kernels of other paths launched: {stray}")
+        quantized = qm.quantize_weight.calls - calls0
+        require(quantized == 0, f"{path}: {quantized} weights quantized while it ran")
+        out["launches"][path] = launches
+        return launches
+
+    def freed(path):
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(torch.cuda.memory_allocated() < 2**30, f"{path}: memory left allocated")
+
+    # every DiT forward on a quantized trunk, timed, by kind
+    dit_calls = []
+    real_forward = WanDiT.forward
+
+    def timed_forward(dit, x, *a, **kw):
+        if not tq.is_quantized(dit):
+            return real_forward(dit, x, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real_forward(dit, x, *a, **kw)
+        torch.cuda.synchronize()
+        kind = ("cached" if kw.get("block_cache") is not None else
+                "full" if kw.get("return_cache") else
+                "unpacked" if kw.get("packed") is False else "packed")
+        dit_calls.append((kind, x.shape[0], (time.perf_counter() - t0) * 1e3))
+        return r
+
+    def forward_ms():
+        by_kind = {}
+        for kind, b, ms in dit_calls:
+            by_kind.setdefault(f"{kind} batch {b}", []).append(round(ms, 1))
+        dit_calls.clear()
+        return by_kind
+
+    quant_events = []
+    real_quantize = TI2VPipeline.quantize_int8
+
+    def quantize_spy(self, bits=8):
+        torch.cuda.synchronize()
+        before, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        real_quantize(self, bits)
+        torch.cuda.synchronize()
+        stored, bf16 = tq.quantized_bytes(self.dit)
+        quant_events.append({"bits": bits, "s": time.perf_counter() - t0,
+                             "freed_gib": (before - torch.cuda.memory_allocated()) / 2**30,
+                             "stored_gib": stored / 2**30, "bf16_gib": bf16 / 2**30})
+
+    real_host_blocks = tq.quantize_host_blocks
+    loads = []
+
+    def host_blocks_spy(*a, **kw):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dit = real_host_blocks(*a, **kw)
+        torch.cuda.synchronize()
+        loads.append({"s": time.perf_counter() - t0, "held_gib": held / 2**30,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "stored_gib": tq.quantized_bytes(dit)[0] / 2**30})
+        return dit
+
+    phase_peaks, phase_now = {}, ["load"]
+    real_use = OffloadSlot.use
+
+    def use_spy(slot, name):
+        phase_peaks[phase_now[0]] = max(phase_peaks.get(phase_now[0], 0.0),
+                                        torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        phase_now[0] = name
+        return real_use(slot, name)
+
+    # the 14B CLI run's text contexts, the prompt's and the negative prompt's
+    contexts = []
+    real_sample_cfg = I2VPipeline._sample_cfg
+
+    def sample_cfg_spy(self, noise, y, ctx, ctx_null, *a, **kw):
+        contexts.append((ctx.cpu(), ctx_null.cpu()))
+        return real_sample_cfg(self, noise, y, ctx, ctx_null, *a, **kw)
+
+    WanDiT.forward = timed_forward
+    I2VPipeline._sample_cfg = sample_cfg_spy
+    TI2VPipeline.quantize_int8 = quantize_spy
+    tq.quantize_host_blocks = host_blocks_spy
+    OffloadSlot.use = use_spy
+    try:
+        # a, b: the 5B CLI on an int8 and an int4 trunk
+        for path, argv, files in (
+                ("5b int8 w8a8 teacache",
+                 ["--t2v", "--steps", str(Q_STEPS), "--sample_num", "2", "--int8", "--w8a8",
+                  "--teacache"], ["segment_000.mp4", "segment_001.mp4"]),
+                ("5b int4 w8a8", ["--jpg_dir", os.path.dirname(pngs["5b"]), "--steps",
+                                  str(Q_STEPS), "--int4", "--w8a8"], ["segment_000.mp4"])):
+            log(f"quantized {path}: python -m yume_tpu_torch.sample " + " ".join(argv))
+            out_dir = os.path.join(root, path.replace(" ", "_"))
+            quant_events.clear()
+            calls0 = zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = sample.main(argv + ["--output_dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"{path}: sample.main returned {rc}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            read_counts(path, calls0)
+            require(len(quant_events) == 1, f"{path}: quantize_int8 calls {quant_events}")
+            ev = quant_events[0]
+            # the projections' bf16 bytes less their codes and scales leave the device
+            want_freed = ev["bf16_gib"] - ev["stored_gib"]
+            require(ev["freed_gib"] >= 0.98 * want_freed,
+                    f"{path}: quantize_int8 freed {ev['freed_gib']:.2f} GiB, the bf16 trunk "
+                    f"less the stored one is {want_freed:.2f} GiB")
+            fwd = forward_ms()
+            written = _video_files(out_dir, files)
+            log(f"  {path}: wall {wall:.3f} s; quantize_int8 {ev['s']:.3f} s freed "
+                f"{ev['freed_gib']:.2f} GiB (bf16 {ev['bf16_gib']:.2f} GiB, stored "
+                f"{ev['stored_gib']:.2f} GiB); DiT forwards (ms) {fwd}; peak {peak:.2f} GiB; "
+                f"files {written}")
+            out["paths"][path] = {"wall_s": wall, "quantize": ev, "dit_forward_ms": fwd,
+                                  "peak_gib": peak, "files": written}
+            freed(path)
+
+        # c: the webapp, --quant int4 --w8a8, one i2v upload
+        log("quantized c: python -m yume_tpu_torch.serving.webapp --quant int4 --w8a8")
+        args = webapp.build_argparser().parse_args(
+            ["--quant", "int4", "--w8a8", "--output_dir", os.path.join(root, "web")])
+        app = webapp.WebApp(args)
+        try:
+            app.load_models()
+            with open(pngs["5b"], "rb") as f:
+                upload = base64.b64encode(f.read()).decode()
+            quant_events.clear()
+            calls0 = zero_counts()
+            t0 = time.perf_counter()
+            app._generate({"mode": "i2v", "image_b64": upload, "steps": Q_STEPS, "seed": 2})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(app.status == "done", f"webapp --quant int4: {app.status} {app.progress}")
+            read_counts("webapp quant int4", calls0)
+            require(app.pipe.dit.quant_bits == 4 and len(quant_events) == 1,
+                    f"webapp --quant int4: {quant_events}")
+            files = [(os.path.relpath(f, REPO), os.path.getsize(f)) for f in app.outputs]
+            require(len(files) == 1 and files[0][1] > 0, f"webapp --quant int4: {files}")
+            fwd = forward_ms()
+            log(f"  webapp --quant int4: request wall {wall:.3f} s (quantize "
+                f"{quant_events[0]['s']:.3f} s), DiT forwards (ms) {fwd}, files {files}")
+            out["paths"]["webapp quant int4"] = {"wall_s": wall, "quantize": quant_events[0],
+                                                 "dit_forward_ms": fwd, "files": files}
+        finally:
+            app.close()
+        del app
+        freed("webapp quant int4")
+
+        # d: the 14B CLI, int4 trunk streamed in, the phase shuttle
+        cfg = i2v_14b()
+        meta = WanDiT(cfg.dit, torch.bfloat16, device="meta")
+        block_gib = sum(p.numel() for p in DiTBlock(cfg.dit, device="meta").parameters())
+        block_gib *= 2 / 2**30
+        other_gib = sum(p.numel() for n, p in meta.named_parameters()
+                        if not n.startswith("blocks.")) * 2 / 2**30
+        del meta
+        (w, h) = I2V_SIZE
+        argv = ["--config", "i2v-14B", "--jpg_dir", os.path.dirname(pngs["14b"]), "--width",
+                str(w), "--height", str(h), "--steps", str(I2V_STEPS), "--int4", "--w8a8",
+                "--memory_optimization"]
+        path = "14b int4 w8a8 memory_optimization"
+        log(f"quantized d: python -m yume_tpu_torch.sample " + " ".join(argv))
+        out_dir = os.path.join(root, "14b")
+        loads.clear()
+        phase_peaks.clear()
+        phase_now[0] = "load"
+        calls0 = zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = sample.main(argv + ["--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"{path}: sample.main returned {rc}")
+        phase_peaks[phase_now[0]] = max(phase_peaks.get(phase_now[0], 0.0),
+                                        torch.cuda.max_memory_allocated() / 2**30)
+        launches = read_counts(path, calls0)
+        want = {k: v * 2 * I2V_STEPS for k, v in I2V_PER_FORWARD.items()}
+        want["q8_dot"] = I2V_W8A8_PER_FORWARD * 2 * I2V_STEPS
+        wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        require(not wrong, f"{path}: launches (counted, expected) {wrong}")
+        require(len(loads) == 1, f"{path}: quantize_host_blocks calls {loads}")
+        load = loads[0]
+        bound = load["stored_gib"] + 2 * block_gib + other_gib + 1.0
+        require(load["peak_gib"] <= bound,
+                f"{path}: the streamed load peaked at {load['peak_gib']:.2f} GiB, over the "
+                f"int4 trunk + two bf16 blocks + the rest + 1 GiB = {bound:.2f} GiB")
+        fwd = forward_ms()
+        n_fwd = sum(len(v) for v in fwd.values())
+        require(n_fwd == 2 * I2V_STEPS, f"{path}: DiT forwards {fwd}")
+        written = _video_files(out_dir, ["segment_000.mp4"])
+        log(f"  {path}: wall {wall:.3f} s; load {load['s']:.3f} s, peak "
+            f"{load['peak_gib']:.2f} GiB (bound {bound:.2f}: int4 trunk "
+            f"{load['stored_gib']:.2f} + 2 bf16 blocks {2 * block_gib:.2f} + the rest "
+            f"{other_gib:.2f} + 1); peaks by phase (GiB) "
+            f"{ {k: round(v, 2) for k, v in phase_peaks.items()} }; DiT forwards (ms) {fwd}; "
+            f"files {written}")
+        out["paths"][path] = {"wall_s": wall, "load": load, "load_bound_gib": bound,
+                              "block_bf16_gib": block_gib, "non_block_gib": other_gib,
+                              "phase_peak_gib": dict(phase_peaks), "dit_forward_ms": fwd,
+                              "files": written}
+        freed(path)
+    finally:
+        WanDiT.forward = real_forward
+        I2VPipeline._sample_cfg = real_sample_cfg
+        TI2VPipeline.quantize_int8 = real_quantize
+        tq.quantize_host_blocks = real_host_blocks
+        OffloadSlot.use = real_use
+    require(contexts, "the 14B CLI run made no CFG segment")
+    out["forwards"] = quantized_forwards(counters, bf16_ref, contexts[0])
+    return out
+
+
+def _batch_ops() -> dict:
+    """The operations of a DiT forward that reduce across elements, and so
+    could round otherwise at batch 2 than at batch 1, each as (module,
+    attribute) where the forward looks it up: kernels K1–K6, the exact
+    products (cuBLAS) and the patch embedding (cuDNN). The rest of a
+    forward is elementwise or row-wise PyTorch."""
+    from yume_tpu_torch.models import dit as dit_mod
+    from yume_tpu_torch.ops import fused_adaln as fa
+    from yume_tpu_torch.ops import quant_matmul as qm
+
+    return {"K1 attention": (dit_mod, "attention"), "K2 adaln_norm": (fa, "adaln_norm"),
+            "K3 adaln_residual": (fa, "adaln_residual"),
+            "K4 qk_norm_rope": (fa, "qk_norm_rope"), "K5 rms_norm": (fa, "rms_norm"),
+            "K6 q8_dot": (qm, "q8_dot"), "exact products (_dense)": (dit_mod, "_dense"),
+            "patch embedding (F.conv3d)": (F, "conv3d")}
+
+
+def _one_at_a_time(fn):
+    """``fn`` called once a sample and the results joined along the batch:
+    the batch is the leading dim of its first argument of three or more
+    dims, and every tensor argument of two or more dims that leads with it
+    is sliced. The wrapper carries ``fn``'s launch count, so that the
+    kernel's own count is left as it was."""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        big = [t for t in a if torch.is_tensor(t) and t.dim() >= 3]
+        b = big[0].shape[0] if big else 1
+        if b == 1:
+            return fn(*a, **kw)
+
+        def pick(t, i):
+            return t[i:i + 1] if torch.is_tensor(t) and t.dim() >= 2 and t.shape[0] == b else t
+
+        outs = [fn(*(pick(t, i) for t in a), **{k: pick(v, i) for k, v in kw.items()})
+                for i in range(b)]
+        return tuple(map(torch.cat, zip(*outs))) if isinstance(outs[0], tuple) else torch.cat(outs)
+    return run
+
+
+def _whole_batch(dense):
+    """``models/dit.py::_dense`` as it ran before it went one sample at a
+    time: one ``F.linear`` over the batch as it comes."""
+    from yume_tpu_torch.models.dit import QLinear
+
+    def run(x, layer, dtype):
+        w = layer.dequant(dtype) if isinstance(layer, QLinear) else layer.weight.to(dtype)
+        return F.linear(x.to(dtype), w, None if layer.bias is None else layer.bias.to(dtype))
+    return run
+
+
+def _patched(ops: dict, wrap: dict, fn):
+    """``fn()`` with each operation ``name`` of ``ops`` (:func:`_batch_ops`)
+    replaced by ``wrap[name](operation)``."""
+    saved = {n: getattr(*ops[n]) for n in wrap}
+    for n, f in saved.items():
+        setattr(*ops[n], wrap[n](f))
+    try:
+        return fn()
+    finally:
+        for n, f in saved.items():
+            setattr(*ops[n], f)
+
+
+def batch2_cause(trunk, x2, t2, ctx2, clip2) -> dict:
+    """Whether a batch-2 forward of ``trunk`` gives each sample the bits of
+    its own batch-1 forward, and which operation broke that before. The
+    forward cut to block 0 (the embeddings, one block and the head, each
+    operation at its full shape) with every operation of
+    :func:`_batch_ops` but one run one sample at a time: the one left
+    batched must not change the bits. Then the cut and the whole forward as
+    they run, and with the exact products over the whole batch at once.
+    Returns the max abs gaps from the batch-1 forwards."""
+    ops, blocks = _batch_ops(), trunk.blocks
+    apart = dict.fromkeys(ops, _one_at_a_time)
+
+    def forward(n=slice(None)):
+        return trunk(x2[n], t2[n], ctx2[n], latent_frame_zero=I2V_LFZ, clip_context=clip2[n])
+
+    def gaps(n_blocks, runs):
+        trunk.blocks = blocks[:n_blocks]
+        try:
+            want = torch.cat([forward(slice(0, 1)), forward(slice(1, 2))]).float()
+            return {k: (_patched(ops, wrap, forward).float() - want).abs().max().item()
+                    for k, wrap in runs.items()}
+        finally:
+            trunk.blocks = blocks
+
+    alone = gaps(1, {n: {o: w for o, w in apart.items() if o != n} for n in ops})
+    runs = {"batched": {}, "products over the whole batch":
+            {"exact products (_dense)": _whole_batch}}
+    return {"one_batched": alone, "block 0": gaps(1, runs), "forward": gaps(len(blocks), runs)}
+
+
+def quantized_forwards(counters, bf16_ref, contexts) -> dict:
+    """Phase 6g e and f (see :func:`quantized_phase`): full-width 14B
+    forwards on int8 and int4 trunks of phase 6e's weights, the relay's
+    share, and one batched CFG step against two forwards on ``contexts``,
+    the 14B CLI run's umT5 contexts of its prompt and negative prompt."""
+    from yume_tpu_torch.configs import i2v_14b
+    from yume_tpu_torch.models import quantized as tq
+    from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+
+    cfg = i2v_14b()
+    cfg_w8 = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, w8a8=True))
+    x, t_frame, ctx, ctx_null, clip_ctx = _i2v_forward_inputs(cfg)
+    ref = bf16_ref.cuda()
+
+    @torch.no_grad()
+    def forward(dit):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = dit(x, t_frame, ctx, latent_frame_zero=I2V_LFZ, clip_context=clip_ctx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(torch.isfinite(r).all().item(), "quantized forward: not finite")
+        return r, ms, {c.__name__: c.launches for c in counters}
+
+    fwd_out = {}
+    for bits in (8, 4):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trunk = tq.quantize_host_blocks(cfg_w8.dit, bits, seed=0, device="cuda",
+                                        dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        stored = tq.quantized_bytes(trunk)[0] / 2**30
+        # the same bits without W8A8: every projection dequantized, exact
+        plain = tq.quantize_host_blocks(cfg.dit, bits, seed=0, device="cuda",
+                                        dtype=torch.bfloat16)
+        forward(trunk)   # warm-up
+        res = {}
+        for name, dit, k6 in (("w8a8", trunk, I2V_W8A8_PER_FORWARD), ("dequantized", plain, 0)):
+            r, ms, launches = forward(dit)
+            want = dict(I2V_PER_FORWARD, q8_dot=k6)
+            wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            require(not wrong, f"int{bits} {name} forward: launches {wrong}")
+            res[name] = (r, ms)
+        del dit, r    # the loop's last trunk
+        rel = _rel_l2(res["w8a8"][0], res["dequantized"][0])
+        rel_bf16 = {k: _rel_l2(v[0], ref) for k, v in res.items()}
+        entry = {"load_s": load_s, "load_peak_gib": load_peak, "stored_gib": stored,
+                 "forward_ms": {k: v[1] for k, v in res.items()},
+                 "w8a8_vs_dequantized_rel_l2": rel, "vs_bf16_rel_l2": rel_bf16}
+        log(f"  int{bits} 14B trunk: streamed in {load_s:.2f} s (peak {load_peak:.2f} GiB, "
+            f"stored {stored:.2f} GiB); W8A8 forward {res['w8a8'][1]:.1f} ms, dequantized "
+            f"{res['dequantized'][1]:.1f} ms; relative L2 W8A8 vs dequantized {rel:.4e} "
+            f"(tol {Q_REL_TOL:.0e}), vs phase 6e's bf16 forward {rel_bf16}")
+        require(rel <= Q_REL_TOL, f"int{bits} W8A8 forward: relative L2 {rel} from its "
+                                  f"dequantized trunk exceeds {Q_REL_TOL}")
+        del res, plain
+        if bits == 4:
+            entry.update(_relay_share(trunk, entry["forward_ms"]["w8a8"]))
+            entry["cfg_parallel_step"] = _cfg_parallel_step(
+                counters, I2VPipeline(cfg_w8, trunk, None), clip_ctx, contexts)
+        fwd_out[f"int{bits}"] = entry
+        del trunk
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x, ctx, ctx_null, clip_ctx, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd_out
+
+
+def _relay_share(trunk, forward_ms: float) -> dict:
+    """The int4 relay and the context-side dequantization of one 14B layer,
+    and their share of a W8A8 forward of ``forward_ms``."""
+    from yume_tpu_torch.ops import quant_matmul as qm
+
+    b = trunk.blocks[0]
+    relayed = (b.self_attn.qkv, b.self_attn.o, b.cross_attn.q, b.cross_attn.o, b.ffn[0],
+               b.ffn[2])
+    exact = (b.cross_attn.k, b.cross_attn.v, b.cross_attn.k_img, b.cross_attn.v_img)
+    relay_ms = median_ms(lambda: [qm.q4_to_q8(l.stored) for l in relayed], reps=5)
+    deq_ms = median_ms(lambda: [l.dequant(torch.bfloat16) for l in exact], reps=5)
+    out = {"relay_ms_per_layer": relay_ms, "dequant_ms_per_layer": deq_ms,
+           "relay_share": 40 * relay_ms / forward_ms, "dequant_share": 40 * deq_ms / forward_ms}
+    log(f"  int4 relay a layer {relay_ms:.3f} ms ({out['relay_share']:.1%} of a W8A8 "
+        f"forward), context-side dequantization {deq_ms:.3f} ms ({out['dequant_share']:.1%})")
+    return out
+
+
+@torch.no_grad()
+def _cfg_parallel_step(counters, pipe, clip_ctx, contexts) -> dict:
+    """Phase 6g f: one CFG Euler step on ``pipe``'s trunk, batched against
+    two forwards, on the CLI's umT5 contexts of the prompt and the negative
+    prompt: the forwards' and the guided update's bits (:func:`batch2_cause`
+    for the forwards, with the exact products over the whole batch too),
+    and both times."""
+    ops = _batch_ops()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f_lat = I2V_F_HIST + I2V_LFZ
+    noise = torch.randn((1, f_lat, I2V_H, I2V_W, 16), generator=gen, device="cuda")
+    y = torch.randn((1, f_lat, I2V_H, I2V_W, 20), generator=gen, device="cuda")
+    cond, null = (c.cuda() for c in contexts)
+    lat0 = pipe._latent0(y, noise)
+    x2 = torch.cat([lat0, y], dim=-1).to(torch.bfloat16).repeat(2, 1, 1, 1, 1)
+    t2 = torch.full((2, f_lat), 1000.0, device="cuda")
+    cause = batch2_cause(pipe.dit, x2, t2, torch.cat([cond, null]), clip_ctx.repeat(2, 1, 1))
+    del x2
+    step = {}
+    for kind, batched, wrap in (("two forwards", False, {}), ("batched", True, {}),
+                                ("batched, products over the whole batch", True,
+                                 {"exact products (_dense)": _whole_batch})):
+        pipe.cfg_parallel = batched
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = _patched(ops, wrap, lambda: pipe._sample_cfg(noise, y, cond, null, clip_ctx, 1,
+                                                           3.0, 5.0))
+        torch.cuda.synchronize()
+        step[kind] = (lat[:, -I2V_LFZ:] - lat0[:, -I2V_LFZ:],
+                      (time.perf_counter() - t0) * 1e3, counters[0].launches)
+    upd = step["two forwards"][0]
+    update = {k: {"max_abs": (v[0] - upd).abs().max().item(), "rel_l2": _rel_l2(v[0], upd)}
+              for k, v in step.items() if k != "two forwards"}
+    # K1 launches a forward whatever its batch: one forward, or two
+    k1 = {k: v[2] for k, v in step.items()}
+    n_k1 = I2V_PER_FORWARD["flash_attention"]
+    log(f"  batch 2 against batch 1, max abs gap of the forward cut to block 0 with only "
+        f"this operation batched {cause['one_batched']}; cut to block 0 {cause['block 0']}; "
+        f"the whole forward {cause['forward']}")
+    log(f"  14B CFG Euler step on the int4 W8A8 trunk, the CLI's prompt against its "
+        f"negative prompt: two forwards {step['two forwards'][1]:.1f} ms, one batch-2 "
+        f"forward {step['batched'][1]:.1f} ms; the guided update from the two forwards' "
+        f"{update}")
+    require(k1 == {"two forwards": 2 * n_k1, "batched": n_k1,
+                   "batched, products over the whole batch": n_k1},
+            f"cfg_parallel step: K1 launches {k1}")
+    require(not any(cause["one_batched"].values()) and cause["block 0"]["batched"] == 0
+            and cause["forward"]["batched"] == 0,
+            f"cfg_parallel: a batch-2 forward is not two batch-1 forwards bit for bit: {cause}")
+    require(update["batched"]["max_abs"] == 0,
+            f"cfg_parallel: the guided update is not two forwards' bit for bit: {update}")
+    return {"two_forwards_ms": step["two forwards"][1], "batched_ms": step["batched"][1],
+            "whole_batch_products_ms": step["batched, products over the whole batch"][1],
+            "update": update, "batch2": cause}
 
 
 # kernel families of a device trace, by kernel name (first match wins)
@@ -3057,8 +3765,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     attention_and_glue_kernels(results, gen)
     i2v_kernels(results, gen)
+    batch2_kernels(results, gen)
     video_kernels(results, gen)
     quant_matmul_kernel(results, gen)
+    storage = {"block": block_quantization_check(gen),
+               "relay": quantized_storage_kernels(results, gen)}
     flash_backward_kernels(results, gen)
     partial_attention_kernel(results, gen)
     bias_act_kernel(results, gen)
@@ -3077,6 +3788,7 @@ def main() -> int:
     serving = serving_phase(counters)
     i2v = i2v_phase(counters)
     video = video_phase(counters)
+    quantized = quantized_phase(counters, i2v.pop("_bf16_forward"))
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
     sp = sp_phase()
@@ -3113,7 +3825,10 @@ def main() -> int:
                  # phase 6f: the 5B and 14B video modes, the trainer on the
                  # tree, the preprocess CLI
                  **{f"launches_{p.replace(' ', '_')}": n[key]
-                    for p, n in video["launches"].items()}}
+                    for p, n in video["launches"].items()},
+                 # phase 6g: the quantized trunk's CLI runs and webapp request
+                 **{f"launches_{p.replace(' ', '_')}": n[key]
+                    for p, n in quantized["launches"].items()}}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],
@@ -3167,6 +3882,8 @@ def main() -> int:
     log("serving: " + json.dumps(serving["paths"]))
     log("i2v: " + json.dumps({k: v for k, v in i2v.items() if k != "launches"}))
     log("video: " + json.dumps({k: v for k, v in video.items() if k != "launches"}))
+    log("quantized storage (phase 3): " + json.dumps(storage))
+    log("quantized: " + json.dumps({k: v for k, v in quantized.items() if k != "launches"}))
     log("train: " + json.dumps(train))
     log("sp: " + json.dumps(sp))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,8 @@ FramePack) with perturbed parameters converted to the port:
 * ``build_mask_channels``, ``clip_features`` and ``make_conditioning`` in
   image and history mode, the incremental history encode equal to a fresh
   one and to the full-clip encode;
-* the CFG segment samplers on a toy velocity field;
+* the CFG segment samplers on a toy velocity field (batched CFG:
+  ``test_torch_quantized.py``);
 * ``generate`` with every sampler (euler, teacache at a fixed interval and
   adaptive, sde, time_travel, tts, the distilled cond-only mode) and two
   ``generate_next`` continuations, on JAX's noise and churn draws injected;
@@ -333,14 +334,6 @@ def test_cfg_time_travel_sample_segment_matches_jax(sde):
     assert_close(got, want, TOY_TOL)
 
 
-def test_batched_cfg_refused():
-    lat, noise, c, u = _toy_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        tsamplers.cfg_euler_sample_segment(lambda x, t, k: x, _t(lat), _t(noise), _t(c),
-                                           _t(u), sampling_sigmas(2, 3.0), 2, 5.0,
-                                           batched_cfg=True)
-
-
 # -- generate and generate_next ----------------------------------------------------
 
 # (sampler, generate kwargs, steps, distilled)
@@ -425,7 +418,5 @@ def test_pipeline_refusals(pipes):
     img, ctx = _t(_frames(120, 1)), _t(_ctx(121))
     with pytest.raises(NotImplementedError, match="distilled"):
         tpipe.generate(img, ctx, None, frame_num=FRAMES, steps=2, sampler="teacache")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        tpipe.quantize_int8()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         tpipe.parallelize_pp(2)

@@ -201,6 +201,100 @@ def test_released_layout_rollout_matches_jax(released):
     assert_close(got, want, LATENT_TOL)
 
 
+def _tokens(texts):
+    from yume_tpu_torch.data.tokenizer import Tokenizer
+
+    tok = Tokenizer(seq_len=32, vocab_size=4096, warn_fallback=False)
+    return [tok([t]) for t in texts]
+
+
+def _as_stored(sd, num_layers):
+    """A quantized state dict of reference names with each block's
+    self-attention q, k and v joined into ``qkv``, as the port's trunk
+    stores them."""
+    sd = dict(sd)
+    for i in range(num_layers):
+        p = f"blocks.{i}.self_attn."
+        for leaf in ("q", "scale", "bias"):
+            sd[f"{p}qkv.{leaf}"] = np.concatenate([sd.pop(f"{p}{a}.{leaf}") for a in "qkv"])
+    return sd
+
+
+def _quantized_5b(released, argv):
+    """JAX's CLI path (``load_torch_weights``, then ``quantize_int8`` in
+    ``main``) and the port's (``load_pipeline``, ``quantize_trunk``) on the
+    released layout; the same bits on both sides."""
+    from yume_tpu.sample import build_argparser as jax_argparser, load_pipeline
+    from yume_tpu_torch.models.quantized import is_quantized
+
+    d = released[0]
+    jargs = jax_argparser().parse_args(["--smoke", "--ckpt_dir", str(d)] + argv)
+    _, jpipe = load_pipeline(jargs)
+    args = sample.build_argparser().parse_args(
+        ["--smoke", "--device", "cpu", "--ckpt_dir", str(d)] + argv)
+    cfg, tpipe = sample.load_pipeline(args)
+    sample.quantize_trunk(args, cfg, tpipe)
+    return jargs, jpipe, tpipe, is_quantized
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--int4"])
+def test_released_layout_quantized_matches_jax(released, flag):
+    """``--smoke --int8``/``--int4`` on the 5B: the trunk quantized at load
+    (the same int8 or int4 bits as JAX's), then ``generate_t2v`` (Euler on
+    the quantized trunk) and a continuation segment, on injected noise."""
+    _, jpipe, tpipe, is_quantized = _quantized_5b(released, [flag])
+    bits = 4 if flag == "--int4" else 8
+    jpipe.quantize_int8(bits=bits)
+    assert is_quantized(tpipe.dit) and tpipe.dit.quant_bits == bits
+    want_sd = _as_stored(convert.quantized_dit_state_dict(*jpipe.dit_params, 2), 2)
+    got_sd = tpipe.dit.state_dict()
+    assert set(got_sd) == set(want_sd)
+    for k, v in want_sd.items():
+        np.testing.assert_array_equal(got_sd[k].numpy(), v, err_msg=k)
+    (ids, mask), = _tokens(["Person moves forward (W)."])
+    jctx, tctx = jpipe.encode_text(jnp.asarray(ids), jnp.asarray(mask)), tpipe.encode_text(ids,
+                                                                                           mask)
+    rng = np.random.default_rng(66)
+    noise = rng.standard_normal((1, 3, 4, 4, 8)).astype(np.float32)
+    tail = rng.standard_normal((1, 2, 4, 4, 8)).astype(np.float32)
+    kw = dict(size=(32, 32), frame_num=5, steps=2)
+    want = jpipe.generate_t2v(jctx, noise=jnp.asarray(noise), return_latents=True, **kw)
+    got = tpipe.generate_t2v(tctx, noise=torch.from_numpy(noise), return_latents=True, **kw)
+    assert np.abs(np.asarray(want) - noise).max() > 1e-2
+    assert_close(got, want, LATENT_TOL)
+    want = jpipe.generate_segment(want, jctx, steps=2, noise=jnp.asarray(tail))
+    got = tpipe.generate_segment(got, tctx, steps=2, noise=torch.from_numpy(tail))
+    assert_close(got, want, LATENT_TOL)
+
+
+def test_released_layout_unipc_int8_matches_jax(released):
+    """``--t2v --sample_solver unipc --int8``: UniPC with CFG on the bf16
+    trunk, then the trunk quantized for the continuation, as both CLIs do."""
+    _, jpipe, tpipe, is_quantized = _quantized_5b(
+        released, ["--t2v", "--sample_solver", "unipc", "--int8"])
+    assert not is_quantized(tpipe.dit)
+    (ids, mask), (nids, nmask) = _tokens(["Person moves forward (W).", ""])
+    jctx, tctx = jpipe.encode_text(jnp.asarray(ids), jnp.asarray(mask)), tpipe.encode_text(ids,
+                                                                                           mask)
+    jnull = jpipe.encode_text(jnp.asarray(nids), jnp.asarray(nmask))
+    tnull = tpipe.encode_text(nids, nmask)
+    rng = np.random.default_rng(67)
+    noise = rng.standard_normal((1, 3, 4, 4, 8)).astype(np.float32)
+    tail = rng.standard_normal((1, 2, 4, 4, 8)).astype(np.float32)
+    kw = dict(size=(32, 32), frame_num=5, steps=2, solver="unipc", guide_scale=5.0)
+    want = jpipe.generate_t2v(jctx, ctx_null=jnull, noise=jnp.asarray(noise),
+                              return_latents=True, **kw)
+    got = tpipe.generate_t2v(tctx, ctx_null=tnull, noise=torch.from_numpy(noise),
+                             return_latents=True, **kw)
+    assert_close(got, want, LATENT_TOL)
+    jpipe.quantize_int8(bits=8)
+    tpipe.quantize_int8(8)
+    want = jpipe.generate_segment(want, jctx, steps=2, noise=jnp.asarray(tail))
+    got = tpipe.generate_segment(got, tctx, steps=2, noise=torch.from_numpy(tail))
+    assert tpipe.dit.quant_bits == 8
+    assert_close(got, want, LATENT_TOL)
+
+
 def test_released_layout_is_strict(released, tmp_path):
     d, sds, _, tpipe = released
     os.symlink(d / sample.T5_FILE, tmp_path / sample.T5_FILE)
@@ -241,26 +335,41 @@ MODES = {
                         "--sample_num", "3"],
     "memory_optimization": ["--t2v", "--memory_optimization", "--w8a8", "--sample_num", "2"],
     "unipc_profile": ["--t2v", "--sample_solver", "unipc", "--profile_dir", "{out}/trace"],
+    "int8": ["--t2v", "--int8", "--sample_num", "2"],
+    "int4_w8a8_teacache": ["--jpg_dir", "{jpg}", "--int4", "--w8a8", "--teacache",
+                           "--sample_num", "2"],
+    "unipc_int8": ["--t2v", "--sample_solver", "unipc", "--int8", "--sample_num", "2"],
 }
 # (sampler, teacache_interval, teacache_threshold) of each mode's continuation
 SEGMENT_KW = {"t2v": ("euler", 3, None), "jpg": ("euler", 3, None), "sde": ("sde", 3, None),
               "time_travel": ("time_travel", 3, None), "sde_time_travel": ("tts", 3, None),
               "teacache": ("teacache", 3, 0.1), "teacache_interval": ("teacache", 2, None),
-              "refine_captions": ("euler", 3, None), "memory_optimization": ("euler", 3, None)}
+              "refine_captions": ("euler", 3, None), "memory_optimization": ("euler", 3, None),
+              "int8": ("euler", 3, None), "int4_w8a8_teacache": ("teacache", 3, 0.1),
+              "unipc_int8": ("euler", 3, None)}
+# the trunk's storage bits while the first segment and the continuations run
+# (the multistep t2v solver quantizes after its first segment)
+QUANT_BITS = {"int8": (8, 8), "int4_w8a8_teacache": (4, 4), "unipc_int8": (None, 8)}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_main_writes_segments(mode, inputs, tmp_path, monkeypatch):
-    seen = []
-    real = TI2VPipeline.generate_segment
+    seen, bits = [], []
+    real, real_t2v = TI2VPipeline.generate_segment, TI2VPipeline.generate_t2v
 
     def spy(self, *a, **kw):
         seen.append((kw["sampler"], kw["teacache_interval"], kw["teacache_threshold"]))
+        bits.append(getattr(self.dit, "quant_bits", None))
         return real(self, *a, **kw)
+
+    def spy_t2v(self, *a, **kw):
+        bits.append(getattr(self.dit, "quant_bits", None))
+        return real_t2v(self, *a, **kw)
 
     encoded = []
     real_encode = TI2VPipeline.encode_text
     monkeypatch.setattr(TI2VPipeline, "generate_segment", spy)
+    monkeypatch.setattr(TI2VPipeline, "generate_t2v", spy_t2v)
     monkeypatch.setattr(TI2VPipeline, "encode_text",
                         lambda self, ids, mask: encoded.append(ids) or real_encode(self, ids,
                                                                                    mask))
@@ -288,6 +397,8 @@ def test_main_writes_segments(mode, inputs, tmp_path, monkeypatch):
             np.testing.assert_array_equal(got, w)
     if mode == "unipc_profile":
         assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    first, rest = QUANT_BITS.get(mode, (None, None))
+    assert bits == [first] + [rest] * (n - 1)
 
 
 def test_teacache_flags():
@@ -319,22 +430,18 @@ SAMPLE_REFUSED = {
     "config_14b": (["--config", "i2v-14B"], "pipeline needs --jpg_dir .image mode., "
                                             "--input_video, or --video_root_dir"),
     "distilled": (["--distilled"], "i2v-14B"),
-    "cfg_parallel": (["--cfg_parallel"], "item 6"),
-    "int8": (["--int8"], "item 6"),
-    "int4": (["--int4"], "item 6"),
+    "cfg_parallel": (["--cfg_parallel"], "i2v-14B"),
     "pp": (["--pp", "2"], "item 8"),
     "sp": (["--sp", "2"], "item 4"),
 }
 WEBAPP_REFUSED = {
     "config_14b": (["--config", "i2v-14B"], "item 6"),
-    "quant_int8": (["--quant", "int8"], "item 6"),
-    "quant_int4": (["--quant", "int4"], "item 6"),
     "pp": (["--pp", "2"], "item 8"),
     "sp": (["--sp", "2"], "item 4"),
 }
 
 
-for _name in ("cfg_parallel", "int8", "int4", "pp", "sp"):
+for _name in ("pp", "sp"):
     _argv, _item = SAMPLE_REFUSED[_name]
     SAMPLE_REFUSED[f"14b_{_name}"] = (["--config", "i2v-14B", "--jpg_dir", "jpg"] + _argv,
                                       _item)
@@ -518,6 +625,61 @@ def test_released_layout_14b_generate_matches_jax(released_14b):
     assert_close(got_video, want_video, VIDEO_TOL)
 
 
+@pytest.mark.parametrize("case", ["int4_memory_optimization", "cfg_parallel"])
+def test_released_layout_14b_quantized_and_cfg_parallel_match_jax(released_14b, case):
+    """``--config i2v-14B --int4 --memory_optimization``: JAX's CLI streams
+    the DiT from the released safetensors into int4 storage
+    (``_host_dit_tree``, ``quantize_host_blocks``); the port's
+    ``quantize_trunk`` makes the same bits without a bf16 trunk and parks
+    it in the phase shuttle as ``dit_q``. ``--cfg_parallel``: both
+    pipelines batch cond and uncond. Then ``generate`` on JAX's noise."""
+    import dataclasses
+
+    import jax
+
+    from yume_tpu.models.quantized import quantize_host_blocks
+    from yume_tpu.sample import _host_dit_tree, build_argparser as jax_argparser
+
+    d, _, jbase, _ = released_14b
+    argv = ["--int4", "--memory_optimization"] if case.startswith("int4") else ["--cfg_parallel"]
+    args = sample.build_argparser().parse_args(
+        ["--config", "i2v-14B", "--smoke", "--device", "cpu", "--ckpt_dir", str(d),
+         "--jpg_dir", "jpg"] + argv)
+    cfg, tpipe = sample.load_pipeline(args)
+    if case.startswith("int4"):
+        jargs = jax_argparser().parse_args(["--config", "i2v-14B", "--smoke", "--ckpt_dir",
+                                            str(d), "--int4"])
+        jpipe = dataclasses.replace(jbase, dit_params=quantize_host_blocks(
+            _host_dit_tree(jargs, jbase.config, jbase), 2, 4))
+        assert tpipe.dit is None
+        slot = sample.offload_slot(cfg, tpipe, "cpu")
+        sample.quantize_trunk(args, cfg, tpipe, slot)
+        assert "dit_q" in slot and tpipe.dit.quant_bits == 4
+        # both keep the non-quantized tensors in bf16
+        want_sd = _as_stored(convert.quantized_dit_state_dict(*jpipe.dit_params, 2), 2)
+        got_sd = {k: v.float() if v.is_floating_point() else v
+                  for k, v in tpipe.dit.state_dict().items()}
+        assert set(got_sd) == set(want_sd)
+        for k, v in want_sd.items():
+            np.testing.assert_array_equal(got_sd[k].numpy(), v, err_msg=k)
+    else:
+        jpipe = dataclasses.replace(jbase, cfg_parallel=True)
+        tpipe.cfg_parallel = True
+    (ids, mask), (nids, nmask) = _tokens(["Person moves forward (W).", ""])
+    jctx, tctx = jpipe.encode_text(jnp.asarray(ids), jnp.asarray(mask)), tpipe.encode_text(ids,
+                                                                                           mask)
+    jnull = jpipe.encode_text(jnp.asarray(nids), jnp.asarray(nmask))
+    tnull = tpipe.encode_text(nids, nmask)
+    img = np.random.default_rng(76).uniform(-1, 1, (1, 1, 32, 32, 3)).astype(np.float32)
+    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (1, 3, 8, 8, 8), jnp.float32))
+    want_lat, want_video = jpipe.generate(jnp.asarray(img), jctx, jnull, frame_num=5, steps=2)
+    got_lat, got_video = tpipe.generate(torch.from_numpy(img), tctx, tnull, frame_num=5,
+                                        steps=2, noise=torch.from_numpy(noise))
+    assert np.abs(np.asarray(want_lat)[:, -2:] - noise[:, -2:]).max() > 1e-2
+    assert_close(got_lat, want_lat, LATENT_TOL)
+    assert_close(got_video, want_video, VIDEO_TOL)
+
+
 def test_released_layout_14b_is_strict(released_14b, tmp_path):
     d, sds, _, tpipe = released_14b
     for name in (sample.T5_FILE, sample.VAE21_FILE):
@@ -541,12 +703,21 @@ MODES_14B = {
     "distilled": ["--distilled"],
     "w8a8": ["--w8a8"],
     "memory_optimization": ["--memory_optimization", "--caption_file", "{captions}"],
+    "int4_memory_optimization": ["--int4", "--memory_optimization", "--caption_file",
+                                 "{captions}"],
+    "int8_w8a8_teacache": ["--int8", "--w8a8", "--teacache"],
+    "cfg_parallel": ["--cfg_parallel"],
 }
 # the first segment's (sampler, teacache_interval, teacache_threshold)
 GENERATE_KW_14B = {"euler": ("euler", 3, None), "teacache": ("teacache", 3, 0.1),
                    "teacache_interval": ("teacache", 2, None),
                    "sde_time_travel": ("tts", 3, None), "distilled": ("euler", 3, None),
-                   "w8a8": ("euler", 3, None), "memory_optimization": ("euler", 3, None)}
+                   "w8a8": ("euler", 3, None), "memory_optimization": ("euler", 3, None),
+                   "int4_memory_optimization": ("euler", 3, None),
+                   "int8_w8a8_teacache": ("teacache", 3, 0.1), "cfg_parallel": ("euler", 3, None)}
+# (the trunk's bits, the batch of each forward) of the quantized and CFG-parallel modes
+FORWARDS_14B = {"int4_memory_optimization": (4, 1), "int8_w8a8_teacache": (8, 1),
+                "cfg_parallel": (None, 2)}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES_14B))
@@ -583,6 +754,16 @@ def test_main_14b_writes_segments(mode, inputs, tmp_path, monkeypatch):
         nexts.append((tuple(video.shape), kw, ctx_null is None))
         return real_next(self, video, ctx, ctx_null, **kw)
 
+    forwards = []
+
+    def spy_dense(self, x, *a, **k):
+        forwards.append((getattr(self, "quant_bits", None), x.shape[0]))
+        return real_dense(self, x, *a, **k)
+
+    from yume_tpu_torch.models.dit import WanDiT
+
+    real_dense = WanDiT.forward
+    monkeypatch.setattr(WanDiT, "forward", spy_dense)
     monkeypatch.setattr(I2VPipeline, "generate", spy_gen)
     monkeypatch.setattr(I2VPipeline, "generate_next", spy_next)
     fill = dict(captions=str(inputs / "captions.txt"))
@@ -602,3 +783,5 @@ def test_main_14b_writes_segments(mode, inputs, tmp_path, monkeypatch):
     assert "sampler" not in kw and kw["seed"] == 1
     if mode == "memory_optimization":
         assert devices and all(d == ("cpu", "cpu", "cpu") for d in devices)
+    bits, batch = FORWARDS_14B.get(mode, (None, 1))
+    assert forwards and all(f == (bits, batch) for f in forwards), forwards

@@ -263,7 +263,8 @@ class PPParams:
     """Stands for the reference's pipeline-parallel parameters."""
 
 
-@pytest.mark.parametrize("params,item", [((None, None), "item 6"), (PPParams(), "item 8")])
+@pytest.mark.parametrize("params,item", [((None, None), "quantize_dit_blocks"),
+                                         (PPParams(), "item 8")])
 def test_t2v_refuses_unported_params(setup, params, item):
     _, tpipes, _, data = setup
     with pytest.raises(NotImplementedError, match=item):

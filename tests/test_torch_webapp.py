@@ -137,6 +137,38 @@ def test_full_session_flow(server, monkeypatch):
     assert any("generated" in line for line in logs["lines"])
 
 
+def test_quant_int4_request(tmp_path, monkeypatch):
+    """``--quant int4``: the first request quantizes the trunk, and its t2v
+    first segment and continuation both run on it (2 steps each)."""
+    import os
+
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.models.quantized import is_quantized
+
+    calls = []
+    real = WanDiT.forward
+
+    def spy(self, x, *a, **kw):
+        if is_quantized(self):
+            calls.append(x.shape)
+        return real(self, x, *a, **kw)
+
+    monkeypatch.setattr(WanDiT, "forward", spy)
+    args = webapp.build_argparser().parse_args(
+        ["--smoke", "--device", "cpu", "--quant", "int4", "--output_dir", str(tmp_path)])
+    app = webapp.WebApp(args)
+    try:
+        with torch_threads(2):
+            app.load_models()
+            assert not is_quantized(app.pipe.dit)
+            app._generate({"mode": "t2v", "steps": 2, "segments": 2, "seed": 1})
+        assert app.status == "done", app.progress
+        assert app.pipe.dit.quant_bits == 4 and len(calls) == 4
+        assert len(app.outputs) == 2 and all(os.path.getsize(p) > 0 for p in app.outputs)
+    finally:
+        app.close()
+
+
 def test_refine_endpoint(server):
     port, _ = server
     r = _post(port, "/api/refine_prompt",

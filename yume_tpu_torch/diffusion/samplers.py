@@ -351,20 +351,24 @@ def cfg_euler_sample_segment(
     history prefix re-noised at the next σ. ``latent``'s history frames are
     the clean conditioning latent; the tail starts from ``noise``.
     ``ctx_null=None`` is the distilled serving step: one cond-only forward
-    (the guidance is in the weights). ``batched_cfg`` (cond and uncond as
-    one batch-2B forward, the reference's CFG parallelism) is not ported."""
-    if batched_cfg:
-        raise NotImplementedError(
-            "not ported yet: batched CFG (cond and uncond as one batch-2B forward) comes "
-            "with --cfg_parallel (ROADMAP queue 1, item 6)")
+    (the guidance is in the weights). ``batched_cfg`` runs cond and uncond
+    as one batch-2B forward on ``[latent; latent]`` with ``[ctx;
+    ctx_null]`` (the reference's CFG parallelism; the model is
+    batch-independent), split after it."""
     r = _Renoise(latent, noise, latent_frame_zero)
     sig = np.asarray(sigmas, np.float32)
     latent = r.start(sig[0])
+    batched = batched_cfg and ctx_null is not None
+    ctx2 = torch.cat([ctx, ctx_null]) if batched else None
     for i in range(len(sig) - 1):
         t_frame = r.t_frame(sig[i], latent.device)
-        v = denoise_fn(latent, t_frame, ctx)
-        if ctx_null is not None:
-            v = _guide(v, denoise_fn(latent, t_frame, ctx_null), guide_scale)
+        if batched:
+            v2 = denoise_fn(torch.cat([latent, latent]), torch.cat([t_frame, t_frame]), ctx2)
+            v = _guide(v2[:r.b], v2[r.b:], guide_scale)
+        else:
+            v = denoise_fn(latent, t_frame, ctx)
+            if ctx_null is not None:
+                v = _guide(v, denoise_fn(latent, t_frame, ctx_null), guide_scale)
         latent = r.step(latent, v, sig[i], sig[i + 1])
     return latent
 

@@ -33,9 +33,17 @@ dtype. Each weight is quantized once, from the weight cast to the compute
 dtype, and kept until the weight changes: the same int8 bits and scales
 the reference derives on every call.
 
-TeaCache hooks (``cache_list``/``return_cache``/``block_cache``): the listed
-blocks either store their residual ``x_out − x_in`` in bf16 or are skipped
-with the stored residual added back.
+Quantized storage (:mod:`.quantized`): a block projection may be a
+:class:`QLinear` holding its weight as int8 or int4, self-attention q, k and
+v as one ``qkv`` of ``[3·dim, dim]``. With W8A8 the stored weight goes to K6
+as it is (int4 relayed to int8 on each call); every other use dequantizes
+it and computes the exact product, as the context-side k and v always do.
+
+TeaCache hooks (``return_cache``/``block_cache``), in two forms: with
+``cache_list`` the listed blocks either store their residual ``x_out −
+x_in`` in bf16 or are skipped with the stored residual added back; with
+``cache_edge`` (the form of the reference's quantized trunk) one bf16 delta
+spans the middle blocks (:meth:`WanDiT._trunk`).
 
 Training: every kernel on the path carries a gradient (K1 forward with
 K8/K9 backward, K2–K5 through recompute); ``remat`` checkpoints each block;
@@ -77,10 +85,53 @@ from ..ops import fused_adaln, quant_matmul, rope as rope_lib
 from ..ops.attention import attention
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` computed in ``dtype`` (inputs and params cast to it)."""
+class QLinear(nn.Module):
+    """A block projection whose weight is stored quantized (the reference's
+    ``QDense`` kernel as a :class:`..ops.quant_matmul.Q8` or ``Q4``): the
+    int8 ``q`` [N, K] and fp32 ``scale`` [N], or the packed uint8 ``q``
+    [N, K/2] and group scales [N, K/g], and the bias, all buffers, so that
+    the module moves between host and device as a whole
+    (:mod:`..models.quantized` makes them)."""
+
+    def __init__(self, w, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", w.q)
+        self.register_buffer("scale", w.scale)
+        self.register_buffer("bias", bias)
+
+    @property
+    def stored(self):
+        """The weight as its :class:`Q8` or :class:`Q4`."""
+        kind = quant_matmul.Q4 if self.q.dtype == torch.uint8 else quant_matmul.Q8
+        return kind(q=self.q, scale=self.scale)
+
+    def dequant(self, dtype: torch.dtype) -> torch.Tensor:
+        """The dense ``[N, K]`` weight in ``dtype`` (the reference's
+        ``_dequantize_leaf``)."""
+        w = self.stored
+        if isinstance(w, quant_matmul.Q4):
+            return quant_matmul.q4_dequant(w, dtype)
+        return quant_matmul.q8_dequant(w, dtype)
+
+
+def _dense(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype`` (inputs and params cast to it); a
+    :class:`QLinear`'s weight is dequantized to ``dtype`` and the product is
+    the exact one (the reference's ``QDense`` without ``w8a8``).
+
+    A batch ``[B, ..., K]`` goes one sample at a time: one cuBLAS product
+    over B samples can round otherwise than each sample's own (on the H100
+    the 14B's context-side products over a batch of two did), and a batched
+    CFG forward (cond and uncond as one) would then not equal two forwards.
+    Every other operation of the forward (K1–K6, the patch embedding) gives
+    a sample the same bits at any batch there (``chip_smoke.py`` phase
+    6g)."""
+    weight = layer.dequant(dtype) if isinstance(layer, QLinear) else layer.weight.to(dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    x = x.to(dtype)
+    if x.dim() < 3 or x.shape[0] == 1:
+        return F.linear(x, weight, bias)
+    return torch.cat([F.linear(xi, weight, bias) for xi in x.split(1)])
 
 
 def _gelu(x):
@@ -92,16 +143,25 @@ def _w8a8_dense(x: torch.Tensor, owner: nn.Module, name: str,
     """W8A8 ``x @ cat(W).T + cat(b)`` for sibling ``layers`` of one input
     (the reference's ``fused_sibling_dense``/``QDense`` with ``w8a8``), in
     x.dtype. The int8 weight of ``cat(W)`` cast to x.dtype is kept on
-    ``owner`` under ``name``, keyed by the weights' storage and version.
+    ``owner`` under ``name``, keyed by the weights' storage and version;
+    a :class:`QLinear` (alone in ``layers``) gives its stored weight
+    instead.
 
     Serving only: the int8 product has no gradient, so a call that autograd
     would have to differentiate raises instead of dropping the gradient."""
     if torch.is_grad_enabled() and (x.requires_grad or any(
-            l.weight.requires_grad or l.bias.requires_grad for l in layers)):
+            p.requires_grad for l in layers for p in l.parameters())):
         raise RuntimeError(
             "W8A8 projections are for serving: run them under torch.no_grad() "
             "or with parameters that do not require grad (train the bf16 DiT)")
     dtype = x.dtype
+    if isinstance(layers[0], QLinear):
+        # stored int8 (or int4, relayed) goes straight to K6 with its stored
+        # scales: never through the cache below, which derives its own
+        (layer,) = layers
+        w = layer.stored
+        dot = quant_matmul.q4_dot if isinstance(w, quant_matmul.Q4) else quant_matmul.q8_dot
+        return dot(x, w, dtype) + layer.bias.to(dtype)
     key = (dtype, tuple((l.weight.data_ptr(), l.weight._version) for l in layers))
     cache = owner.__dict__.setdefault("_q8_cache", {})
     if name not in cache or cache[name][0] != key:
@@ -185,7 +245,12 @@ class SelfAttention(nn.Module):
         c = self.cfg
         b, l, _ = x.shape
         n, d = c.num_heads, c.head_dim
-        if c.w8a8:
+        if isinstance(getattr(self, "qkv", None), QLinear):
+            # q, k and v stored quantized as one [3·dim, dim] weight
+            qkv = (_w8a8_dense(x, self, "qkv", (self.qkv,)) if c.w8a8
+                   else _dense(x, self.qkv, x.dtype))
+            q, k, v = qkv.split(c.dim, -1)
+        elif c.w8a8:
             # one K6 launch over the concatenated [3·dim, dim] weight
             # (K4 reads q and k in place through their row stride)
             q, k, v = _w8a8_dense(x, self, "qkv", (self.q, self.k, self.v)).split(c.dim, -1)
@@ -589,24 +654,48 @@ class WanDiT(nn.Module):
     def _trunk(self, x, mod: Modulation, context, rope_cos, rope_sin,
                mvdt: Optional[dict] = None, block_cache=None,
                cache_list: Tuple[int, ...] = (), return_cache: bool = False,
-               attn_fn=None, kv_len=None):
+               attn_fn=None, kv_len=None, cache_edge: Optional[int] = None):
         """All blocks, with the MVDT side interpolation before block
         ``mid − 1`` (after it the trunk runs on the full token set), and
         TeaCache-style residual caching (reference wan/modules/model.py:
         977-998): blocks listed in ``cache_list`` store their residual
         (x_out − x_in) in bf16 with ``return_cache``, or are skipped with the
         cached residual added back when ``block_cache`` is given.
+
+        ``cache_edge`` (the reference's ``int8_dit_apply`` cache; e =
+        max(1, cache_edge), n blocks) caches one tensor instead: with
+        ``return_cache`` the carry entering block ``n − e`` minus the carry
+        entering block ``e``, in bf16; with ``block_cache`` the blocks run
+        are ``[0, e)`` then ``[n − e, n)``, the delta added to the carry
+        before the e-th of them. As the reference, the block sequence and
+        the two capture points follow those list positions, also when the
+        edges cross.
+
         ``attn_fn``/``kv_len``: the blocks' self-attention (see
         :class:`SelfAttention`). Returns (x, the modulation after the trunk,
         new_cache)."""
-        mid = (self.cfg.num_layers + 1) // 2
+        n = len(self.blocks)
+        mid = (n + 1) // 2
+        order, inject, capture, snaps = range(n), None, (), {}
+        if cache_edge is not None:
+            c0 = max(1, int(cache_edge))
+            if return_cache:
+                capture = (c0, n - c0)
+            elif block_cache is not None:
+                order, inject = list(range(c0)) + list(range(n - c0, n)), c0
         new_cache = []
-        for i, block in enumerate(self.blocks):
+        for j, i in enumerate(order):
+            block = self.blocks[i]
             if mvdt is not None and i == mid - 1:
                 x = self._side_interpolate(x, mvdt, context)
                 mod = mvdt["mod_full"]
                 rope_cos, rope_sin = mvdt["rope_full"]
-            if block_cache is not None and not return_cache and i in cache_list:
+            if j == inject:
+                x = x + block_cache.to(x.dtype)
+            if j in capture:
+                snaps[j] = x
+            if (cache_edge is None and block_cache is not None and not return_cache
+                    and i in cache_list):
                 x = x + block_cache[cache_list.index(i)].to(x.dtype)
                 continue
             x_in = x
@@ -617,6 +706,9 @@ class WanDiT(nn.Module):
                 x = block(x, mod, context, rope_cos, rope_sin, attn_fn, kv_len)
             if return_cache and i in cache_list:
                 new_cache.append((x - x_in).to(torch.bfloat16))
+        if capture:
+            t_in, t_out = (snaps.get(j, torch.zeros_like(x)) for j in capture)
+            new_cache = (t_out - t_in).to(torch.bfloat16)
         return x, mod, new_cache
 
     def _side_interpolate(self, x, mvdt, context):
@@ -665,8 +757,8 @@ class WanDiT(nn.Module):
                 *, packed: bool = True, latent_frame_zero: int = 8,
                 clip_context: Optional[torch.Tensor] = None, mvdt_noise=None,
                 mvdt_keep: Optional[int] = None,
-                block_cache: Optional[List[torch.Tensor]] = None,
-                cache_list: Tuple[int, ...] = (), return_cache: bool = False):
+                block_cache=None, cache_list: Tuple[int, ...] = (),
+                return_cache: bool = False, cache_edge: Optional[int] = None):
         """Velocity for the trailing ``latent_frame_zero`` frames (packed),
         or for every frame (``packed=False``: all frames at full
         resolution, no FramePack history).
@@ -676,8 +768,9 @@ class WanDiT(nn.Module):
         clip_context: [B, 257, image_dim] CLIP features (the 14B i2v model).
         Returns [B, latent_frame_zero, H, W, C_out] ([B, F, H, W, C_out]
         unpacked) in fp32, and with
-        ``return_cache`` also the residuals of the ``cache_list`` blocks;
-        ``block_cache`` skips those blocks (see :meth:`_trunk`).
+        ``return_cache`` also the residuals of the ``cache_list`` blocks, or
+        the middle blocks' delta with ``cache_edge``; ``block_cache`` skips
+        those blocks (see :meth:`_trunk`).
         ``mvdt_noise`` ([B, L] uniform noise or a ``torch.Generator``) with
         ``mvdt_keep`` runs the MVDT masked pass on ``mvdt_keep`` of the L
         tokens (see :meth:`_maybe_mask`)."""
@@ -686,7 +779,8 @@ class WanDiT(nn.Module):
         out = self.trunk_head(emb["tokens"], emb["t_values"], emb["idx"], emb["ctx"],
                               emb["cos"], emb["sin"], mvdt_noise=mvdt_noise,
                               mvdt_keep=mvdt_keep, block_cache=block_cache,
-                              cache_list=cache_list, return_cache=return_cache)
+                              cache_list=cache_list, return_cache=return_cache,
+                              cache_edge=cache_edge)
         out, new_cache = out if return_cache else (out, None)
         out = self._unpatchify(out[:, emb["l_hist"]:], emb["tail_grid"])
         return (out, new_cache) if return_cache else out
@@ -756,13 +850,15 @@ class WanDiT(nn.Module):
 
     def trunk_head(self, tokens, t_values, idx, ctx, cos, sin, *, attn_fn=None,
                    kv_len=None, mvdt_noise=None, mvdt_keep=None, block_cache=None,
-                   cache_list: Tuple[int, ...] = (), return_cache: bool = False):
+                   cache_list: Tuple[int, ...] = (), return_cache: bool = False,
+                   cache_edge: Optional[int] = None):
         """Blocks and head over embedded tokens [B, L, dim] (any contiguous
         run of the packed sequence, with its ``idx``, ``cos`` and ``sin``
         rows): per-token work apart from the self-attention, which
         ``attn_fn``/``kv_len`` may make sequence-parallel. Returns the head's
         output [B, L, p·C_out] in fp32, and with ``return_cache`` the
-        residuals of the ``cache_list`` blocks (:meth:`_trunk`); under
+        residuals of the ``cache_list`` blocks or the ``cache_edge`` delta
+        (:meth:`_trunk`); under
         sequence parallelism they are this rank's rows and stay there
         between TeaCache steps. ``mvdt_noise``/``mvdt_keep``: see
         :meth:`_maybe_mask`."""
@@ -771,7 +867,8 @@ class WanDiT(nn.Module):
                                                            mvdt_noise, mvdt_keep)
         out, mod, new_cache = self._trunk(tokens, mod, ctx, cos_k, sin_k, mvdt,
                                           block_cache, cache_list, return_cache,
-                                          attn_fn=attn_fn, kv_len=kv_len)
+                                          attn_fn=attn_fn, kv_len=kv_len,
+                                          cache_edge=cache_edge)
         out = self.head(out, mod)
         return (out, new_cache) if return_cache else out
 

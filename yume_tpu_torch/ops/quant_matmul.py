@@ -27,6 +27,11 @@ design is described in the source.
 On a CPU tensor :func:`q8_dot` runs :func:`_q8_matmul_ref` and
 :func:`q8_quantize` runs :func:`_quantize_act`; on a CUDA tensor each
 launches its kernel or raises.
+
+The int4 storage of the quantized trunk (:class:`Q4`, group-wise scales)
+reaches K6 through :func:`q4_to_q8`, the reference's relay onto the
+per-channel int8 grid: plain PyTorch glue (XLA glue in the reference), run
+on every call and never cached, so that only the int4 bytes stay resident.
 """
 
 from __future__ import annotations
@@ -48,6 +53,22 @@ class Q8:
     scale: torch.Tensor  # fp32 [N]
 
 
+@dataclasses.dataclass
+class Q4:
+    """Group-wise int4 weight in ``Linear`` layout, two nibbles a byte along
+    K: ``w ≈ (nibble − 8) · scale`` with one fp32 scale per (output channel,
+    group of ``g`` input rows). Within group ``j`` the low nibble of byte
+    ``q[n, j·g/2 + i]`` holds input row ``j·g + i`` and the high nibble row
+    ``j·g + g/2 + i`` (the reference's halves packing)."""
+
+    q: torch.Tensor      # uint8 [N, K/2]
+    scale: torch.Tensor  # fp32 [N, K/g]
+
+    @property
+    def group(self) -> int:
+        return 2 * self.q.shape[-1] // self.scale.shape[-1]
+
+
 def _absmax_scale(t: torch.Tensor) -> torch.Tensor:
     """``max(max |t|, 1e-8) / 127`` over the last dim, in fp32, keepdim.
 
@@ -66,14 +87,53 @@ def quantize_weight(w: torch.Tensor) -> Q8:
     """Symmetric per-output-channel int8 of a ``[N, K]`` weight: the weight
     half of the reference's ``int8_dot_general`` (per column of its
     ``[K, N]`` kernel). Quantize the weight as it is cast to the compute
-    dtype, as the reference's ``promote_dtype`` does before the matmul."""
+    dtype, as the reference's ``promote_dtype`` does before the matmul.
+    ``quantize_weight.calls`` counts the calls."""
+    quantize_weight.calls += 1
     scale = _absmax_scale(w)
     return Q8(q=_round_clip(w, scale).to(torch.int8), scale=scale[:, 0])
+
+
+quantize_weight.calls = 0
 
 
 def q8_dequant(w: Q8, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Q8 → dense ``[N, K]`` weight."""
     return (w.q.float() * w.scale[:, None]).to(dtype)
+
+
+def _unpack_q4(w: Q4) -> torch.Tensor:
+    """The signed nibbles of ``w`` as fp32 ``[N, K/g, g]`` (exact)."""
+    n, g_count = w.scale.shape
+    q = w.q.reshape(n, g_count, w.group // 2)
+    return torch.cat([q & 0xF, q >> 4], dim=-1).float().sub_(8.0)
+
+
+def q4_dequant(w: Q4, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Q4 → dense ``[N, K]`` weight: ``(nibble − 8) · scale`` in fp32, cast
+    once."""
+    wg = _unpack_q4(w).mul_(w.scale[..., None])
+    return wg.reshape(w.q.shape[0], -1).to(dtype)
+
+
+def q4_to_q8(w: Q4) -> Q8:
+    """Relay the group-wise int4 storage onto the per-channel int8 grid K6
+    takes (the reference's ``q4_to_q8``). The channel scale comes from the
+    group scales alone, ``s = max_g(8·scale_g) / 127`` (|nibble − 8| ≤ 8),
+    and each weight is ``round((nibble − 8) · (scale_g / s))``, the ratio
+    formed first, all in fp32; a channel whose scales are all 0 relays to
+    zeros, as XLA converts the reference's 0/0 to 0."""
+    d127 = torch.tensor(127.0, dtype=torch.float32, device=w.scale.device)
+    s_chan = (w.scale * 8.0).amax(-1) / d127                        # [N]
+    ratio = (w.scale / s_chan[:, None]).nan_to_num_(0.0)           # [N, G]
+    wq = _unpack_q4(w).mul_(ratio[..., None]).round_().clamp_(-127, 127)
+    return Q8(q=wq.to(torch.int8).reshape(w.q.shape[0], -1), scale=s_chan)
+
+
+def q4_dot(x: torch.Tensor, w: Q4, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ dequant(w).T`` from stored int4 weights: ``q8_dot(x,
+    q4_to_q8(w))``, the relay made anew on each call (K6 on the card)."""
+    return q8_dot(x, q4_to_q8(w), dtype)
 
 
 def _quantize_act(x: torch.Tensor):

@@ -18,9 +18,13 @@ residual cache per CFG branch), and the TTS samplers 'sde', 'time_travel'
 and 'tts'. ``ctx_null=None`` is the distilled serving mode: one cond-only
 forward a step, Euler only. W8A8 through ``config.dit.w8a8``
 (:meth:`I2VPipeline.with_w8a8` builds it on the same DiT parameters).
+``cfg_parallel`` runs the Euler sampler's cond and uncond forwards as one
+batch-2B forward. The int8/int4 trunk (:meth:`I2VPipeline.quantize_int8`,
+or built block by block by :func:`..models.quantized.quantize_host_blocks`
+into a pipeline made with ``init_dit=False``) runs every sampler,
+TeaCache in the reference's delta-cache form (``cache_edge``).
 
-Not ported yet, each refused with its ROADMAP queue 1 item: the int8/int4
-DiT storage (``quantize_int8``) and CFG parallelism (item 6), pipeline and
+Not ported yet, refused with its ROADMAP queue 1 item: pipeline and
 sequence parallelism (``parallelize_pp``, a mesh; item 8).
 """
 
@@ -37,6 +41,7 @@ from ..diffusion import samplers
 from ..diffusion.schedule import sampling_sigmas
 from ..models.clip import CLIPVisual, preprocess_frames
 from ..models.dit import WanDiT
+from ..models.quantized import is_quantized, quantize_dit_blocks
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode
 from .ti2v import build_modules, module_factories, w8a8_twin
@@ -93,41 +98,52 @@ class I2VPipeline:
     phase_cb: Optional[Callable[[str], None]] = None
     # full-DiT steps of the last sampler="teacache" segment
     last_teacache_n_full: Optional[int] = None
+    # CFG parallelism: the Euler sampler's cond and uncond forwards as one
+    # batch-2B forward (the reference's xDiT cfg_degree)
+    cfg_parallel: bool = False
     # the streaming VAE encoder's state after the last history encode
     # (_encode_history_incremental)
     _cond_cache: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
-        return next(self.dit.parameters()).device
+        return next((self.dit if self.dit is not None else self.vae).parameters()).device
 
     # -- construction --------------------------------------------------------
 
     @classmethod
     def from_config(cls, config: PipelineConfig, *, device="cuda", seed: int = 0,
-                    init_t5: bool = True, init_clip: bool = True,
+                    init_t5: bool = True, init_clip: bool = True, init_dit: bool = True,
                     dtype: torch.dtype = torch.bfloat16) -> "I2VPipeline":
         """Random-initialised pipeline at the config's full width: N(0, 0.02)
         weights allocated and drawn directly on ``device`` from a seeded
         ``torch.Generator`` (a host fp32 init of the 14B would take ~66 GB;
-        real weights come from checkpoints)."""
+        real weights come from checkpoints). ``init_dit=False`` leaves the
+        DiT out (``dit`` None): the quantized 14B path streams its trunk in
+        (:func:`..models.quantized.quantize_host_blocks`) without the bf16
+        trunk ever being made."""
         gen = torch.Generator(device=device).manual_seed(seed)
-        return cls(config, *build_modules(_factories(
-            config, dtype, t5=init_t5, clip=init_clip and config.clip is not None),
-            device, generator=gen))
+        dit_f, vae_f, t5_f, clip_f = _factories(
+            config, dtype, t5=init_t5, clip=init_clip and config.clip is not None)
+        return cls(config, *build_modules((dit_f if init_dit else None, vae_f, t5_f, clip_f),
+                                          device, generator=gen))
 
     @classmethod
-    def from_state_dicts(cls, config: PipelineConfig, dit_sd: Mapping, vae_sd: Mapping,
+    def from_state_dicts(cls, config: PipelineConfig, dit_sd: Optional[Mapping],
+                         vae_sd: Mapping,
                          t5_sd: Optional[Mapping] = None, clip_sd: Optional[Mapping] = None,
                          *, device="cuda",
                          dtype: torch.dtype = torch.bfloat16) -> "I2VPipeline":
         """Pipeline from the port's state dicts (reference names; torch
         tensors or numpy arrays), loaded strictly, stored and computed in
         ``dtype``. ``clip_sd`` holds the visual tower's tensors without the
-        released file's ``visual.`` prefix."""
-        return cls(config, *build_modules(_factories(
-            config, dtype, t5=t5_sd is not None, clip=clip_sd is not None),
-            device, state_dicts=(dit_sd, vae_sd, t5_sd, clip_sd)))
+        released file's ``visual.`` prefix; ``dit_sd=None`` leaves the DiT
+        out."""
+        dit_f, vae_f, t5_f, clip_f = _factories(config, dtype, t5=t5_sd is not None,
+                                                clip=clip_sd is not None)
+        return cls(config, *build_modules((dit_f if dit_sd is not None else None, vae_f, t5_f,
+                                           clip_f), device,
+                                          state_dicts=(dit_sd, vae_sd, t5_sd, clip_sd)))
 
     def with_w8a8(self) -> "I2VPipeline":
         """This pipeline with ``config.dit.w8a8`` on (:func:`.ti2v.w8a8_twin`),
@@ -137,7 +153,11 @@ class I2VPipeline:
                                    _cond_cache=None)
 
     def quantize_int8(self, bits: int = 8):
-        _not_ported("int8/int4 DiT storage (models/quantized.py); --w8a8 is ported", 6)
+        """Quantize the DiT trunk in place (int8, or int4 with ``bits=4``;
+        :func:`..models.quantized.quantize_dit_blocks`): its bf16 block
+        weights are freed. A no-op on a quantized trunk."""
+        if not is_quantized(self.dit):
+            quantize_dit_blocks(self.dit, bits)
 
     def parallelize_pp(self, stages: int, *, devices=None):
         _not_ported("pipeline-parallel staging of the 14B trunk", 8)
@@ -153,8 +173,10 @@ class I2VPipeline:
         """[B, text_len] ids and mask → [B, text_len, text_dim] fp32 context
         with the padding zeroed."""
         assert self.t5 is not None, "pipeline built without a text encoder"
-        ids = torch.as_tensor(np.asarray(ids), device=self.device)
-        mask = torch.as_tensor(np.asarray(mask), device=self.device)
+        # umT5's own device: under the phase shuttle the DiT may be parked
+        device = next(self.t5.parameters()).device
+        ids = torch.as_tensor(np.asarray(ids), device=device)
+        mask = torch.as_tensor(np.asarray(mask), device=device)
         return encode_text(self.t5, ids, mask).float()
 
     @torch.no_grad()
@@ -245,13 +267,19 @@ class I2VPipeline:
     def _forward(self, y, clip_ctx):
         """(latent, t_frame, context) → the packed DiT's velocity on
         ``[latent | y]`` in bf16 (as the reference feeds it), zeros over the
-        history, in the latent's dtype; ``**kw`` reaches the DiT (TeaCache)."""
+        history, in the latent's dtype; ``**kw`` reaches the DiT (TeaCache).
+        A latent batch that is a multiple of y's (batched CFG) tiles y and
+        the CLIP features to it."""
         lfz = self.config.latent_frame_zero
+        dit = self.dit
 
         def fwd(latent, t_frame, context, **kw):
-            x_in = torch.cat([latent, y.to(latent.dtype)], dim=-1).to(torch.bfloat16)
-            out = self.dit(x_in, t_frame, context, latent_frame_zero=lfz,
-                           clip_context=clip_ctx, **kw)
+            reps = latent.shape[0] // y.shape[0]
+            y_ = y.repeat(reps, *([1] * (y.dim() - 1))) if reps > 1 else y
+            clip_ = (clip_ctx.repeat(reps, 1, 1) if reps > 1 and clip_ctx is not None
+                     else clip_ctx)
+            x_in = torch.cat([latent, y_.to(latent.dtype)], dim=-1).to(torch.bfloat16)
+            out = dit(x_in, t_frame, context, latent_frame_zero=lfz, clip_context=clip_, **kw)
             out, cache = out if kw.get("return_cache") else (out, None)
             pad = torch.zeros_like(latent[:, : latent.shape[1] - lfz])
             v = torch.cat([pad, out.to(latent.dtype)], dim=1)
@@ -271,7 +299,8 @@ class I2VPipeline:
         fastvideo/sample/sample.py:756-790)."""
         return samplers.cfg_euler_sample_segment(
             self._forward(y, clip_ctx), self._latent0(y, noise), noise, ctx, ctx_null,
-            sampling_sigmas(steps, shift), self.config.latent_frame_zero, guide_scale)
+            sampling_sigmas(steps, shift), self.config.latent_frame_zero, guide_scale,
+            batched_cfg=self.cfg_parallel)
 
     def _sample_cfg_teacache(self, noise, y, ctx, ctx_null, clip_ctx, steps, shift,
                              guide_scale, cache_interval=2, cache_edge=None,
@@ -280,17 +309,23 @@ class I2VPipeline:
         wan/modules/model.py:977-998): the full DiT every ``cache_interval``
         steps per branch, or whenever the accumulated rel-L1 change of the
         tail reaches ``cache_threshold``; ``cache_edge`` live blocks per side
-        on cached steps (None → num_layers // 4). Returns (latent, n_full)."""
+        on cached steps (None → num_layers // 4). On a quantized trunk the
+        reference's delta cache over its default edges, ``max(1,
+        num_layers // 4)`` a side, whatever ``cache_edge``. Returns
+        (latent, n_full)."""
         n = self.config.dit.num_layers
         edge = n // 4 if cache_edge is None else max(1, int(cache_edge))
-        cache_list = tuple(range(edge, n - edge))
+        # a quantized trunk caches the middle chunk's delta at the reference
+        # int8_dit_apply's default edge, the bf16 one each middle block's residual
+        kw = (dict(cache_edge=n // 4) if is_quantized(self.dit)
+              else dict(cache_list=tuple(range(edge, n - edge))))
         fwd = self._forward(y, clip_ctx)
 
         def full(lat, t_frame, context):
-            return fwd(lat, t_frame, context, cache_list=cache_list, return_cache=True)
+            return fwd(lat, t_frame, context, return_cache=True, **kw)
 
         def cached(lat, t_frame, context, cache):
-            return fwd(lat, t_frame, context, cache_list=cache_list, block_cache=cache)
+            return fwd(lat, t_frame, context, block_cache=cache, **kw)
 
         args = (full, cached, self._latent0(y, noise), noise, ctx, ctx_null,
                 sampling_sigmas(steps, shift), self.config.latent_frame_zero, guide_scale)
@@ -356,6 +391,9 @@ class I2VPipeline:
                 f"distilled (ctx_null=None) serving supports the euler sampler, got {sampler!r}")
         if sampler == "teacache" and teacache_interval < 1:
             raise ValueError(f"teacache_interval must be >= 1, got {teacache_interval}")
+        if self.dit is None:
+            raise ValueError("the pipeline has no DiT: build its quantized trunk "
+                             "(models/quantized.py: quantize_host_blocks) first")
 
         self._phase("vae")
         y = self.make_conditioning(cond_frames, frame_num, history_mode=history_mode)

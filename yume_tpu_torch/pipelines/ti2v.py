@@ -24,6 +24,14 @@ DiT parameters), in both forwards; the VAE encode and the width-tiled
 decode (:meth:`TI2VPipeline.decode_tiled`). The 14B i2v pipeline is
 :mod:`.i2v`.
 
+The int8/int4 trunk (:meth:`TI2VPipeline.quantize_int8`,
+:mod:`..models.quantized`) replaces the bf16 one in place and runs
+``generate_t2v`` (Euler and the multistep solvers) and the segment samplers
+``euler`` and ``teacache`` (in the reference's delta-cache form,
+``cache_edge``), the samplers the reference routes to its
+``int8_dit_apply``; the TTS samplers and sequence parallelism refuse it, as
+the reference's do.
+
 Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
 ``sp_groups`` set, the pipeline is one rank of a run in which every rank
 holds the whole model and calls :meth:`TI2VPipeline.generate_segment` with
@@ -50,6 +58,7 @@ from ..configs import PipelineConfig
 from ..diffusion import multistep, samplers
 from ..diffusion.schedule import sampling_sigmas, unipc_sigmas
 from ..models.dit import WanDiT
+from ..models.quantized import is_quantized, quantize_dit_blocks
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode, streaming_encode
 from ..parallel.mesh import SPGroups
@@ -178,6 +187,13 @@ class TI2VPipeline:
         config, dit = w8a8_twin(self.config, self.dit)
         return dataclasses.replace(self, config=config, dit=dit, last_teacache_n_full=None)
 
+    def quantize_int8(self, bits: int = 8):
+        """Quantize the DiT trunk in place (int8, or int4 with ``bits=4``;
+        :func:`..models.quantized.quantize_dit_blocks`): its bf16 block
+        weights are freed. A no-op on a quantized trunk."""
+        if not is_quantized(self.dit):
+            quantize_dit_blocks(self.dit, bits)
+
     # -- conditioning --------------------------------------------------------
 
     @torch.no_grad()
@@ -222,16 +238,17 @@ class TI2VPipeline:
         lfz = self.config.latent_frame_zero
         n = self.config.dit.num_layers
         edge = n // 4 if cache_edge is None else max(1, int(cache_edge))
-        cache_list = tuple(range(edge, n - edge))
+        # a quantized trunk caches the middle chunk's delta (as the
+        # reference's int8_dit_apply), the bf16 one each middle block's residual
+        kw = (dict(cache_edge=edge) if is_quantized(self.dit)
+              else dict(cache_list=tuple(range(edge, n - edge))))
 
         def full(lat, t_frame):
-            out, cache = self._dit(lat, t_frame, ctx, cache_list=cache_list,
-                                   return_cache=True)
+            out, cache = self._dit(lat, t_frame, ctx, return_cache=True, **kw)
             return self._pad_v(lat, out), cache
 
         def cached(lat, t_frame, cache):
-            return self._pad_v(lat, self._dit(lat, t_frame, ctx, cache_list=cache_list,
-                                              block_cache=cache))
+            return self._pad_v(lat, self._dit(lat, t_frame, ctx, block_cache=cache, **kw))
 
         if cache_threshold is not None:
             decide = None
@@ -305,6 +322,13 @@ class TI2VPipeline:
                 f"SP serving runs the samplers {_SP_SAMPLERS}, not {sampler!r}")
         if sampler not in _SP_SAMPLERS + _TTS_SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}")
+        if is_quantized(self.dit) and sampler not in _SP_SAMPLERS:
+            raise NotImplementedError(
+                f"int8 trunk supports euler/teacache samplers, got {sampler!r}")
+        if is_quantized(self.dit) and self.sp_groups is not None:
+            raise NotImplementedError(
+                "the int8/int4 storage trunk is single-chip; use --w8a8 (dynamic int8 "
+                "matmuls) for quantized SP serving")
         if sampler == "teacache" and teacache_interval < 1:
             raise ValueError(f"teacache_interval must be >= 1, got {teacache_interval}")
         lfz = self.config.latent_frame_zero
@@ -357,15 +381,15 @@ class TI2VPipeline:
 
     def _t2v_dit(self, params) -> WanDiT:
         """The DiT a t2v rollout runs: this pipeline's, or ``params`` (a
-        :class:`WanDiT`, e.g. a distillation teacher)."""
+        :class:`WanDiT`, bf16 or quantized, e.g. a distillation teacher)."""
         if params is None:
             return self.dit
         if isinstance(params, WanDiT):
             return params
         if isinstance(params, tuple):
             raise NotImplementedError(
-                "not ported yet: a quantized (int8/int4) DiT trunk comes with the "
-                "14B modules (ROADMAP queue 1, item 6)")
+                "the port's quantized trunk is a WanDiT (models/quantized.py: "
+                "quantize_dit_blocks), not the reference's (other, stacked) tuple")
         raise NotImplementedError(
             f"not ported yet: DiT parameters of type {type(params).__name__}; pass a "
             "WanDiT (pipeline-parallel staging, the reference's PPParams, is "
@@ -375,6 +399,7 @@ class TI2VPipeline:
     def _unpacked_fn(dit: WanDiT):
         """The unpacked forward on a bf16 latent (as the reference feeds the
         DiT), its velocity cast back to the latent's dtype (fp32)."""
+
         def fwd(x, t_frame, ctx):
             return dit(x.to(torch.bfloat16), t_frame, ctx, packed=False).to(x.dtype)
         return fwd

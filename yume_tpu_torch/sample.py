@@ -42,9 +42,21 @@ negative prompt); its image mode's continuations run Euler whatever the
 sampler, as the reference's, while its video mode passes the sampler to
 every ``generate_next``, as the reference's does.
 
+``--int8`` and ``--int4`` store the DiT trunk quantized
+(:mod:`.models.quantized`): the 5B quantizes its trunk in place after
+loading (a multistep-solver t2v run after its first segment); the 14B never
+builds its bf16 trunk: the blocks stream one at a time, from ``--ckpt_dir``'s
+safetensors or made from ``--seed`` on the device, into int8 or int4
+storage, and under ``--memory_optimization`` the quantized trunk joins the
+phase shuttle too. ``--cfg_parallel`` (14B) runs each CFG step's cond and
+uncond forwards as one batch-2 forward.
+
 Not ported, and refused with the ROADMAP queue 1 item that brings them:
-``--cfg_parallel``, ``--int8`` and ``--int4`` (item 6); ``--pp`` (item 8);
-``--sp > 1`` (a CLI launch of the SP groups, item 4).
+``--pp`` (item 8); ``--sp > 1`` (a CLI launch of the SP groups, item 4).
+
+    python -m yume_tpu_torch.sample --t2v --int8 --w8a8 --teacache       # 5B, int8 trunk
+    python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir ./jpg --width 960 \
+        --height 544 --int4 --w8a8 --memory_optimization --cfg_parallel
 """
 
 from __future__ import annotations
@@ -104,8 +116,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "loop with CFG)")
     p.add_argument("--sde", action="store_true", help="TTS SDE churn sampling")
     p.add_argument("--time_travel", action="store_true", help="TTS lookahead sampling")
-    p.add_argument("--int8", action="store_true", help="not ported (ROADMAP queue 1, item 6)")
-    p.add_argument("--int4", action="store_true", help="not ported (ROADMAP queue 1, item 6)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-quantize the DiT trunk (half the bf16 weight bytes)")
+    p.add_argument("--int4", action="store_true",
+                   help="group-wise int4 DiT trunk (a quarter of the bf16 weight bytes)")
     p.add_argument("--teacache", action="store_true",
                    help="block-residual caching between the segments' denoise steps; "
                         f"by default the full DiT runs when the accumulated rel-L1 "
@@ -133,7 +147,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sp_kind", default="ulysses", choices=["ulysses", "ring", "usp"])
     p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP queue 1, item 8)")
     p.add_argument("--cfg_parallel", action="store_true",
-                   help="not ported (ROADMAP queue 1, item 6)")
+                   help="14B: each CFG step's cond and uncond forwards as one batch-2 "
+                        "forward")
     p.add_argument("--w8a8", action="store_true",
                    help="int8 × int8 matmuls for the DiT blocks' projections")
     p.add_argument("--memory_optimization", action="store_true",
@@ -165,16 +180,13 @@ def refuse_unported(args, webapp: bool = False):
     if getattr(args, "distilled", False) and not i2v:
         raise SystemExit("--distilled is the 14B pipeline's cond-only serving "
                          "(--config i2v-14B); the 5B segment sampler runs no CFG")
+    if getattr(args, "cfg_parallel", False) and not i2v:
+        raise SystemExit("--cfg_parallel batches the 14B pipeline's CFG forwards "
+                         "(--config i2v-14B); the 5B segment sampler runs no CFG")
     unported = [
         (webapp and args.config != "ti2v-5B", "the webapp serves the 5B; a 14B webapp "
                                               "comes with the rest of the 14B (ROADMAP "
                                               "queue 1, item 6)"),
-        (getattr(args, "cfg_parallel", False), "--cfg_parallel is the 14B CFG batch "
-                                               "path (ROADMAP queue 1, item 6)"),
-        (getattr(args, "int8", False) or getattr(args, "int4", False)
-         or getattr(args, "quant", "none") != "none",
-         "int8/int4 DiT storage needs models/quantized.py (ROADMAP queue 1, item 6); "
-         "--w8a8 is ported"),
         (args.pp > 1, "--pp is pipeline parallelism (ROADMAP queue 1, item 8)"),
         (args.sp > 1, "--sp > 1 needs a CLI launch of the port's SP groups (ROADMAP "
                       "queue 1, item 4); TI2VPipeline with sp_groups is ported"),
@@ -238,7 +250,8 @@ def load_pipeline(args):
     I2VPipeline for the 14B, at the smoke or the full config, W8A8 with
     ``--w8a8``; released weights from ``--ckpt_dir``, otherwise random ones
     from ``--seed``. The pipeline computes in fp32 on the CPU and in bf16 on
-    the card."""
+    the card. With ``--int8``/``--int4`` the 14B pipeline comes without its
+    DiT, which :func:`quantize_trunk` streams in."""
     from .configs import CONFIGS
     from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
@@ -250,18 +263,22 @@ def load_pipeline(args):
     if args.w8a8:
         cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, w8a8=True))
     device = torch.device(args.device)
-    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    dtype = _dtype(device)
+    # the 14B quantized trunk never exists in bf16: quantize_trunk streams it
+    with_dit = not (cfg.name == "i2v-14B" and _bits(args))
     if args.ckpt_dir:
         if not os.path.isdir(args.ckpt_dir):
             raise SystemExit(f"--ckpt_dir {args.ckpt_dir!r} is not a directory")
-        return cfg, load_torch_weights(cfg, args.ckpt_dir, device=device, dtype=dtype)
+        return cfg, load_torch_weights(cfg, args.ckpt_dir, device=device, dtype=dtype,
+                                       load_dit=with_dit)
     if not args.smoke:
         warnings.warn(
             "no --ckpt_dir: running with RANDOM weights (capability/perf runs only; "
             "outputs are noise). Pass --ckpt_dir with the released torch checkpoints "
             "for real generation.", stacklevel=2)
     if cfg.name == "i2v-14B":
-        return cfg, I2VPipeline.from_config(cfg, device=device, seed=args.seed, dtype=dtype)
+        return cfg, I2VPipeline.from_config(cfg, device=device, seed=args.seed, dtype=dtype,
+                                            init_dit=with_dit)
     return cfg, TI2VPipeline.from_config(cfg, device=device, seed=args.seed, init_t5=True,
                                          dtype=dtype)
 
@@ -275,8 +292,8 @@ def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bflo
     Strict, as the reference: a missing file raises before anything loads,
     and so does a missing or unknown tensor (wrapper segments such as
     ``module.`` are dropped from the DiT's keys). ``load_dit=False`` builds
-    a 5B pipeline of the VAE and umT5 alone, without a DiT (the trainer's
-    encode path; the reference's ``load_dit=False``)."""
+    a pipeline without a DiT (the 5B trainer's encode path, the 14B's
+    quantized load; the reference's ``load_dit=False``)."""
     from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
     from .utils.checkpoint import (clip_visual_from_released, load_safetensors_state_dict,
@@ -302,6 +319,67 @@ def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bflo
                                          dtype=dtype)
 
 
+def offload_slot(cfg, pipe, device):
+    """``--memory_optimization``'s phase shuttle: umT5 and the VAE (with the
+    14B's CLIP) wait in host memory, each on the device only for its phase;
+    the DiT stays resident (the 14B's quantized trunk joins the shuttle in
+    :func:`quantize_trunk`)."""
+    from .utils.offload import OffloadSlot
+
+    slot = OffloadSlot(device)
+    slot.register("t5", pipe.t5)
+    if cfg.name == "i2v-14B":
+        slot.register("vae", torch.nn.ModuleList([pipe.vae, pipe.clip]))
+        pipe.phase_cb = lambda name: slot.use("vae") if name == "vae" else slot.park()
+    else:
+        slot.register("vae", pipe.vae)
+    return slot
+
+
+def _dtype(device: torch.device) -> torch.dtype:
+    """The pipelines' compute dtype: fp32 on the CPU, bf16 on the card."""
+    return torch.float32 if device.type == "cpu" else torch.bfloat16
+
+
+def _bits(args) -> int:
+    """The trunk's storage bits asked for: 4 (``--int4``, which wins, as in
+    the reference), 8 (``--int8``) or 0."""
+    return 4 if getattr(args, "int4", False) else 8 if getattr(args, "int8", False) else 0
+
+
+def quantize_trunk(args, cfg, pipe, slot=None):
+    """The ``--int8``/``--int4`` trunk, unless a multistep-solver t2v run
+    needs the bf16 one for its first segment (:func:`_run` quantizes after
+    it). The 5B quantizes its resident trunk in place; the 14B streams its
+    blocks into quantized storage (:func:`.models.quantized.quantize_host_blocks`)
+    from ``--ckpt_dir``'s safetensors, or made from ``--seed`` on the
+    device, and under ``--memory_optimization`` registers the trunk in
+    ``slot`` as ``dit_q``: it visits the device for the DiT phase only, as
+    umT5, the VAE and CLIP visit it for theirs."""
+    bits = _bits(args)
+    if not bits:
+        return
+    if pipe.dit is not None:
+        if not (args.t2v and args.sample_solver != "euler"):
+            pipe.quantize_int8(bits)
+        return
+    from .models.quantized import quantize_host_blocks
+    from .utils.checkpoint import load_safetensors_state_dict, normalize_torch_keys
+
+    sd = None
+    if args.ckpt_dir:
+        sd = normalize_torch_keys(load_safetensors_state_dict(args.ckpt_dir))
+        if not sd:
+            raise RuntimeError(f"checkpoint dir {args.ckpt_dir!r} is missing: {DIT_FILES}")
+    device = torch.device(args.device)
+    pipe.dit = quantize_host_blocks(cfg.dit, bits, state_dict=sd, seed=args.seed,
+                                    device=device, dtype=_dtype(device))
+    del sd
+    if slot is not None:
+        slot.register("dit_q", pipe.dit)
+        pipe.phase_cb = lambda name: slot.use("vae" if name == "vae" else "dit_q")
+
+
 def _first_image(jpg_dir: str) -> str:
     images = sorted(os.path.join(jpg_dir, f) for f in os.listdir(jpg_dir)
                     if f.lower().endswith((".jpg", ".png", ".jpeg")))
@@ -323,18 +401,16 @@ def main(argv=None) -> int:
                          "--input_video, or --video_root_dir")
     cfg, pipe = load_pipeline(args)
     os.makedirs(args.output_dir, exist_ok=True)
-    timer = PhaseTimer(pipe.device)
+    device = torch.device(args.device)
+    timer = PhaseTimer(device)
     slot = None
+    if args.cfg_parallel:
+        pipe.cfg_parallel = True
     if args.memory_optimization:
-        # umT5 and the VAE (with the 14B's CLIP) wait in host memory; each
-        # visits the device only for its phase, the DiT stays resident
-        slot = OffloadSlot(pipe.device)
-        slot.register("t5", pipe.t5)
-        if cfg.name == "i2v-14B":
-            slot.register("vae", torch.nn.ModuleList([pipe.vae, pipe.clip]))
-            pipe.phase_cb = lambda name: slot.use("vae") if name == "vae" else slot.park()
-        else:
-            slot.register("vae", pipe.vae)
+        slot = offload_slot(cfg, pipe, device)
+    # after the shuttle is set up: umT5 has left the device when the 14B's
+    # quantized trunk streams in
+    quantize_trunk(args, cfg, pipe, slot)
     tok = Tokenizer(resolve_tokenizer_path(args.tokenizer, args.ckpt_dir),
                     seq_len=cfg.t5.text_len, vocab_size=cfg.t5.vocab_size,
                     warn_fallback=not args.smoke)
@@ -368,15 +444,18 @@ def main(argv=None) -> int:
         prof = None
         if args.profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]
-            if pipe.device.type == "cuda":
+            if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = stack.enter_context(torch.profiler.profile(activities=acts))
         if video_mode:
-            _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer)
+            _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer,
+                       device=device)
+        elif cfg.name == "i2v-14B":
+            _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num,
+                     steps, slot, timer, device=device)
         else:
-            run = _run_i2v if cfg.name == "i2v-14B" else _run
-            run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num,
-                steps, slot, timer)
+            _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
+                 slot, timer)
     if prof is not None:
         os.makedirs(args.profile_dir, exist_ok=True)
         path = os.path.join(args.profile_dir, "trace.json")
@@ -430,7 +509,8 @@ def iter_video_samples(args, size):
             yield load(mp4, args.prompt) + (f"video{rank + i * world:03d}",)
 
 
-def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer):
+def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer,
+               device=None):
     """The video-input mode (reference sample_one's video branch,
     fastvideo/sample/sample.py:686-714). 5B: ``encode_auto`` of the clip
     gives the history latents, then ``--sample_num`` segments, each tail
@@ -438,7 +518,9 @@ def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, ti
     in front of it (16 at the 14B's temporal stride 4; ``rep`` makes the
     history 1 mod the stride, so the causal VAE streams it exactly), then
     ``generate_next`` of ``(latent_frame_zero - 1)·stride`` frames per
-    sample, the history growing by the decoded video each time."""
+    sample, the history growing by the decoded video each time. The clips
+    go to ``device`` (default the pipeline's; the 14B's quantized trunk may
+    be parked on the host when they are read)."""
     from .utils.video import save_video
 
     interval, threshold = teacache
@@ -453,7 +535,7 @@ def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, ti
     n_out = 0
     for video, caption, tag in iter_video_samples(args, size):
         ctx = encode(caption + _VIDEO_METRICS_SUFFIX)
-        video = video.to(pipe.device)
+        video = video.to(pipe.device if device is None else device)
         t0 = time.time()
         if cfg.name == "i2v-14B":
             # --distilled: cond-only, as the image mode
@@ -529,6 +611,9 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
         with timer.phase("vae_encode"):
             vae_phase()
             latents = pipe.encode_auto(video)
+        if _bits(args) and args.sample_solver != "euler":
+            # a multistep t2v run quantizes after its first segment
+            pipe.quantize_int8(_bits(args))
     else:
         img = load_image(_first_image(args.jpg_dir), size=(size[1], size[0]))
         # repeat-N first-frame conditioning (16 frames, clamped to the duration)
@@ -562,12 +647,13 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
 
 
 def _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
-             slot, timer):
+             slot, timer, device=None):
     """The 14B branch (reference fastvideo/sample/sample.py): the image in
     ``--jpg_dir`` conditions a CFG segment of ``frame_num`` frames
     (``segment_000``); then each further sample re-conditions on the whole
     video so far and adds 32 frames (``generate_next``), written alone. As
-    the reference, the continuations take no sampler and run Euler."""
+    the reference, the continuations take no sampler and run Euler. The
+    image goes to ``device`` (as :func:`_run_video`)."""
     from .utils.video import load_image, save_video
 
     interval, threshold = teacache
@@ -577,7 +663,8 @@ def _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_n
     t0 = time.time()
     with timer.phase("generate"):
         _, video = pipe.generate(
-            torch.from_numpy(img)[None, None].to(pipe.device), ctx, ctx_null,
+            torch.from_numpy(img)[None, None].to(pipe.device if device is None else device),
+            ctx, ctx_null,
             frame_num=frame_num, steps=steps, shift=args.shift, guide_scale=args.guide_scale,
             seed=args.seed, sampler=sampler, teacache_interval=interval,
             teacache_edge=args.teacache_edge, teacache_threshold=threshold)

@@ -15,11 +15,12 @@ The server's state lives in a :class:`WebApp`, which
 :meth:`WebApp.handler` binds to a request handler class. Frames wider than
 40 latent columns decode width-tiled (``TI2VPipeline.decode_tiled``).
 ``--memory_optimization`` keeps umT5 and the VAE in host memory, each on
-the device only for its phase. The log goes to ``<output_dir>/webapp.log``.
+the device only for its phase. ``--quant int8|int4`` quantizes the DiT
+trunk at the first request (``models/quantized.py``); every mode then runs
+on it. The log goes to ``<output_dir>/webapp.log``.
 
 Not ported, and refused with the ROADMAP queue 1 item that brings them:
-``--quant int8|int4`` (item 6, ``models/quantized.py``), ``--pp`` (item 8)
-and ``--sp > 1`` (a CLI launch of the SP groups, item 4).
+``--pp`` (item 8) and ``--sp > 1`` (a CLI launch of the SP groups, item 4).
 """
 
 from __future__ import annotations
@@ -243,6 +244,9 @@ class WebApp:
 
         self._phase("t5")
         ctx = pipe.encode_text(*self.tokenizer([prompt]))
+        if args.quant != "none":
+            # every mode runs on the quantized trunk (a no-op once quantized)
+            pipe.quantize_int8({"int8": 8, "int4": 4}[args.quant])
 
         def on_step(t):
             self.step["i"] += 1
@@ -414,7 +418,8 @@ def build_argparser():
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--preload", action="store_true")
     p.add_argument("--quant", default="none", choices=["none", "int8", "int4"],
-                   help="not ported (ROADMAP queue 1, item 6)")
+                   help="quantize the DiT trunk at the first request (int8: half the "
+                        "bf16 weight bytes, int4: a quarter)")
     p.add_argument("--memory_optimization", action="store_true",
                    help="keep umT5 and the VAE in host memory, each on the device "
                         "only for its phase")

@@ -5,7 +5,9 @@ loads as it is. These functions take ``yume_tpu`` parameter trees (nested
 dicts of numpy arrays, optionally under a top-level ``"params"``) and
 produce the same reference-named state dicts, as float32 numpy arrays:
 
-* :func:`dit_state_dict` mirrors ``yume_tpu.utils.checkpoint.export_dit_state_dict``;
+* :func:`dit_state_dict` mirrors ``yume_tpu.utils.checkpoint.export_dit_state_dict``,
+  and :func:`quantized_dit_state_dict` carries a quantized trunk across
+  with its int8 and int4 bits;
 * :func:`t5_state_dict` inverts ``convert_t5_state_dict``;
 * :func:`vae22_state_dict` inverts ``convert_vae22_state_dict`` (encoder
   included, with the reference's tensor shapes);
@@ -66,13 +68,63 @@ def _conv3d(kernel) -> np.ndarray:
     return _f32(kernel).transpose(4, 3, 0, 1, 2)
 
 
+class _Stored:
+    """One layer of a JAX ``Q8`` (int8 ``q`` [K, N], ``scale`` [1, N]) or
+    ``Q4`` (uint8 ``q`` [G, g/2, N], ``scale`` [G, N]) kernel."""
+
+    def __init__(self, q, scale):
+        self.q, self.scale = np.array(q), np.array(scale, np.float32)
+
+    def port(self, dst: str) -> Dict[str, np.ndarray]:
+        """The port's ``<dst>.q`` and ``<dst>.scale``: Q8 as int8 [N, K] and
+        fp32 [N]; Q4 as uint8 [N, K/2] (each group's g/2 bytes in a row) and
+        fp32 [N, G]."""
+        if self.q.dtype == np.int8:
+            q, scale = self.q.T, self.scale.reshape(-1)
+        elif self.q.dtype == np.uint8:
+            g_count, half, n = self.q.shape
+            q, scale = self.q.transpose(2, 0, 1).reshape(n, g_count * half), self.scale.T
+        else:
+            raise TypeError(f"{dst}: quantized codes of dtype {self.q.dtype}")
+        return {f"{dst}.q": np.ascontiguousarray(q), f"{dst}.scale": np.ascontiguousarray(scale)}
+
+
+def _unstack(node, i: int):
+    """Layer ``i`` of a stacked block tree; Q8/Q4 leaves become :class:`_Stored`."""
+    if isinstance(node, Mapping):
+        return {k: _unstack(v, i) for k, v in node.items()}
+    if hasattr(node, "q") and hasattr(node, "scale"):
+        return _Stored(np.asarray(node.q)[i], np.asarray(node.scale)[i])
+    return np.asarray(node)[i]
+
+
+def quantized_dit_state_dict(other: Mapping, stacked_q: Mapping,
+                             num_layers: int) -> Dict[str, np.ndarray]:
+    """JAX's quantized trunk ``(other, stacked_q)`` (``quantize_dit_blocks``
+    or ``quantize_host_blocks``: the non-block tree and the blocks stacked
+    on a leading layer axis, Q8/Q4 kernels among them) → the state dict
+    that ``models.quantized.quantized_dit_from_state_dict`` loads: the
+    reference names, each quantized projection as ``<name>.q``,
+    ``<name>.scale`` and ``<name>.bias`` in the port's layout, the same
+    int8 and int4 bits; the other tensors as :func:`dit_state_dict`'s."""
+    tree = dict(_root(other))
+    for i in range(num_layers):
+        tree[f"blocks_{i}"] = _unstack(stacked_q, i)
+    return dit_state_dict(tree, num_layers)
+
+
 def dit_state_dict(params: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
-    """WanDiT parameter tree → reference ``WanModel`` state dict."""
+    """WanDiT parameter tree → reference ``WanModel`` state dict (a kernel
+    given as :class:`_Stored` → its ``.q`` and ``.scale``)."""
     p = _root(params)
     sd: Dict[str, np.ndarray] = {}
 
     def dense(src: str, dst: str):
-        sd[f"{dst}.weight"] = _f32(get_in(p, f"{src}/kernel")).T
+        kernel = get_in(p, f"{src}/kernel")
+        if isinstance(kernel, _Stored):
+            sd.update(kernel.port(dst))
+        else:
+            sd[f"{dst}.weight"] = _f32(kernel).T
         if _has(p, f"{src}/bias"):
             sd[f"{dst}.bias"] = _f32(get_in(p, f"{src}/bias"))
 
@@ -284,10 +336,15 @@ def pipeline_state_dicts(pipe) -> Dict[str, Dict[str, np.ndarray]]:
     """A JAX ``TI2VPipeline``'s or ``I2VPipeline``'s DiT, VAE (encoder and
     decoder; Wan2.2 or Wan2.1 by its config), umT5 and CLIP visual tower
     (those it has) → ``{"dit", "vae", "t5", "clip"}`` reference-named state
-    dicts, nothing dropped."""
+    dicts, nothing dropped; a quantized trunk through
+    :func:`quantized_dit_state_dict`."""
     cfg = pipe.config
     vae = vae21_state_dict if cfg.vae.arch == "wan21" else vae22_state_dict
-    out = {"dit": dit_state_dict(pipe.dit_params, cfg.dit.num_layers),
+    if isinstance(pipe.dit_params, tuple):     # a quantized trunk
+        dit = quantized_dit_state_dict(*pipe.dit_params, cfg.dit.num_layers)
+    else:
+        dit = dit_state_dict(pipe.dit_params, cfg.dit.num_layers)
+    out = {"dit": dit,
            "vae": vae(pipe.vae_params, cfg.vae.num_res_blocks)}
     if pipe.t5_params is not None:
         out["t5"] = t5_state_dict(pipe.t5_params, cfg.t5.num_layers)
