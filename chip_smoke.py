@@ -44,6 +44,9 @@ result line:
    packed shapes (the 5B video segments' 11,180 and 11,660 tokens: K1 self
    and cross, K2–K5 on their FramePack tables, K6 at the block's four
    shapes; the data-path trainer's 2,260: K1–K5 and K8/K9, self and cross);
+   and at the i2v-14B trainer's 12,060 packed tokens with 40 heads: K1 self
+   and cross over 512 and 257 keys, K2–K5, K8/K9 self (held on four heads)
+   and cross over 512 and the 257 CLIP keys;
    K1's self cases hold out to two bf16 ulps of the largest |out| and the
    lse to ``K7_LSE_TOL``, on a few heads); then K7's ring invariant
    against K1 and its VJP with an lse cotangent; and for the quantized
@@ -152,6 +155,16 @@ result line:
    Losses and gradient norms must be finite; K1–K5, K8 and K9 must launch
    and K6 must not; K10 launches 60 times a distillation step and nowhere
    else (serving, SP and the other train paths count 0).
+   e. (after that model is freed) the i2v-14B trainer, checkpoint I/O and
+      the training modules (:func:`train_14b_phase`): ``train.main
+      --config i2v-14B --lora_rank 16 --remat --checkpointing_steps 1`` on
+      synthetic batches at 12,060 packed tokens (exact launches a step,
+      each async save's hold), the same over ``--data_dir`` (an i2v and a
+      v2v batch, each step's host wait, encode and train step), the async
+      save against a blocking one, a 2-block full-width export round trip
+      bit for bit, ``--smoke --config i2v-14B --export_torch_dir`` and
+      ``--ckpt_dir``, ``--MVDT --Distil`` (K10 launches),
+      ``teacher_rollout``, ``ode_sample`` and ``diff_augment`` on the card.
 8. sp (after the train phase is freed): sequence-parallel serving on four
    ranks, four spawned processes that share the one card over a gloo group
    (NCCL refuses two ranks on one device), so their transfers go through
@@ -990,7 +1003,8 @@ def flash_backward_kernels(results, gen):
     trainer's shapes: self-attention over its 2,805 packed tokens, cross-
     attention over 512 text rows and MVDT's self-attention over the 1,963
     kept tokens, and phase 6f's data-path batch of 2,260 tokens, self and
-    cross. Tolerance: 2e-2 of the largest plain gradient (the kernels
+    cross (the 14B trainer's cases: :func:`train_14b_kernels`). Tolerance:
+    2e-2 of the largest plain gradient (the kernels
     round P and dS to bf16 before their products and write bf16; about 3
     bf16 ulps of the largest entry). Each kernel runs three times on the same
     inputs and must give the same bits (no atomics). Times by CUDA events
@@ -1001,8 +1015,6 @@ def flash_backward_kernels(results, gen):
     backward less the forward) each compute dQ, dK and dV together, so K8
     and K9 report the same plain and library times (on the device: the
     profiled backward alone)."""
-    from yume_tpu_torch.ops import flash_attention as fl
-
     for case, lq, lk in ((f"self [1,{TRAIN_L},24,128]", TRAIN_L, TRAIN_L),
                          ("cross Lk=512", TRAIN_L, TEXT_LEN),
                          (f"MVDT self [1,{TRAIN_KEEP},24,128]", TRAIN_KEEP, TRAIN_KEEP),
@@ -1010,66 +1022,134 @@ def flash_backward_kernels(results, gen):
                           VIDEO_TRAIN_L),
                          (f"data path cross [1,{VIDEO_TRAIN_L}] Lk=512", VIDEO_TRAIN_L,
                           TEXT_LEN)):
-        q, do = _randn(gen, 1, lq, N, D), _randn(gen, 1, lq, N, D)
-        k, v = _randn(gen, 1, lk, N, D), _randn(gen, 1, lk, N, D)
-        out, lse = fl.flash_attention(q, k, v, return_lse=True)
-        delta = fl.attention_delta(out, do)
-        want = fl.plain_attention_bwd(q, k, v, out, lse, do)
-        plain_ms = median_ms(lambda: fl.plain_attention_bwd(q, k, v, out, lse, do), reps=3)
+        _flash_backward_case(results, gen, case, lq, lk, N)
 
-        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        do_t = do.transpose(1, 2)
 
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(*leaves)
+def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None):
+    """One K8/K9 case of :func:`flash_backward_kernels` with ``heads``
+    heads; ``hs``: the fp32 plain version fits only that many heads at a
+    time, so the kernels are held to it on the first ``hs`` heads and it is
+    timed over all of them ``hs`` at a time."""
+    from yume_tpu_torch.ops import flash_attention as fl
 
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do_t)
+    hs = hs or heads
+    q, do = _randn(gen, 1, lq, heads, D), _randn(gen, 1, lq, heads, D)
+    k, v = _randn(gen, 1, lk, heads, D), _randn(gen, 1, lk, heads, D)
+    out, lse = fl.flash_attention(q, k, v, return_lse=True)
+    delta = fl.attention_delta(out, do)
 
-        lib_ms = median_ms(sdpa_fwd_bwd, reps=5) - median_ms(sdpa_fwd, reps=5)
-        # on the device: the backward alone, on a kept graph (a difference of
-        # two profiled calls read 0 at the cross shape on the H100)
-        lib_out = F.scaled_dot_product_attention(*leaves)
-        lib_dev = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do_t,
-                                                        retain_graph=True))["all"]
-        del lib_out
-        flops = 2.0 * N * lq * lk * D  # one [Lq, Lk, D] product, all heads
-        stats = nbytes(lse, delta)
-        pair = {}
-        for kernel, ref, run, ops in (
-                ("flash_attention_bwd_dq", want[:1],
-                 lambda: (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),), 3 * flops),
-                ("flash_attention_bwd_dkv", want[1:],
-                 lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta), 4 * flops)):
-            got = run()
-            same = all(torch.equal(a, b) for _ in range(2) for a, b in zip(got, run()))
-            require(same, f"{kernel} {case}: a repeat run gave other bits")
-            err = max(max_err(g, w) for g, w in zip(got, ref))
-            tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in ref)
-            ms = median_ms(run, reps=10)
-            dev = device_ms(run)["all"]
-            bound = bound_ms(nbytes(q, k, v, do, *got) + stats, ops, "bf16")
-            pair[kernel] = (ms, dev)
-            _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms,
-                    device_ms=round(dev, 4), library_device_ms=round(lib_dev, 4),
-                    tflops=round(ops / ms / 1e9, 1),
-                    device_tflops=round(ops / dev / 1e9, 1),
-                    bound_share=round(bound[0] / ms, 4),
-                    device_bound_share=round(bound[0] / dev, 4), three_runs_identical=same)
-            del got
-        # a fused backward (FA2/FA3) computes dQ, dK and dV in 5 products
-        fused = bound_ms(nbytes(q, k, v, do, *want) + stats, 5 * flops, "bf16")
-        ms = sum(t[0] for t in pair.values())
-        dev = sum(t[1] for t in pair.values())
-        log(f"  K8 + K9 pair              {case:<26} {ms:.3f} ms by events, {dev:.3f} ms on "
-            f"the device; 5-product bound {fused[0]:.4f} ms ({fused[1]}), "
-            f"{fused[0] / dev:.1%} of it on the device; SDPA backward {lib_ms:.3f} ms, "
-            f"{lib_dev:.3f} ms on the device")
-        results["flash_attention_bwd_dq"].setdefault("pair", []).append({
-            "case": case, "ms": ms, "device_ms": dev, "fused_bound_ms": fused[0],
-            "library_ms": lib_ms, "library_device_ms": lib_dev})
-        del q, k, v, do, out, lse, delta, want, leaves, do_t
+    def plain(h0=0, h1=hs):
+        return fl.plain_attention_bwd(q[:, :, h0:h1], k[:, :, h0:h1], v[:, :, h0:h1],
+                                      out[:, :, h0:h1], lse[:, h0:h1], do[:, :, h0:h1])
+
+    want = plain()
+
+    def plain_all():
+        for h in range(0, heads, hs):
+            plain(h, h + hs)
+
+    plain_ms = median_ms(plain_all, reps=3 if hs == heads else 1,
+                         warmup=2 if hs == heads else 1)
+
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*leaves)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do_t)
+
+    lib_ms = median_ms(sdpa_fwd_bwd, reps=5) - median_ms(sdpa_fwd, reps=5)
+    # on the device: the backward alone, on a kept graph (a difference of
+    # two profiled calls read 0 at the cross shape on the H100)
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_dev = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                    retain_graph=True))["all"]
+    del lib_out
+    flops = 2.0 * heads * lq * lk * D  # one [Lq, Lk, D] product, all heads
+    stats = nbytes(lse, delta)
+    pair = {}
+    for kernel, ref, run, ops in (
+            ("flash_attention_bwd_dq", want[:1],
+             lambda: (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),), 3 * flops),
+            ("flash_attention_bwd_dkv", want[1:],
+             lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta), 4 * flops)):
+        got = run()
+        same = all(torch.equal(a, b) for _ in range(2) for a, b in zip(got, run()))
+        require(same, f"{kernel} {case}: a repeat run gave other bits")
+        err = max(max_err(g[:, :, :hs], w) for g, w in zip(got, ref))
+        tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in ref)
+        ms = median_ms(run, reps=10)
+        dev = device_ms(run)["all"]
+        bound = bound_ms(nbytes(q, k, v, do, *got) + stats, ops, "bf16")
+        pair[kernel] = (ms, dev)
+        extra = {} if hs == heads else {"held_on_heads": hs}
+        _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms,
+                device_ms=round(dev, 4), library_device_ms=round(lib_dev, 4),
+                tflops=round(ops / ms / 1e9, 1),
+                device_tflops=round(ops / dev / 1e9, 1),
+                bound_share=round(bound[0] / ms, 4),
+                device_bound_share=round(bound[0] / dev, 4), three_runs_identical=same,
+                **extra)
+        del got
+    # a fused backward (FA2/FA3) computes dQ, dK and dV in 5 products
+    fused = bound_ms(nbytes(q, k, v, do) + nbytes(q, k, v) + stats, 5 * flops, "bf16")
+    ms = sum(t[0] for t in pair.values())
+    dev = sum(t[1] for t in pair.values())
+    log(f"  K8 + K9 pair              {case:<26} {ms:.3f} ms by events, {dev:.3f} ms on "
+        f"the device; 5-product bound {fused[0]:.4f} ms ({fused[1]}), "
+        f"{fused[0] / dev:.1%} of it on the device; SDPA backward {lib_ms:.3f} ms, "
+        f"{lib_dev:.3f} ms on the device")
+    results["flash_attention_bwd_dq"].setdefault("pair", []).append({
+        "case": case, "ms": ms, "device_ms": dev, "fused_bound_ms": fused[0],
+        "library_ms": lib_ms, "library_device_ms": lib_dev})
+
+
+# phase 7e: the i2v-14B trainer at the trainer's defaults: 33 frames at
+# 352×640 are 9 history and 9 tail latent frames on a 44×80 grid, 12,060
+# packed tokens; --data_dir's i2v branch (the first frame 16 times before a
+# 33-frame tail) packs 4 + 9 frames (10,120), a v2v batch of a 37-frame read
+# 1 + 9 (9,900)
+I2V_TRAIN_F_HIST, I2V_TRAIN_H, I2V_TRAIN_W, I2V_TRAIN_L = 9, 44, 80, 12060
+I2V_DATA_L = {"i2v": 10120, "v2v": 9900}
+I2V_DATA_FRAMES = 37
+
+
+def train_14b_kernels(results, gen):
+    """K1–K5, K8 and K9 at the i2v-14B trainer's shapes (width 5,120, 40
+    heads, 12,060 packed tokens over 9 history and 9 tail frames at 44×80),
+    each against its plain version: K1 self (held on two heads) and cross
+    over the 512 text and the 257 CLIP keys (whose last 128-key tile holds
+    one live key) beside SDPA; K2–K5 as :func:`_packed_glue` (which of K2's
+    kernels ran is logged); K8 and K9 self (held on four heads), cross over
+    512 and over 257 keys, beside SDPA's backward."""
+    from yume_tpu_torch.ops.flash_attention import flash_attention, plain_attention
+
+    n, l, hs = I2V_HEADS, I2V_TRAIN_L, 2
+    q, k, v = (_randn(gen, 1, l, n, D) for _ in range(3))
+    case = f"14B train self [1,{l},{n},128]"
+    err, tol, lse_err = _k1_self_check(case, q, k, v, hs)
+    _k1_record(results, case, q, k, v, l, err, lambda: _k1_plain_by_heads(q, k, v, hs),
+               lambda: _sdpa(q, k, v), reps=5, plain_reps=1, tol=tol,
+               lse_max_abs_err=lse_err)
+    del k, v
+    for rows, what in ((TEXT_LEN, "text"), (CLIP_TOKENS, "CLIP")):
+        kc, vc = _randn(gen, 1, rows, n, D), _randn(gen, 1, rows, n, D)
+        err = max_err(flash_attention(q, kc, vc), plain_attention(q, kc, vc))
+        _k1_record(results, f"14B train cross Lk={rows} ({what})", q, kc, vc, rows, err,
+                   lambda: plain_attention(q, kc, vc), lambda: _sdpa(q, kc, vc),
+                   plain_reps=3)
+        del kc, vc
+    del q
+    _run_glue(results, _packed_glue(gen, I2V_TRAIN_F_HIST, 9, I2V_TRAIN_H, I2V_TRAIN_W, l,
+                                    "14B train", I2V_DIM, n))
+    for case, lk, hs_bwd in ((f"14B train self [1,{l},{n},128]", l, 4),
+                             ("14B train cross Lk=512", TEXT_LEN, n),
+                             ("14B train cross Lk=257 (CLIP)", CLIP_TOKENS, n)):
+        _flash_backward_case(results, gen, case, l, lk, n, hs_bwd)
+        torch.cuda.empty_cache()
 
 
 # ring shapes of the 5B segment: 12,095 tokens padded to 12,096, so the
@@ -2265,6 +2345,43 @@ OTHER_PATHS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "bias_act",
                "flash_attention_partial")
 
 
+def _zero_counts(counters):
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+
+def _read_counts(counters, out, path, needed=(), absent=(), exact=None):
+    """The launch counts of ``path`` into ``out["launches"]``; fails when a
+    kernel of ``needed`` did not launch, one of ``absent`` did, or one of
+    ``exact`` launched another number of times."""
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  kernel launches in the {path} run: {launches}")
+    missing = [k for k in needed if launches[k] == 0]
+    stray = [k for k in absent if launches[k]]
+    wrong = {k: (launches[k], v) for k, v in (exact or {}).items() if launches[k] != v}
+    require(not (missing or stray or wrong), f"{path}: kernels not launched {missing}, "
+            f"launched {stray}, counted/expected {wrong}")
+    out["launches"][path] = launches
+
+
+def _random_head_init(train):
+    """An ``init_params_`` for ``train.main`` that gives the DiT a random
+    head: ``main`` starts from a zero head, which gives LoRA adapters a zero
+    gradient; a random one (as phase 7's LoRA step) makes K8 and K9 run on a
+    real upstream gradient and each step's grad norm positive."""
+    real_init = train.init_params_
+
+    def init(model, generator):
+        real_init(model, generator)
+        with torch.no_grad():
+            head = model.head.head
+            head.weight.normal_(0.0, head.weight.shape[1] ** -0.5, generator=generator)
+
+    return init
+
+
 def _write_clip(path, n_frames, size, seed):
     """A seeded moving pattern, [n_frames, H, W, 3] uint8, through cv2's
     mp4v writer (the card's host has no imageio)."""
@@ -2336,20 +2453,10 @@ def video_phase(counters):
     out = {"launches": {}}
 
     def zero_counts():
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        _zero_counts(counters)
 
     def read_counts(path, needed=(), absent=OTHER_PATHS, exact=None):
-        torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
-        log(f"  kernel launches in the {path} run: {launches}")
-        missing = [k for k in needed if launches[k] == 0]
-        stray = [k for k in absent if launches[k]]
-        wrong = {k: (launches[k], v) for k, v in (exact or {}).items() if launches[k] != v}
-        require(not (missing or stray or wrong), f"{path}: kernels not launched {missing}, "
-                f"launched {stray}, counted/expected {wrong}")
-        out["launches"][path] = launches
+        _read_counts(counters, out, path, needed, absent, exact)
 
     # a. the tree and its reader
     t0 = time.perf_counter()
@@ -2481,17 +2588,7 @@ def video_phase(counters):
             "--num_frames", str(VIDEO_READ), "--height", str(th), "--width", str(tw),
             "--checkpointing_steps", "0", "--output_dir", os.path.join(root, "train")]
     log("video d: python -m yume_tpu_torch.train " + " ".join(argv[:-2]))
-    # train.main starts from a zero head, which gives the adapters a zero
-    # gradient; a random head (as phase 7's LoRA step) makes K8 and K9 run
-    # on a real upstream gradient and each step's grad norm positive
-    real_init = train.init_params_
-
-    def init_random_head(model, generator):
-        real_init(model, generator)
-        with torch.no_grad():
-            head = model.head.head
-            head.weight.normal_(0.0, head.weight.shape[1] ** -0.5, generator=generator)
-
+    real_init, init_random_head = train.init_params_, _random_head_init(train)
     real_encode, batches = WanVAE.encode, []
 
     def encode(self, video):
@@ -3477,6 +3574,339 @@ def distill_path(model, tc, state, run, batch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7e: the i2v-14B trainer, checkpoint I/O, the training modules
+# ---------------------------------------------------------------------------
+
+# kernel launches of one 14B LoRA step under remat (40 blocks): the forward
+# (K1 self + text + CLIP cross, K2 3 a block and the Head's, K3 2, K4 and K5
+# 1 a block), remat's recompute of every block, and the backward of each
+# attention (K8, K9); the glue kernels' gradients are plain PyTorch
+I2V_TRAIN_PER_STEP = {"flash_attention": 240, "adaln_norm": 241, "adaln_residual": 160,
+                      "qk_norm_rope": 80, "rms_norm": 80, "flash_attention_bwd_dq": 120,
+                      "flash_attention_bwd_dkv": 120}
+# the 14B LoRA rank-16 trainable count: 10 projections (q, k, v, o of both
+# attentions, k_img, v_img) x 40 blocks x 16 x (5,120 + 5,120)
+I2V_LORA_TRAINABLE = 10 * 40 * 16 * (5120 + 5120)
+
+
+def train_14b_phase(counters) -> dict:
+    """Phase 7e, after phase 7's trainer is freed; each path with the launch
+    counts set to 0 just before it and read just after:
+    a. ``train.main --config i2v-14B --lora_rank 16 --remat
+       --max_train_steps 3 --checkpointing_steps 1`` on synthetic batches at
+       12,060 packed tokens (a bf16 base, fp32 adapters, a random head so
+       that the adapters get a gradient): step times, peak memory, the
+       trainable count, finite losses, gradient norms above 0, exactly
+       ``I2V_TRAIN_PER_STEP`` launches a step (K6, K7, K10 none), how long
+       each async save held the loop, the three checkpoints left; then one
+       more step of main's under the profiler (device time by kernel
+       family and range, the unprofiled idle share);
+    b. the same with ``--data_dir`` over a seeded 37-frame clip (phase 6f's,
+       read as 37 frames of 352×640) and random encoders (umT5-XXL, CLIP
+       ViT-H, the Wan2.1 VAE), 2 steps: each step's branch (i2v, then v2v
+       at seed 42), packed tokens (10,120, 9,900) and host wait / encode /
+       train step split;
+    c. checkpoint I/O: an async ``Checkpointer`` against the blocking save on
+       the 14B's rank-16 LoRA train state (parameters, EMA, two moments;
+       four saves a simulated 2 s step apart; the newest three kept); a
+       full-width 14B DiT cut to 2 blocks through ``export_dit_state_dict``,
+       ``save_sharded_safetensors`` (its GB/s) and the strict ``--ckpt_dir``
+       loader, bit for bit; ``train.main --smoke --config i2v-14B
+       --export_torch_dir``, then ``--ckpt_dir`` from that export;
+    d. ``train.main --smoke --config i2v-14B --MVDT --Distil`` (K10
+       launches), ``teacher_rollout`` and ``ode_sample`` over the trainer's
+       smoke 5B DiT, ``diff_augment`` on CUDA tensors (equal to the CPU's on the
+       same draws)."""
+    import shutil
+
+    import numpy as np
+
+    from yume_tpu_torch import train
+    from yume_tpu_torch.configs import i2v_14b
+    from yume_tpu_torch.data import diffaugment
+    from yume_tpu_torch.diffusion.integrators import ode_sample
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
+    from yume_tpu_torch.training import lora as lora_mod
+    from yume_tpu_torch.training.distill import teacher_rollout
+    from yume_tpu_torch.training.train_step import TrainConfig, init_train_state
+    from yume_tpu_torch.utils.checkpoint import (Checkpointer, checkpoints,
+                                                 export_dit_state_dict,
+                                                 load_safetensors_state_dict, save_checkpoint,
+                                                 save_sharded_safetensors)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"train 14B: {left:.2f} GiB left allocated after the 5B train phase")
+    require(left < 1.0, "the train phase left memory allocated")
+    root = os.path.join(REPO, "build", "train_14b")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": {}}
+
+    def zero_counts():
+        _zero_counts(counters)
+
+    def read_counts(path, needed=(), absent=(), exact=None):
+        _read_counts(counters, out, path, needed, absent, exact)
+
+    def check_run(path, run, n_steps):
+        require(len(run["losses"]) == n_steps
+                and all(map(math.isfinite, run["losses"]))
+                and all(math.isfinite(g) and g > 0 for g in run["grad_norms"]),
+                f"{path}: losses {run['losses']}, grad norms {run['grad_norms']}")
+
+    others = ("q8_dot", "flash_attention_partial", "bias_act")
+    real_init = train.init_params_
+    train.init_params_ = _random_head_init(train)
+    try:
+        # a. synthetic batches at 12,060 tokens
+        a_dir = os.path.join(root, "a")
+        argv = ["--config", "i2v-14B", "--lora_rank", "16", "--remat", "--max_train_steps",
+                "3", "--checkpointing_steps", "1", "--output_dir", a_dir]
+        log("train 14B a: python -m yume_tpu_torch.train " + " ".join(argv[:-2]))
+        # keep main's step and its last arguments, for one profiled step after
+        captured = {}
+
+        def make_lora_step(lora_model, tc, **kw):
+            step = real_make_lora_step(lora_model, tc, **kw)
+
+            def recorded(*args):
+                captured["args"] = args
+                return step(*args)
+
+            captured["step"] = recorded
+            return recorded
+
+        real_make_lora_step = lora_mod.make_lora_train_step
+        lora_mod.make_lora_train_step = make_lora_step
+        try:
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            lora_mod.make_lora_train_step = real_make_lora_step
+        read_counts("train 14B lora", exact={k: 3 * v for k, v in I2V_TRAIN_PER_STEP.items()},
+                    absent=others)
+        run = train.main.last_run
+        check_run("train 14B a", run, 3)
+        require(run["trainable"] == I2V_LORA_TRAINABLE,
+                f"train 14B a: {run['trainable']} trainable, not {I2V_LORA_TRAINABLE}")
+        kept = [os.path.basename(f) for f in checkpoints(a_dir)]
+        require(kept == [f"checkpoint-{i}.pt" for i in (1, 2, 3)], f"train 14B a: kept {kept}")
+        out["lora"] = {k: run[k] for k in ("losses", "grad_norms", "step_times", "trainable",
+                                           "save_hold_s")}
+        out["lora"].update(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           median_step_s=statistics.median(run["step_times"][1:]),
+                           checkpoint_bytes=os.path.getsize(checkpoints(a_dir)[-1]))
+        log(f"  train 14B a (LoRA rank 16, bf16 base, remat, {I2V_TRAIN_L} tokens): "
+            f"{run['trainable']:,} trainable params; step times "
+            f"{[round(t, 4) for t in run['step_times']]} s (median of steps 2-3 "
+            f"{out['lora']['median_step_s']:.4f} s); losses "
+            f"{[round(x, 5) for x in run['losses']]}; grad norms {run['grad_norms']}; async "
+            f"saves held the loop {[round(t, 4) for t in run['save_hold_s']]} s "
+            f"({out['lora']['checkpoint_bytes'] / 1e9:.3f} GB a checkpoint; kept {kept}); "
+            f"peak {out['lora']['peak_gib']:.2f} GiB; wall {wall:.1f} s")
+        trace = device_breakdown(f"14B LoRA step (remat, {I2V_TRAIN_L} tokens)",
+                                 lambda: captured["step"](*captured["args"]))
+        # the kernels' time hardly changes under the profiler, the host's does
+        trace["idle_share_unprofiled"] = 1.0 - trace["busy_ms"] / (
+            out["lora"]["median_step_s"] * 1e3)
+        log(f"  unprofiled idle share {trace['idle_share_unprofiled']:.3f} (median step less "
+            f"{trace['busy_ms']:.1f} ms of kernels)")
+        out["lora"]["trace"] = trace
+        captured.clear()
+        shutil.rmtree(a_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # b. --data_dir over phase 6f's clip
+        clips = os.path.join(REPO, "build", "video", "clips")
+        base = os.path.join(clips, "Keys_W_Mouse_·", f"walk_frames_0-{VIDEO_FRAMES}")
+        if not os.path.exists(base + ".mp4"):
+            os.makedirs(os.path.dirname(base), exist_ok=True)
+            _write_clip(base + ".mp4", VIDEO_FRAMES, VIDEO_SIZE, seed=7)
+            with open(base + ".txt", "w", encoding="utf-8") as f:
+                f.write(f"Start Frame: 0\nEnd Frame: {VIDEO_FRAMES}\nKeys: W\nMouse: ·\n")
+        argv = ["--config", "i2v-14B", "--data_dir", clips, "--lora_rank", "16", "--remat",
+                "--max_train_steps", "2", "--num_frames", str(I2V_DATA_FRAMES), "--height",
+                "352", "--width", "640", "--checkpointing_steps", "0", "--output_dir",
+                os.path.join(root, "b")]
+        log("train 14B b: python -m yume_tpu_torch.train " + " ".join(argv[:-2]))
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train.main(argv)
+        wall = time.perf_counter() - t0
+        read_counts("train 14B data_dir", needed=tuple(I2V_TRAIN_PER_STEP), absent=others)
+        run = train.main.last_run
+        check_run("train 14B b", run, 2)
+        require(run["branch"] == ["i2v", "v2v"] and run["packed_tokens"] == [
+            I2V_DATA_L[b] for b in run["branch"]],
+            f"train 14B b: branches {run['branch']}, packed tokens {run['packed_tokens']}")
+        split = [round(s - a - b, 4) for s, a, b in zip(run["step_times"], run["batch_wait_s"],
+                                                         run["encode_s"])]
+        out["data_dir"] = {k: run[k] for k in ("losses", "grad_norms", "step_times",
+                                               "batch_wait_s", "encode_s", "branch",
+                                               "packed_tokens")}
+        out["data_dir"].update(train_step_s=split, wall_s=wall,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  train 14B b: branches {run['branch']} at {run['packed_tokens']} packed tokens; "
+            f"step times {[round(t, 4) for t in run['step_times']]} s = host wait "
+            f"{[round(t, 4) for t in run['batch_wait_s']]} + device encode "
+            f"{[round(t, 4) for t in run['encode_s']]} + train step {split}; losses "
+            f"{[round(x, 5) for x in run['losses']]}; grad norms {run['grad_norms']}; peak "
+            f"{out['data_dir']['peak_gib']:.2f} GiB; wall {wall:.1f} s")
+    finally:
+        train.init_params_ = real_init
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(torch.cuda.memory_allocated() < 2**30, "train 14B: the trainer left memory allocated")
+
+    # c. checkpoint I/O: the save's hold, the export round trip
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    adapters = {}
+    for i in range(40):
+        for name in ("self_attn.q", "self_attn.k", "self_attn.v", "self_attn.o",
+                     "cross_attn.q", "cross_attn.k", "cross_attn.v", "cross_attn.o",
+                     "cross_attn.k_img", "cross_attn.v_img"):
+            adapters[f"blocks.{i}.{name}.lora_a"] = _randn(gen, 16, I2V_DIM, dtype=torch.float32)
+            adapters[f"blocks.{i}.{name}.lora_b"] = _randn(gen, I2V_DIM, 16, dtype=torch.float32)
+    state = init_train_state(adapters, TrainConfig())
+    state_bytes = 4 * nbytes(*adapters.values())
+    ck, block = Checkpointer(os.path.join(root, "async")), []
+    for step in range(1, 5):
+        state.step = step
+        torch.cuda.synchronize()
+        ck.save(state)
+        time.sleep(2.0)  # a 14B LoRA step, while the write runs
+    t0 = time.perf_counter()
+    ck.close()
+    drain_s = time.perf_counter() - t0
+    hold = ck.hold_s
+    kept = [os.path.basename(f) for f in checkpoints(os.path.join(root, "async"))]
+    require(kept == [f"checkpoint-{i}.pt" for i in (2, 3, 4)], f"train 14B c: kept {kept}")
+    saved = torch.load(os.path.join(root, "async", "checkpoint-4.pt"), weights_only=True)
+    require(all(torch.equal(saved["params"][k], t.cpu()) for k, t in adapters.items()),
+            "train 14B c: the async checkpoint differs from the state")
+    del saved
+    for step in range(5, 7):
+        state.step = step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(root, "blocking"), state)
+        block.append(time.perf_counter() - t0)
+    out["save"] = {"state_gb": state_bytes / 1e9, "async_hold_s": hold, "drain_s": drain_s,
+                   "blocking_s": block, "kept": kept}
+    log(f"train 14B c: the 14B LoRA rank-16 train state ({state_bytes / 1e9:.3f} GB on the "
+        f"card): async saves held the caller {[round(t, 4) for t in hold]} s (a simulated "
+        f"2 s step between them; the last write drained in {drain_s:.3f} s), blocking saves "
+        f"{[round(t, 4) for t in block]} s; kept {kept}")
+    del state, adapters, ck
+    shutil.rmtree(os.path.join(root, "async"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "blocking"), ignore_errors=True)
+
+    cfg2 = dataclasses.replace(i2v_14b().dit, num_layers=2)
+    model = WanDiT(cfg2, torch.bfloat16, device="meta",
+                   param_dtype=torch.float32).to_empty(device="cuda")
+    train.init_params_(model, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = export_dit_state_dict(model.state_dict())
+    export_s = time.perf_counter() - t0
+    del model
+    exp = os.path.join(root, "export2")
+    t0 = time.perf_counter()
+    n_bytes = save_sharded_safetensors(sd, exp)
+    write_s = time.perf_counter() - t0
+    fresh = WanDiT(cfg2, torch.bfloat16, device="meta",
+                   param_dtype=torch.float32).to_empty(device="cuda")
+    t0 = time.perf_counter()
+    train.load_dit_checkpoint(fresh, exp)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    back = fresh.state_dict()
+    same = set(back) == set(sd) and all(torch.equal(back[k].cpu(), v) for k, v in sd.items())
+    require(same, "train 14B c: the 2-block export did not come back bit for bit")
+    out["export"] = {"tensors": len(sd), "bytes": n_bytes, "export_s": export_s,
+                     "write_s": write_s, "write_gb_s": n_bytes / write_s / 1e9,
+                     "load_s": load_s, "bit_equal": same}
+    log(f"  2-block full-width 14B DiT: {len(sd)} tensors, {n_bytes / 1e9:.3f} GB of fp32; "
+        f"export to the host {export_s:.3f} s, the writer {write_s:.3f} s "
+        f"({out['export']['write_gb_s']:.3f} GB/s), the strict --ckpt_dir load "
+        f"{load_s:.3f} s; every tensor back bit for bit")
+    del fresh, back, sd
+    shutil.rmtree(exp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smoke = ["--smoke", "--config", "i2v-14B", "--max_train_steps", "2",
+             "--checkpointing_steps", "0"]
+    first, second = os.path.join(root, "smoke_export"), os.path.join(root, "smoke_export2")
+    train.main(smoke + ["--output_dir", os.path.join(root, "s1"), "--export_torch_dir", first])
+    train.main(smoke + ["--output_dir", os.path.join(root, "s2"), "--ckpt_dir", first,
+                        "--export_torch_dir", second])
+    run = train.main.last_run
+    names = [set(load_safetensors_state_dict(d)) for d in (first, second)]
+    require(all(map(math.isfinite, run["losses"])) and names[0] == names[1]
+            and run["export"]["tensors"] == len(names[0]),
+            "train 14B c: --smoke --ckpt_dir --export_torch_dir")
+    log(f"  train.main --smoke --config i2v-14B --export_torch_dir, then --ckpt_dir from it "
+        f"and --export_torch_dir again on the card: losses {run['losses']}, "
+        f"{run['export']['tensors']} tensors exported")
+
+    # d. the other training modules at smoke size on the card
+    zero_counts()
+    train.main(smoke + ["--MVDT", "--Distil", "--output_dir", os.path.join(root, "s3")])
+    read_counts("train 14B smoke distil", needed=("bias_act", "flash_attention_bwd_dq"))
+    run = train.main.last_run
+    require(all(map(math.isfinite, run["losses"] + run["gan_losses"] + run["d_losses"])),
+            "train 14B d: --MVDT --Distil")
+    # the trainer's smoke 5B (head dim 16; the sampler's smoke config has 32,
+    # which K1 does not take)
+    cfg = train.smoke_config(False)
+    pipe = TI2VPipeline.from_config(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
+    ctx = _randn(gen, 1, cfg.dit.text_len, cfg.dit.text_dim, dtype=torch.float32)
+    zero_counts()
+    lat = teacher_rollout(pipe, ctx, pipe.dit, size=(64, 64), frame_num=5, steps=3)
+    read_counts("teacher rollout", needed=("flash_attention",))
+    f_lat = lat.shape[1]
+
+    def velocity(x, sigma):
+        t = (sigma[:, None] * 1000.0).expand(-1, f_lat)
+        with torch.no_grad():
+            return pipe.dit(x.to(torch.bfloat16), t, ctx, packed=False).float()
+
+    noise = _randn(gen, *lat.shape, dtype=torch.float32)
+    zero_counts()
+    ode = ode_sample(velocity, noise, method="euler", steps=4)
+    read_counts("ode_sample", needed=("flash_attention",))
+    ode5 = ode_sample(lambda x, s: -x * s.reshape(-1, 1, 1, 1, 1), noise, method="dopri5")
+    x = torch.rand((4, 64, 64, 3), generator=gen, device="cuda")
+    draws = diffaugment.draw_augment(gen, tuple(x.shape))
+    aug = diffaugment.diff_augment(x, draws)
+    aug_cpu = diffaugment.diff_augment(x.cpu(), [{k: v.cpu() for k, v in d.items()}
+                                                 for d in draws])
+    aug_err = max_err(aug.cpu(), aug_cpu)
+    finite = all(torch.isfinite(t).all().item() for t in (lat, ode, ode5, aug))
+    require(finite and lat.shape == (1, 3, 8, 8, cfg.vae.z_dim) and aug_err <= 1e-6,
+            f"train 14B d: rollout {tuple(lat.shape)}, finite {finite}, "
+            f"diff_augment card vs CPU {aug_err}")
+    out["modules"] = {"teacher_rollout": list(lat.shape), "ode_sample": list(ode.shape),
+                      "diff_augment_max_abs_err_vs_cpu": aug_err}
+    log(f"  train 14B d: --smoke --MVDT --Distil losses {run['losses']}; teacher_rollout "
+        f"{list(lat.shape)}, ode_sample (Euler over the smoke DiT, dopri5 on a toy field) "
+        f"finite; diff_augment on the card within {aug_err:.1e} of the CPU on the same draws")
+    del pipe, lat, ode, ode5, x, aug
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # sequence-parallel serving: four ranks on the one card
 # ---------------------------------------------------------------------------
 
@@ -3767,6 +4197,7 @@ def main() -> int:
     i2v_kernels(results, gen)
     batch2_kernels(results, gen)
     video_kernels(results, gen)
+    train_14b_kernels(results, gen)
     quant_matmul_kernel(results, gen)
     storage = {"block": block_quantization_check(gen),
                "relay": quantized_storage_kernels(results, gen)}
@@ -3791,6 +4222,7 @@ def main() -> int:
     quantized = quantized_phase(counters, i2v.pop("_bf16_forward"))
     train_runs = train_phase(counters)
     train_launches = train_runs["full"]["launches"]
+    train_14b = train_14b_phase(counters)
     sp = sp_phase()
     sp_launches = sp["ranks"][0]["launches"]
     counter_name = {"quant_matmul": "q8_dot"}
@@ -3828,7 +4260,11 @@ def main() -> int:
                     for p, n in video["launches"].items()},
                  # phase 6g: the quantized trunk's CLI runs and webapp request
                  **{f"launches_{p.replace(' ', '_')}": n[key]
-                    for p, n in quantized["launches"].items()}}
+                    for p, n in quantized["launches"].items()},
+                 # phase 7e: the 14B trainer (3 LoRA steps; 2 on the data
+                 # path), the smoke distillation and the training modules
+                 **{f"launches_{p.replace(' ', '_')}": n[key]
+                    for p, n in train_14b["launches"].items()}}
         if name == "flash_attention_partial":
             # K7's main path is the SP phase's ring forward (rank 0)
             entry.update(launches=sp_launches["ring forward"][key],
@@ -3885,6 +4321,7 @@ def main() -> int:
     log("quantized storage (phase 3): " + json.dumps(storage))
     log("quantized: " + json.dumps({k: v for k, v in quantized.items() if k != "launches"}))
     log("train: " + json.dumps(train))
+    log("train 14B: " + json.dumps({k: v for k, v in train_14b.items() if k != "launches"}))
     log("sp: " + json.dumps(sp))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -280,7 +280,11 @@ def test_port_imports_no_jax():
               "yume_tpu_torch.data.camera", "yume_tpu_torch.data.native",
               "yume_tpu_torch.data.dataset", "yume_tpu_torch.data.transforms",
               "yume_tpu_torch.data.loader", "yume_tpu_torch.data.latent_dataset",
-              "yume_tpu_torch.data.preprocess", "yume_tpu_torch.models.quantized"):
+              "yume_tpu_torch.data.preprocess", "yume_tpu_torch.models.quantized",
+              "yume_tpu_torch.training.i2v_batch", "yume_tpu_torch.training.distill",
+              "yume_tpu_torch.diffusion.integrators",
+              "yume_tpu_torch.diffusion.distill_schedule", "yume_tpu_torch.utils.stats",
+              "yume_tpu_torch.data.diffaugment"):
         assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke

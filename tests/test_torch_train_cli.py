@@ -1,10 +1,12 @@
 """The port's training entry point, ``python -m yume_tpu_torch.train``, on the CPU
 at its ``--smoke`` size: the plain flow-matching run, ``--MVDT``, ADD
 distillation (``--Distil``, with ``--MVDT``), LoRA with
-the in-training validation rollout, the refusals of what is not ported,
-and a ``--checkpointing_steps``/``--resume`` round trip that must give the
-same losses and parameters as the run it interrupted (the CPU is
-deterministic, so bit for bit).
+the in-training validation rollout, the same for ``--config i2v-14B`` (and
+its ``--data_dir`` branch), the refusals of what is not ported (``--sp``,
+a full 14B fine-tune on a CUDA device), and a
+``--checkpointing_steps``/``--resume`` round trip through the async
+checkpointer that must give the same losses and parameters as the run it
+interrupted (the CPU is deterministic, so bit for bit).
 """
 
 import os
@@ -52,13 +54,54 @@ def test_smoke_runs(tmp_path, extra, capsys):
         assert os.path.exists(tmp_path / "generated_test_video" / "val_latents_step2.npy")
 
 
-@pytest.mark.parametrize("flag", [["--ckpt_dir", "x"],
-                                  ["--sp", "2", "--sp_kind", "ring", "--Distil"],
-                                  ["--sp", "2"], ["--config", "i2v-14B"],
-                                  ["--export_torch_dir", "x"]])
+@pytest.mark.parametrize("extra", [[], ["--MVDT", "--Distil"],
+                                   ["--lora_rank", "4", "--validation_steps", "2"],
+                                   ["--data_dir"]],
+                         ids=["plain", "mvdt-distil", "lora-validation", "data-dir"])
+def test_i2v_smoke_runs(tmp_path, extra):
+    if extra == ["--data_dir"]:
+        from test_torch_data import write_clip
+
+        base = str(tmp_path / "clips" / "Keys_W_Mouse_·" / "walk_frames_0-9")
+        write_clip(base + ".mp4", 9, seed=42)
+        with open(base + ".txt", "w", encoding="utf-8") as f:
+            f.write("Start Frame: 0\nEnd Frame: 9\nKeys: W\nMouse: ·\n")
+        extra = ["--data_dir", str(tmp_path / "clips"), "--max_train_steps", "3"]
+    assert train.main(BASE + ["--config", "i2v-14B", "--output_dir", str(tmp_path / "o")]
+                      + extra) == 0
+    run = train.main.last_run
+    assert np.isfinite(run["losses"]).all() and np.isfinite(run["grad_norms"]).all()
+    if "--lora_rank" in extra:
+        # rank-4 adapters of the 10 projections (k_img and v_img too) of 2 blocks
+        assert run["trainable"] == 2 * 10 * 4 * (64 + 64)
+        assert os.path.exists(tmp_path / "o" / "generated_test_video" /
+                              "val_latents_step2.npy")
+    else:
+        assert all(g > 0 for g in run["grad_norms"])
+    if "--Distil" in extra:
+        assert np.isfinite(run["gan_losses"]).all() and np.isfinite(run["d_losses"]).all()
+    if "--data_dir" in extra:
+        # 9 frames of 64×64: the i2v branch packs 4 history + 2 tail latent
+        # frames of 16×16, the v2v branch 3 + 2 (seed 42 + 31 draws i2v first)
+        assert run["branch"][0] == "i2v"
+        assert {(b, n) for b, n in zip(run["branch"], run["packed_tokens"])} <= {
+            ("i2v", 288), ("v2v", 272)}
+        assert len(run["encode_s"]) == 3
+
+
+@pytest.mark.parametrize("flag", [["--sp", "2", "--sp_kind", "ring", "--Distil"],
+                                  ["--sp", "2"]])
 def test_unported_flags_refuse(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(BASE + ["--output_dir", str(tmp_path)] + flag)
+
+
+def test_full_14b_fine_tune_on_cuda_refuses_before_allocating(tmp_path):
+    """Refused before any CUDA call (this sandbox has no card), naming FSDP's
+    item; LoRA and --smoke go on."""
+    with pytest.raises(NotImplementedError, match="FSDP.*item 8"):
+        train.main(["--config", "i2v-14B", "--device", "cuda", "--output_dir",
+                    str(tmp_path)])
 
 
 def test_lora_refuses_distil(tmp_path):

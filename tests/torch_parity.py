@@ -89,11 +89,12 @@ def port_config(cfg):
     return cls(**kw)
 
 
-def jax_draws(rng, x_shape, n_tok):
+def jax_draws(rng, x_shape, n_tok, i2v=False):
     """The draws of the JAX ``make_loss_fn`` for PRNG key ``rng`` (its
     splits), in the port's explicit form (``training.train_step.draw_step``):
     latents of ``x_shape`` [B, F, H, W, C], ``n_tok`` packed tokens for the
-    MVDT noise."""
+    MVDT noise. ``i2v``: the 14B pass (``flow_pass_i2v``), which splits its
+    key three ways (t, x0, the MVDT noise) and draws no history mask."""
     import jax
     import jax.numpy as jnp
 
@@ -103,12 +104,17 @@ def jax_draws(rng, x_shape, n_tok):
     flow_rng, mask_rng = jax.random.split(rng)
     out = {}
     for name, key in (("flow", flow_rng), ("masked", mask_rng)):
-        t_rng, n_rng, m_rng, mv_rng = jax.random.split(key, 4)
-        r_rng, nn_rng = jax.random.split(m_rng)
+        if i2v:
+            t_rng, n_rng, mv_rng = jax.random.split(key, 3)
+        else:
+            t_rng, n_rng, m_rng, mv_rng = jax.random.split(key, 4)
         out[name] = {"t": t(jax.random.normal(t_rng, (x_shape[0],), dtype=jnp.float32)),
                      "x0": t(jax.random.normal(n_rng, x_shape)),
-                     "hist": (t(jax.random.uniform(r_rng, ())), t(jax.random.normal(nn_rng, ()))),
                      "mvdt": t(jax.random.uniform(mv_rng, (x_shape[0], n_tok)))}
+        if not i2v:
+            r_rng, nn_rng = jax.random.split(m_rng)
+            out[name]["hist"] = (t(jax.random.uniform(r_rng, ())),
+                                 t(jax.random.normal(nn_rng, ())))
     return out
 
 

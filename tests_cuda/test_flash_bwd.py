@@ -7,8 +7,9 @@ tiles of the Hopper kernels (K8: 128 q rows a CTA, 64-key K/V tiles; K9: 128
 kv rows a CTA, 64-row q tiles): lengths either side of 64,
 128 and 192 at every head dim, kv_len inside the last kv tile, at 0 and at
 Lk, Lq = 2,805 (an lse/delta row that is no multiple of 16 bytes), the 5B
-trainer's grid (24 heads, more CTAs than SMs), strided q/k/v views and the
-cross-attention shape; each case runs three times and must be bit-identical.
+trainer's grid (24 heads, more CTAs than SMs), strided q/k/v views, the
+cross-attention shape, and the 14B trainer's 40 heads, self and over the
+257 CLIP keys; each case runs three times and must be bit-identical.
 
 Tolerance: the kernels round P and dS to bf16 before their tensor-core
 products and write bf16; the plain version computes in fp32 from the same
@@ -201,6 +202,10 @@ def test_flash_bwd_kv_len_edges(gen, lq, lk, d, kv_len):
     ("5B trainer grid", 1, 2805, 2805, 24, None, False),
     ("cross Lk=512", 1, 2805, 512, 24, None, False),
     ("strided q, k, v", 2, 300, 257, 4, (257, 100), True),
+    # the 14B trainer: 40 heads at its width, and the 257 CLIP keys, whose
+    # last 128-key tile holds one live key
+    ("14B width, 40 heads", 1, 2805, 2805, 40, None, False),
+    ("CLIP keys Lk=257, 40 heads", 1, 2805, 257, 40, None, False),
 ])
 def test_flash_bwd_trainer_shapes(gen, case, b, lq, lk, n, kv_len, strided):
     q, k, v, dout, kl, out, lse = _inputs(gen, b, lq, lk, n, 128, kv_len, strided)

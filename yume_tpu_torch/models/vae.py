@@ -334,6 +334,10 @@ class Downsample(nn.Module):
             self.time_conv = nn.Conv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1), **kw)
 
     def _time_conv(self, y):
+        if y.shape[2] < 3:
+            # no whole window: no output frame, as the reference's VALID conv
+            # (a one-frame clip's full encode)
+            return y[:, :, :0]
         conv = self.time_conv
         return F.conv3d(y, conv.weight.to(y.dtype), conv.bias.to(y.dtype), stride=(2, 1, 1))
 

@@ -1,29 +1,51 @@
 """Training entry point: flow-matching (+ MVDT, + ADD distillation, + LoRA)
-fine-tuning of the 5B DiT on one GPU (counterpart of yume_tpu/train.py).
+fine-tuning of the 5B DiT or the Yume-1.0 i2v-14B DiT on one GPU
+(counterpart of yume_tpu/train.py).
 
     python -m yume_tpu_torch.train --smoke --device cpu            # tiny synthetic run
     python -m yume_tpu_torch.train --smoke --Distil --device cpu   # with the ADD discriminator
+    python -m yume_tpu_torch.train --smoke --config i2v-14B --device cpu
     python -m yume_tpu_torch.train --lora_rank 16 --remat          # 5B LoRA on the card
+    python -m yume_tpu_torch.train --config i2v-14B --lora_rank 16 --remat   # 14B LoRA
     python -m yume_tpu_torch.train --smoke --device cpu --data_dir ./mp4_frame
-    python -m yume_tpu_torch.train --data_dir ./mp4_frame --encoders_dir ./Yume-5B-720P \
-        --lora_rank 16 --remat
+    python -m yume_tpu_torch.train --data_dir ./mp4_frame --ckpt_dir ./Yume-5B-720P \
+        --lora_rank 16 --remat --export_torch_dir ./exported
 
 Same flags and smoke configs as the reference's train.py, plus ``--device``
 (default ``cuda``). Without ``--data_dir`` the batches are synthetic latents
-made from a seed per step. With it, a :class:`ControlVideoDataset` over the
-directory feeds a two-thread :class:`PrefetchLoader`, and each batch's
-clips and captions are encoded on the device: umT5 gives the context and a
-full-clip VAE encode the latents (``(num_frames - 1) / 4 + 1`` latent
-frames, the last ``latent_frame_zero`` of them the target). The VAE and
-umT5 load strictly from ``--encoders_dir`` (``Wan2.2_VAE.pth`` and
-``models_t5_umt5-xxl-enc-bf16.pth``; the tokenizer from
-``--tokenizer_path`` or found there); without it they are random and a
-warning says so. ``--smoke --data_dir`` reads 9 frames of 64×64 through
-the reference's smoke VAE and umT5. The MVDT keep counts are shares of each
-batch's own packed token count. The DiT's parameters are random (the
-trainer loads no checkpoint yet). On the card the DiT computes in bf16 (the
-attention kernels take bf16), on the CPU the smoke run computes in fp32 as
-the reference's does. Parameters are stored in fp32, as flax creates them.
+made from a seed per step (the 14B's with the i2v ``y`` and CLIP features).
+With it, a :class:`ControlVideoDataset` over the directory feeds a
+two-thread :class:`PrefetchLoader`, and each batch's clips and captions are
+encoded on the device: umT5 gives the context; for the 5B a full-clip VAE
+encode gives the latents (``(num_frames - 1) / 4 + 1`` latent frames, the
+last ``latent_frame_zero`` of them the target); for the 14B
+:func:`.training.i2v_batch.build_i2v_train_batch` gives the latents, ``y``
+and the CLIP features, its i2v or v2v branch drawn on the host from
+``random.Random(seed + 31)``. The encoders load strictly from
+``--encoders_dir``, else ``--ckpt_dir`` (the VAE's and umT5's ``.pth``, the
+14B's CLIP ``.pth``; the tokenizer from ``--tokenizer_path`` or found
+there); without either they are random and a warning says so. ``--smoke
+--data_dir`` reads 9 frames of 64×64 through the reference's smoke
+encoders. The MVDT keep counts are shares of each batch's own packed token
+count. On the card the DiT computes in bf16 (the attention kernels take
+bf16), on the CPU the smoke run computes in fp32 as the reference's does.
+
+The DiT is random (flax's initialisers), or with ``--ckpt_dir`` loaded
+strictly from the released sharded safetensors (a missing or unknown tensor
+raises). Its parameters are stored in fp32, as flax creates them, except
+under ``--lora_rank`` on the card, where the frozen blocks' Linear weights
+are stored in bf16 (:func:`.training.lora.bf16_base_`: the forward casts
+them to bf16 anyway) and the adapters stay fp32; that is how the 14B's
+16.6B parameters fit one 80 GB card. A full 14B fine-tune on a CUDA device
+is refused: its fp32 state needs FSDP (ROADMAP queue 1, item 8); it runs at
+``--smoke`` and on the CPU.
+
+``--checkpointing_steps N`` saves the train state every N steps through an
+async :class:`.utils.checkpoint.Checkpointer` (the newest three
+``checkpoint-<step>.pt`` are kept; ``--resume`` restores the newest).
+``--export_torch_dir`` writes the EMA DiT after the last step, LoRA merged
+in, as the released layout's sharded safetensors, which ``python -m
+yume_tpu_torch.sample --ckpt_dir`` loads beside the VAE and umT5 files.
 
 ``--Distil`` adds the ADD discriminator (fp32, random weights, DINO frozen;
 ``--dino_path`` loads DINO ViT-S/16 weights in timm's layout) and runs
@@ -31,11 +53,8 @@ the reference's does. Parameters are stored in fp32, as flax creates them.
 reference, ``--resume`` restores the generator and starts a fresh
 discriminator.
 
-Not ported, and refused with the ROADMAP item that brings them:
-``--ckpt_dir`` and ``--export_torch_dir`` (the trainer's
-checkpoint load and resume, and a safetensors writer, queue 1 item 7),
-``--sp > 1`` (sequence-parallel training, queue 1 item 8; SP serving is
-ported) and ``--config i2v-14B`` (queue 1 item 6).
+Not ported, and refused with the ROADMAP item that brings it: ``--sp > 1``
+(sequence-parallel training, queue 1 item 8; SP serving is ported).
 """
 
 from __future__ import annotations
@@ -57,10 +76,13 @@ def build_argparser():
     p.add_argument("--config", default="ti2v-5B", choices=["ti2v-5B", "i2v-14B"])
     p.add_argument("--data_dir", default=None)
     p.add_argument("--full_mp4_dir", default=None)
-    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="released checkpoint dir: the DiT's sharded safetensors (loaded "
+                        "strictly) and, for --data_dir without --encoders_dir, the "
+                        "encoders' .pth files")
     p.add_argument("--encoders_dir", default=None,
-                   help="dir with Wan2.2_VAE.pth and models_t5_umt5-xxl-enc-bf16.pth for "
-                        "the --data_dir encode path")
+                   help="dir with the VAE's and umT5's .pth (and the 14B's CLIP .pth) for "
+                        "the --data_dir encode path (defaults to --ckpt_dir)")
     p.add_argument("--tokenizer_path", default=None,
                    help="local umt5-xxl tokenizer dir (found inside --encoders_dir)")
     p.add_argument("--output_dir", default="./checkpoints")
@@ -86,10 +108,12 @@ def build_argparser():
                    help="activation checkpointing per DiT block")
     p.add_argument("--lora_rank", type=int, default=0,
                    help="train LoRA adapters of this rank instead of full "
-                        "params (base frozen; single-GPU 5B finetune)")
+                        "params (base frozen, bf16 on the card; single-GPU 5B and 14B)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--export_torch_dir", default=None)
+    p.add_argument("--export_torch_dir", default=None,
+                   help="after training, write the EMA DiT (LoRA merged) to this dir as the "
+                        "released layout's sharded safetensors")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler chrome trace of the steps in "
                         "--profile_steps to this directory")
@@ -99,30 +123,45 @@ def build_argparser():
     return p
 
 
-def _refuse_unported(args):
-    unported = [
-        (args.ckpt_dir, "--ckpt_dir needs the trainer's checkpoint load and resume "
-                        "(ROADMAP queue 1, item 7)"),
-        (args.export_torch_dir, "--export_torch_dir needs a safetensors writer "
-                                "(ROADMAP queue 1, item 7)"),
-        (args.sp > 1, "--sp > 1 is sequence-parallel training, which needs a "
-                      "differentiable all-to-all and a ring backward that sends dK/dV "
-                      "round the ring (ROADMAP queue 1, item 8); sequence-parallel "
-                      "serving is TI2VPipeline with sp_groups"),
-        (args.config == "i2v-14B", "--config i2v-14B needs the 14B modules "
-                                   "(ROADMAP queue 1, item 6)"),
-    ]
-    for flag, why in unported:
-        if flag:
-            raise NotImplementedError(f"not ported yet: {why}")
+def _refuse_unported(args, device: torch.device):
+    if args.sp > 1:
+        raise NotImplementedError(
+            "not ported yet: --sp > 1 is sequence-parallel training, which needs a "
+            "differentiable all-to-all and a ring backward that sends dK/dV round the ring "
+            "(ROADMAP queue 1, item 8); sequence-parallel serving is TI2VPipeline with "
+            "sp_groups")
+    if (args.config == "i2v-14B" and device.type == "cuda" and not args.smoke
+            and not args.lora_rank):
+        raise NotImplementedError(
+            "not ported yet: a full i2v-14B fine-tune keeps ~333 GB of fp32 state "
+            "(parameters, EMA, two moments, gradients of 16.6B parameters), which needs "
+            "FSDP across cards (ROADMAP queue 1, item 8); on one card train LoRA "
+            "(--lora_rank 16 --remat)")
 
 
-def smoke_config(mvdt: bool):
-    """The smoke pipeline config of the reference's train.py: the tiny ti2v
-    DiT with a tiny VAE and umT5, so that ``--data_dir`` encodes at smoke
-    size."""
-    from .configs import DiTConfig, PipelineConfig, T5Config, VAEConfig
+def smoke_config(mvdt: bool, i2v: bool = False):
+    """The smoke pipeline config of the reference's train.py: the tiny DiT
+    with a tiny VAE and umT5, so that ``--data_dir`` encodes at smoke size;
+    for the 14B (``i2v``) the tiny i2v DiT (16 → 8 latent and 20 → 10
+    conditioning channels, 5 CLIP tokens of width 12), a Wan2.1 VAE of
+    stride (2, 4, 4) and a tiny CLIP."""
+    from .configs import CLIPConfig, DiTConfig, PipelineConfig, T5Config, VAEConfig
 
+    t5 = T5Config(vocab_size=256, dim=16, dim_attn=16, dim_ffn=24, num_heads=2,
+                  num_layers=1, text_len=16)
+    if i2v:
+        return PipelineConfig(
+            name="smoke-i2v",
+            dit=DiTConfig(model_type="i2v", in_dim=18, out_dim=8, dim=64, ffn_dim=128,
+                          freq_dim=32, text_dim=16, text_len=16, num_heads=4, num_layers=2,
+                          framepack=True, mvdt=mvdt, image_context_len=5, image_dim=12),
+            vae=VAEConfig(z_dim=8, base_dim=8, dim_mult=(1, 2, 2), num_res_blocks=1,
+                          temporal_downsample=(True, False), stride=(2, 4, 4), patchify=1,
+                          arch="wan21"),
+            t5=t5,
+            clip=CLIPConfig(image_size=16, patch_size=8, dim=12, num_heads=2, num_layers=1,
+                            out_tokens=5),
+            latent_frame_zero=2).check_i2v_channels()
     return PipelineConfig(
         name="smoke",
         dit=DiTConfig(model_type="ti2v", in_dim=8, out_dim=8, dim=64, ffn_dim=128,
@@ -130,9 +169,23 @@ def smoke_config(mvdt: bool):
                       framepack=True, mvdt=mvdt),
         vae=VAEConfig(z_dim=8, base_dim=8, dim_mult=(1, 2, 2), num_res_blocks=1,
                       temporal_downsample=(True, False), stride=(2, 8, 8), patchify=2),
-        t5=T5Config(vocab_size=256, dim=16, dim_attn=16, dim_ffn=24, num_heads=2,
-                    num_layers=1, text_len=16),
+        t5=t5,
         latent_frame_zero=2)
+
+
+def load_dit_checkpoint(model: nn.Module, ckpt_dir: str):
+    """The DiT's released safetensors in ``ckpt_dir`` (one file, several,
+    or shards with an index) into ``model``'s parameters, each cast to its
+    parameter's dtype. Strict, as the reference's converter: a tensor the
+    model has and the files lack raises, and so does one the model lacks
+    (wrapper segments such as ``module.`` are dropped from the keys)."""
+    from .utils.checkpoint import load_safetensors_state_dict, normalize_torch_keys
+    from .utils.convert import load_state_dict
+
+    if not os.path.isdir(ckpt_dir) or not any(
+            f.endswith(".safetensors") for f in os.listdir(ckpt_dir)):
+        raise SystemExit(f"--ckpt_dir {ckpt_dir!r} holds no DiT safetensors")
+    load_state_dict(model, normalize_torch_keys(load_safetensors_state_dict(ckpt_dir)))
 
 
 @torch.no_grad()
@@ -168,31 +221,40 @@ def _generator(device, seed: int) -> torch.Generator:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
+    device = torch.device(args.device)
+    _refuse_unported(args, device)
     os.makedirs(args.output_dir, exist_ok=True)
 
     from .configs import CONFIGS
     from .models.dit import WanDiT, packed_token_count
     from .training.train_step import (TrainConfig, draw_step, init_train_state,
                                       make_train_step, trainable_params)
-    from .utils.checkpoint import restore_checkpoint, save_checkpoint
+    from .utils.checkpoint import Checkpointer, restore_checkpoint
 
-    device = torch.device(args.device)
     cfg = CONFIGS[args.config]()
-    dit_cfg, lfz = cfg.dit, cfg.latent_frame_zero
+    is_i2v = cfg.dit.model_type == "i2v"
     if args.smoke:
-        cfg = smoke_config(args.MVDT)
-        dit_cfg, lfz = cfg.dit, cfg.latent_frame_zero
+        cfg = smoke_config(args.MVDT, is_i2v)
         args.max_train_steps = min(args.max_train_steps, 5)
         if args.data_dir:
             args.num_frames, args.height, args.width = 9, 64, 64
     elif args.MVDT:
-        dit_cfg = dataclasses.replace(dit_cfg, mvdt=True)
+        cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, mvdt=True))
+    dit_cfg, lfz = cfg.dit, cfg.latent_frame_zero
 
     dtype = torch.float32 if args.smoke and device.type == "cpu" else torch.bfloat16
     model = WanDiT(dit_cfg, dtype, device="meta", param_dtype=torch.float32,
-                   remat=args.remat).to_empty(device=device)
-    init_params_(model, _generator(device, args.seed))
+                   remat=args.remat)
+    if args.lora_rank and dtype == torch.bfloat16:
+        from .training.lora import bf16_base_
+
+        bf16_base_(model)
+    model = model.to_empty(device=device)
+    if args.ckpt_dir:
+        load_dit_checkpoint(model, args.ckpt_dir)
+        print(f"DiT loaded from {args.ckpt_dir}", flush=True)
+    else:
+        init_params_(model, _generator(device, args.seed))
 
     # latent geometry
     if args.smoke:
@@ -264,6 +326,13 @@ def main(argv=None):
 
     def synthetic_batch(step):
         gen = _generator(device, step)
+        if is_i2v:
+            from .training.i2v_batch import synthetic_i2v_batch
+
+            return synthetic_i2v_batch(
+                gen, b=b, f=f, h=h, w=w, z_dim=dit_cfg.out_dim, mask_ch=cfg.vae.stride[0],
+                text_len=text_len, text_dim=text_dim,
+                image_context_len=dit_cfg.image_context_len, image_dim=dit_cfg.image_dim)
         return {"latents": torch.randn((b, f, h, w, dit_cfg.in_dim), generator=gen,
                                        device=device),
                 "context": torch.randn((b, text_len, text_dim), generator=gen,
@@ -284,6 +353,7 @@ def main(argv=None):
 
     prof_lo, prof_hi = (int(s) for s in args.profile_steps.split(","))
     profiler = None
+    ckpter = None  # the async Checkpointer, made at the first save
     times, losses, grad_norms, gan_losses, d_losses = [], [], [], [], []
     try:
         for step in range(start_step, args.max_train_steps):
@@ -311,23 +381,51 @@ def main(argv=None):
                   f"grad_norm={grad_norm:.3f} step_time={np.mean(times[-100:]):.2f}s",
                   flush=True)
             if args.checkpointing_steps and (step + 1) % args.checkpointing_steps == 0:
-                path = save_checkpoint(args.output_dir, state)
-                print(f"checkpoint saved at step {step + 1}: {path}", flush=True)
+                if ckpter is None:
+                    ckpter = Checkpointer(args.output_dir)
+                ckpter.save(state)
+                print(f"checkpoint save started at step {step + 1} (async)", flush=True)
             if args.validation_steps and (step + 1) % args.validation_steps == 0:
                 _validation_rollout(args, model, state, batch, lfz, step + 1, lora_model,
                                     pipe)
     finally:
+        if ckpter is not None:
+            ckpter.close()  # drain the save in flight
         if loader is not None:
             loader.close()
     if profiler is not None:
         _stop_profile(profiler, args.profile_dir)
     main.last_run = {"losses": losses, "grad_norms": grad_norms, "step_times": times,
-                     "trainable": sum(p.numel() for p in state.params.values())}
+                     "trainable": sum(p.numel() for p in state.params.values()),
+                     "save_hold_s": [] if ckpter is None else ckpter.hold_s}
     if args.Distil:
         main.last_run.update(gan_losses=gan_losses, d_losses=d_losses)
     if loader is not None:
         main.last_run.update(get_batch.timing)
+    if args.export_torch_dir:
+        main.last_run["export"] = export_ema(args.export_torch_dir, model, state, lora_model)
     return 0
+
+
+def export_ema(out_dir: str, model: nn.Module, state, lora_model=None) -> dict:
+    """Write the EMA DiT (the EMA adapters merged into the frozen base under
+    LoRA) to ``out_dir`` as the released layout's sharded safetensors (the
+    reference's ``--export_torch_dir``). Returns the tensor count, the bytes
+    written and the writer's seconds."""
+    from .training.lora import base_state_dict
+    from .utils.checkpoint import export_dit_state_dict, save_sharded_safetensors
+
+    base = base_state_dict(model)
+    if lora_model is not None:
+        sd = export_dit_state_dict(base, state.ema_params)
+    else:
+        sd = export_dit_state_dict({**base, **state.ema_params})
+    t0 = time.perf_counter()
+    n_bytes = save_sharded_safetensors(sd, out_dir)
+    out = {"tensors": len(sd), "bytes": n_bytes, "write_s": time.perf_counter() - t0}
+    print(f"exported {len(sd)} EMA DiT tensors to {out_dir} (reference torch layout)",
+          flush=True)
+    return out
 
 
 main.last_run = None
@@ -336,18 +434,26 @@ main.last_run = None
 def data_batches(args, cfg, device, batch_size):
     """``--data_dir``'s batches (reference train.py:326-392): a
     :class:`ControlVideoDataset` behind a two-thread
-    :class:`PrefetchLoader`, umT5 and the VAE (from ``--encoders_dir``, else
-    random) on ``device`` without a DiT. Returns (get_batch, loader,
-    pipeline); ``get_batch(step)`` gives ``{"latents", "context"}``, the
-    full-clip VAE encode of the clips in the VAE's dtype and their captions'
-    context, and keeps each batch's host wait and device encode in seconds
-    in ``get_batch.timing``."""
+    :class:`PrefetchLoader`, and the encoders (from ``--encoders_dir`` or
+    ``--ckpt_dir``, else random) on ``device`` without a DiT: umT5 and the
+    VAE for the 5B, an :class:`I2VPipeline` with umT5, CLIP and the Wan2.1
+    VAE for the 14B. Returns (get_batch, loader, pipeline);
+    ``get_batch(step)`` gives the 5B's ``{"latents", "context"}`` (the
+    full-clip VAE encode of the clips in the VAE's dtype and their
+    captions' context) or the 14B's :func:`build_i2v_train_batch`, its
+    branch drawn from ``random.Random(seed + 31)``. ``get_batch.timing``
+    keeps each batch's host wait and device encode in seconds and, for the
+    14B, its branch and its packed token count."""
     from .data.dataset import ControlVideoDataset
     from .data.loader import PrefetchLoader
     from .data.tokenizer import Tokenizer, resolve_tokenizer_path
+    from .models.dit import packed_token_count
+    from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
     from .sample import load_torch_weights
+    from .training.i2v_batch import build_i2v_train_batch, takes_i2v_branch
 
+    is_i2v = cfg.dit.model_type == "i2v"
     ds = ControlVideoDataset(args.data_dir, full_mp4_dir=args.full_mp4_dir,
                              n_sample_frames=args.num_frames, height=args.height,
                              width=args.width)
@@ -355,17 +461,24 @@ def data_batches(args, cfg, device, batch_size):
     # the encoders need real weights (reference init_model,
     # distill_model.py:720-737); a random encoder feeds noise latents
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-    if args.encoders_dir:
-        pipe = load_torch_weights(cfg, args.encoders_dir, device=device, dtype=dtype,
+    weights_dir = args.encoders_dir or args.ckpt_dir
+    if weights_dir:
+        pipe = load_torch_weights(cfg, weights_dir, device=device, dtype=dtype,
                                   load_dit=False)
     else:
         print("WARNING: --data_dir without --ckpt_dir/--encoders_dir — VAE/T5 encoders "
               "are randomly initialised", flush=True)
-        pipe = TI2VPipeline.from_config(cfg, device=device, seed=0, init_t5=True,
-                                        init_dit=False, dtype=dtype)
-    tokenizer = Tokenizer(resolve_tokenizer_path(args.tokenizer_path, args.encoders_dir),
+        if is_i2v:
+            pipe = I2VPipeline.from_config(cfg, device=device, seed=0, init_t5=True,
+                                           init_clip=True, init_dit=False, dtype=dtype)
+        else:
+            pipe = TI2VPipeline.from_config(cfg, device=device, seed=0, init_t5=True,
+                                            init_dit=False, dtype=dtype)
+    tokenizer = Tokenizer(resolve_tokenizer_path(args.tokenizer_path, weights_dir),
                           seq_len=cfg.dit.text_len, vocab_size=cfg.t5.vocab_size,
                           warn_fallback=not args.smoke)
+    # the host draw of the 14B's i2v/v2v branch (reference train.py:305, 380-387)
+    rand_i2v = random.Random(args.seed + 31)
 
     def sample_fn(i):
         s = ds[i % len(ds)]
@@ -385,13 +498,29 @@ def data_batches(args, cfg, device, batch_size):
         video = torch.from_numpy(raw["video"]).to(device, dtype)
         ids, mask = tokenizer(raw["caption"])
         with torch.no_grad():
-            batch = {"latents": pipe.vae.encode(video), "context": pipe.encode_text(ids, mask)}
+            ctx = pipe.encode_text(ids, mask)
+            if is_i2v:
+                draw = rand_i2v.random()
+                batch = build_i2v_train_batch(pipe, video, ctx, rand_num_img=draw)
+            else:
+                batch = {"latents": pipe.vae.encode(video), "context": ctx}
         sync()
-        get_batch.timing["batch_wait_s"].append(t1 - t0)
-        get_batch.timing["encode_s"].append(time.perf_counter() - t1)
+        timing = get_batch.timing
+        timing["batch_wait_s"].append(t1 - t0)
+        timing["encode_s"].append(time.perf_counter() - t1)
+        if is_i2v:
+            _, f_b, h_b, w_b = batch["latents"].shape[:4]
+            lfz = cfg.latent_frame_zero
+            s0 = cfg.vae.stride[0]
+            i2v = takes_i2v_branch(video.shape[1], draw, (lfz - 1) * s0 + 1, s0)
+            timing["branch"].append("i2v" if i2v else "v2v")
+            timing["packed_tokens"].append(
+                packed_token_count(f_b - lfz, lfz, h_b, w_b, cfg.dit.patch_size))
         return batch
 
     get_batch.timing = {"batch_wait_s": [], "encode_s": []}
+    if is_i2v:
+        get_batch.timing.update(branch=[], packed_tokens=[])
     return get_batch, loader, pipe
 
 
@@ -412,24 +541,30 @@ def _stop_profile(profiler, profile_dir):
 
 def _validation_rollout(args, model, state, batch, lfz, step, lora_model=None, pipe=None):
     """In-training validation: denoise the batch's tail from the EMA
-    parameters with the Euler segment sampler (reference train.py:481-534)
-    and save the latents, or with ``--data_dir``'s ``pipe`` the decoded
+    parameters with the Euler segment sampler (reference train.py:481-534;
+    an i2v batch's ``y`` and CLIP features condition the DiT) and save the
+    latents, or with ``--data_dir``'s ``pipe`` the decoded
     generated and ground-truth clips as ``val_step<N>_{gen,gt}.mp4``."""
     from .diffusion import samplers
     from .diffusion.schedule import sampling_sigmas
 
     latents, ctx = batch["latents"][:1], batch["context"][:1]
+    # an i2v batch's conditioning (the 14B): y after the latent, CLIP features
+    y = batch.get("y")
+    kw = {} if batch.get("clip_context") is None else {
+        "clip_context": batch["clip_context"][:1]}
     b, f = latents.shape[:2]
     noise = torch.randn(tuple(latents.shape), generator=_generator(latents.device, step),
                         device=latents.device)
     latent0 = torch.cat([latents[:, : f - lfz], noise[:, f - lfz:]], dim=1)
 
     def ema_forward(lat, t_frame):
+        x_in = lat if y is None else torch.cat([lat, y[:1].to(lat.dtype)], dim=-1)
         if lora_model is not None:
-            return lora_model(lat, t_frame, ctx, packed=True, latent_frame_zero=lfz)
+            return lora_model(x_in, t_frame, ctx, packed=True, latent_frame_zero=lfz, **kw)
         return torch.func.functional_call(
-            model, state.ema_params, (lat, t_frame, ctx),
-            dict(packed=True, latent_frame_zero=lfz), strict=False)
+            model, state.ema_params, (x_in, t_frame, ctx),
+            dict(packed=True, latent_frame_zero=lfz, **kw), strict=False)
 
     def denoise(lat, t_frame):
         out = ema_forward(lat, t_frame)

@@ -165,3 +165,18 @@ def make_distill_train_step(model: torch.nn.Module, cfg: TrainConfig,
                                    "grad_norm": grad_norm}
 
     return step
+
+
+def teacher_rollout(pipe, ctx: torch.Tensor, teacher_params: Optional[torch.nn.Module], *,
+                    size: Tuple[int, int] = (1280, 704), frame_num: int = 81,
+                    steps: int = 8, shift: float = 5.0, solver: str = "unipc",
+                    seed: int = 0, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Teacher-latent targets for distillation (the reference's
+    ``teacher_rollout``, yume_tpu/training/distill.py:190-210): a cond-only
+    multistep rollout of the frozen teacher DiT ``teacher_params`` through
+    ``pipe.generate_t2v_dmd`` (reference ``t2v_dmd`` with
+    ``teacher_transformer``, wan23/textimage2video.py:519-653). Returns the
+    latents; ``noise`` replaces the seeded initial noise."""
+    return pipe.generate_t2v_dmd(ctx, teacher_params=teacher_params, size=size,
+                                 frame_num=frame_num, steps=steps, shift=shift, solver=solver,
+                                 seed=seed, noise=noise, return_latents=True)

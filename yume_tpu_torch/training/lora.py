@@ -6,7 +6,9 @@ weight W [out, in], ``lora_a`` [rank, in] and ``lora_b`` [out, rank], and
 the effective weight is W + scale·(lora_b @ lora_a) (the reference's
 W + scale·(A @ B) with A [in, rank] = lora_aᵀ and B [rank, out] = lora_bᵀ).
 The adapters live in a flat dict ``{"<layer>.lora_a": ..., "<layer>.lora_b":
-...}``, which is what the train step updates.
+...}``, which is what the train step updates. They are fp32, as the
+reference's are, also over a bf16 base (:func:`bf16_base_`, the 14B on one
+card).
 
 :class:`LoRAModel` merges them inside each layer's forward through a
 parametrization of its weight: the merged weight exists only while the
@@ -37,32 +39,58 @@ def init_lora(model: nn.Module, *, rank: int = 16,
               targets: Tuple[str, ...] = DEFAULT_TARGETS,
               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """(A, B) pairs for every targeted Linear: A ~ N(0, 1)/sqrt(in), B zero,
-    so the merged model equals the base at step 0. In the weights' dtype and
-    device."""
+    so the merged model equals the base at step 0. fp32 (the reference's
+    adapters and Adam moments are fp32 whatever the base's dtype), on the
+    weights' device."""
     lora = {}
     for name, layer in _targets(model, targets).items():
         w = layer.weight
         d_out, d_in = w.shape
         a = torch.randn((rank, d_in), generator=generator, device=w.device,
                         dtype=torch.float32) / d_in ** 0.5
-        lora[f"{name}.lora_a"] = a.to(w.dtype).requires_grad_()
+        lora[f"{name}.lora_a"] = a.requires_grad_()
         lora[f"{name}.lora_b"] = torch.zeros((d_out, rank), device=w.device,
-                                             dtype=w.dtype).requires_grad_()
+                                             dtype=torch.float32).requires_grad_()
     return lora
+
+
+def bf16_base_(model: nn.Module) -> int:
+    """Store the blocks' Linear weights in bf16, in place (a model on the
+    ``meta`` device stays there, to be materialised by ``to_empty``): the
+    frozen base of a LoRA fine-tune on one card. The forward casts these
+    weights to its compute dtype, bf16 on the card, so it is unchanged;
+    biases, norm scales, modulation, the embeddings and the head keep their
+    dtype. Returns the number of parameters cast."""
+    n = 0
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Linear) and name.startswith("blocks."):
+            m.weight = nn.Parameter(m.weight.detach().to(torch.bfloat16),
+                                    requires_grad=False)
+            n += m.weight.numel()
+    return n
+
+
+def base_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` under the plain parameter names: a
+    :class:`LoRAModel`'s layers hold their frozen weight as
+    ``<layer>.parametrizations.weight.original``, given here as
+    ``<layer>.weight``."""
+    return {k.replace(".parametrizations.weight.original", ".weight"): v
+            for k, v in model.state_dict().items()}
 
 
 def merge_lora(state_dict: Dict[str, torch.Tensor], lora: Dict[str, torch.Tensor], *,
                scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """A state dict with W + scale·(B @ A) at every adapted ``<layer>.weight``
     (for export or evaluation; training merges per layer, see
-    :class:`LoRAModel`)."""
+    :class:`LoRAModel`), in fp32 where W is of lower precision (a bf16
+    base)."""
     out = dict(state_dict)
     for key in lora:
         if key.endswith(".lora_a"):
             layer = key[: -len(".lora_a")]
             w = state_dict[f"{layer}.weight"]
-            delta = lora[f"{layer}.lora_b"] @ lora[key]
-            out[f"{layer}.weight"] = w + scale * delta.to(w.dtype)
+            out[f"{layer}.weight"] = w + scale * (lora[f"{layer}.lora_b"] @ lora[key])
     return out
 
 
@@ -75,7 +103,8 @@ def count_params(tree) -> int:
 
 class _Merged(nn.Module):
     """Parametrization W ↦ W + scale·(B @ A), reading the adapters of one
-    layer from a shared holder, so the EMA adapters can be swapped in."""
+    layer from a shared holder, so the EMA adapters can be swapped in. A
+    bf16 W is added to the fp32 product in fp32 and rounded once."""
 
     def __init__(self, holder: "LoRAModel", layer: str):
         super().__init__()
@@ -85,7 +114,7 @@ class _Merged(nn.Module):
         holder = self.holder[0]
         a = holder.adapters[f"{self.layer}.lora_a"]
         b = holder.adapters[f"{self.layer}.lora_b"]
-        return w + holder.scale * (b @ a).to(w.dtype)
+        return (w + holder.scale * (b @ a)).to(w.dtype)
 
 
 class LoRAModel:

@@ -10,7 +10,8 @@ DiT would allocate a temporary of 10–20 GB.
 
 Random draws are explicit (:func:`draw_step`), so a test can hand the port
 and the JAX package the same numbers: the timestep draw, the x0 noise, the
-history-mask draws and, for the masked pass, the MVDT token noise.
+history-mask draws (not on the 14B's i2v pass, which noises the whole
+latent) and, for the masked pass, the MVDT token noise.
 """
 
 from __future__ import annotations
@@ -155,13 +156,16 @@ def trainable_params(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def draw_flow(batch, generator: torch.Generator, transport: Transport) -> Dict[str, Any]:
     """The draws of one flow pass: ``t`` (the standard draw behind the
-    timestep, [B]), ``x0`` (noise like the latents, fp32) and ``hist`` (the
-    two history-mask draws)."""
+    timestep, [B]), ``x0`` (noise like the latents, fp32) and, unless the
+    batch is an i2v one (it carries ``y``), ``hist`` (the two history-mask
+    draws)."""
     x1 = batch["latents"]
-    return {"t": transport.draw_t(x1.shape[0], generator),
-            "x0": torch.randn(tuple(x1.shape), generator=generator,
-                              device=generator.device),
-            "hist": draw_history(generator)}
+    draws = {"t": transport.draw_t(x1.shape[0], generator),
+             "x0": torch.randn(tuple(x1.shape), generator=generator,
+                               device=generator.device)}
+    if "y" not in batch:
+        draws["hist"] = draw_history(generator)
+    return draws
 
 
 def draw_step(batch, cfg: TrainConfig, generator: torch.Generator, *,
@@ -190,13 +194,30 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
     transport = Transport(shift=cfg.shift)
     lfz = cfg.latent_frame_zero
 
+    def flow_pass_i2v(batch, d, *, masked: bool):
+        """The 14B i2v pass (reference Transport.training_losses with
+        distill_model.py:275-318): the whole latent, history and tail, is
+        noised at one t a sample; the clean conditioning rides in ``y``
+        (mask channels and the VAE latents of the history), concatenated
+        after x_t as the DiT's input; the CLIP features reach the i2v
+        cross-attention; the loss covers the tail frames only."""
+        x1, y, ctx = batch["latents"], batch["y"], batch["context"]
+        b, f = x1.shape[:2]
+        t = transport.sample_t(d["t"].to(x1.device))
+        xt, ut = transport.plan(t, d["x0"].to(device=x1.device, dtype=x1.dtype), x1)
+        t_frame = t[:, None].expand(b, f) * 1000.0
+        kw = dict(mvdt_noise=d["mvdt"], mvdt_keep=mvdt_keep) if masked else {}
+        if batch.get("clip_context") is not None:
+            kw["clip_context"] = batch["clip_context"]
+        v = model(torch.cat([xt, y.to(xt.dtype)], dim=-1), t_frame, ctx, packed=packed,
+                  latent_frame_zero=lfz, **kw)
+        return _tail_loss(v, xt, ut, t)
+
     def flow_pass(batch, d, *, masked: bool):
         """One conditioning-masked flow pass: (loss, x̂₁ = x_t − t·v̂ on the
         tail frames)."""
         if "y" in batch:
-            raise NotImplementedError(
-                "flow_pass_i2v (the 14B i2v training pass) is not ported: it "
-                "needs the 14B modules (ROADMAP queue 1, item 6)")
+            return flow_pass_i2v(batch, d, masked=masked)
         x1, ctx = batch["latents"], batch["context"]
         b, f = x1.shape[:2]
         t = transport.sample_t(d["t"].to(x1.device))
@@ -211,6 +232,10 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
         t_frame = torch.cat([hist_t, t[:, None].expand(b, lfz)], dim=1) * 1000.0
         kw = dict(mvdt_noise=d["mvdt"], mvdt_keep=mvdt_keep) if masked else {}
         v = model(xt, t_frame, ctx, packed=packed, latent_frame_zero=lfz, **kw)
+        return _tail_loss(v, xt, ut, t)
+
+    def _tail_loss(v, xt, ut, t):
+        """(velocity MSE over the tail frames, x̂₁ = x_t − t·v̂ there)."""
         v_tail = v[:, -lfz:].float()
         loss = torch.mean((v_tail - ut[:, -lfz:].float()) ** 2)
         denoised_tail = xt[:, -lfz:].float() - t[:, None, None, None, None] * v_tail
@@ -231,7 +256,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
     of ``state.params``, the optimizer update and the EMA
     ``e·d + p·(1 − d)`` (in the parameter dtype), all in place. Batch:
     ``latents`` [B, F, H, W, C] clean latents (history + tail), ``context``
-    [B, text_len, text_dim]."""
+    [B, text_len, text_dim]; an i2v batch (the 14B) adds ``y`` [B, F, H, W,
+    s0 + z] and ``clip_context`` (see :mod:`.i2v_batch`)."""
     optimizer = make_optimizer(cfg)
     loss_fn = make_loss_fn(model, cfg, packed=packed, mvdt_keep=mvdt_keep)
 

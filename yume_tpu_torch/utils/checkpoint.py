@@ -1,14 +1,17 @@
 """Train-state checkpoints as torch files (the save/restore part of
-yume_tpu/utils/checkpoint.py; Orbax is not ported), and the readers of
-released weights: torch state dicts (:func:`load_torch_state_dict`) and
-safetensors files, single or sharded with an index
-(:func:`load_safetensors_state_dict`, a reader of the format written here
-by hand, so it needs no ``safetensors`` package).
+yume_tpu/utils/checkpoint.py; Orbax is not ported), the readers of released
+weights: torch state dicts (:func:`load_torch_state_dict`) and safetensors
+files, single or sharded with an index (:func:`load_safetensors_state_dict`),
+and the export of a trained DiT in the released layout
+(:func:`export_dit_state_dict`, :func:`save_sharded_safetensors`). The
+safetensors format is read and written here by hand, so neither needs the
+``safetensors`` package.
 
 ``<output_dir>/checkpoint-<step>.pt`` holds the step, the trained tensors,
-the optimizer state and the EMA. :func:`restore_checkpoint` copies the
-newest one into an existing state in place, so a full fine-tune's
-parameters stay the model's own tensors.
+the optimizer state and the EMA. :class:`Checkpointer` writes them in a
+background thread from a host snapshot and keeps the newest three;
+:func:`restore_checkpoint` copies the newest one into an existing state in
+place, so a full fine-tune's parameters stay the model's own tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import json
 import os
 import re
 import struct
-from typing import Any, Dict, Mapping, Optional
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
@@ -39,10 +44,92 @@ def save_checkpoint(output_dir: str, state: TrainState) -> str:
     return path
 
 
-def latest_checkpoint(output_dir: str) -> Optional[str]:
+def checkpoints(output_dir: str) -> List[str]:
+    """The ``checkpoint-<step>.pt`` files of ``output_dir``, oldest step
+    first."""
     found = [(int(m.group(1)), p) for p in glob.glob(os.path.join(output_dir, "checkpoint-*.pt"))
              if (m := _NAME.search(p))]
-    return max(found)[1] if found else None
+    return [p for _, p in sorted(found)]
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    found = checkpoints(output_dir)
+    return found[-1] if found else None
+
+
+class Checkpointer:
+    """Train-state saves that overlap the next steps (the reference's
+    ``Checkpointer``, yume_tpu/utils/checkpoint.py:686-713, without Orbax).
+
+    :meth:`save` takes a host snapshot of the state, one device-to-host
+    copy of each tensor enqueued on the current stream into pinned buffers
+    kept from one save to the next, and returns; a background thread waits
+    for the copies, writes ``checkpoint-<step>.pt`` as
+    :func:`save_checkpoint` does (``torch.save`` then ``os.replace``) and
+    deletes all but the newest ``max_to_keep``. The copies are ordered
+    before any later kernel of the stream, so the next step may update the
+    state in place at once. A save waits for the one before it; call
+    :meth:`close` (or :meth:`wait`) before reading checkpoints back.
+    ``hold_s`` lists how long each :meth:`save` held its caller."""
+
+    def __init__(self, output_dir: str, max_to_keep: int = 3):
+        self.output_dir, self.max_to_keep = output_dir, max_to_keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+        self.hold_s: List[float] = []
+
+    def _snapshot(self, tree, path=()):
+        if isinstance(tree, dict):
+            return {k: self._snapshot(v, path + (k,)) for k, v in tree.items()}
+        if not torch.is_tensor(tree):
+            return tree
+        t = tree.detach()
+        if t.device.type == "cpu":
+            return t.clone()
+        buf = self._buffers.get(path)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = self._buffers[path] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t, non_blocking=True)
+
+    def save(self, state: TrainState):
+        t0 = time.perf_counter()
+        self.wait()
+        snap = TrainState(step=state.step, **{
+            k: self._snapshot(getattr(state, k), (k,))
+            for k in ("params", "opt_state", "ema_params")})
+        done = None
+        if torch.cuda.is_available() and any(
+                t.is_cuda for t in state.params.values()):
+            done = torch.cuda.Event()
+            done.record()
+
+        def write():
+            try:
+                if done is not None:
+                    done.synchronize()
+                save_checkpoint(self.output_dir, snap)
+                for old in checkpoints(self.output_dir)[: -self.max_to_keep]:
+                    os.remove(old)
+            except BaseException as e:  # raised in the caller by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name="checkpointer", daemon=True)
+        self._thread.start()
+        self.hold_s.append(time.perf_counter() - t0)
+
+    def wait(self):
+        """Block until the save in flight is written; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self):
+        self.wait()
+        self._buffers.clear()
 
 
 def _copy_into(dst, src, where: str):
@@ -182,6 +269,78 @@ def load_safetensors_state_dict(path: str) -> Dict[str, torch.Tensor]:
             raise KeyError(f"{path}: the index maps {len(missing)} tensors no shard holds, "
                            f"e.g. {missing[:5]}")
     return sd
+
+
+# the torch dtypes written to safetensors, by their format name
+_SAFETENSORS_NAMES = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+
+
+def save_sharded_safetensors(sd: Mapping[str, Any], out_dir: str, n_shards: int = 3,
+                             base: str = "diffusion_pytorch_model") -> int:
+    """Write a flat state dict in the released checkpoint's layout (the
+    reference's ``save_sharded_safetensors``,
+    yume_tpu/utils/checkpoint.py:649-683): the sorted keys dealt round-robin
+    into ``<base>-0000i-of-0000n.safetensors`` and an index
+    ``<base>.safetensors.index.json`` with ``metadata.total_size`` and the
+    ``weight_map``. Every tensor is written as F32, as the reference's
+    export casts to float32. Each file: an 8-byte little-endian header
+    length, the JSON header (``dtype``, ``shape``, ``data_offsets`` per
+    tensor, padded with spaces to 8 bytes), then the raw little-endian data
+    in key order. Returns the bytes of tensor data written."""
+    keys = sorted(sd)
+    n_shards = max(1, min(n_shards, len(keys)))
+    os.makedirs(out_dir, exist_ok=True)
+    names = [f"{base}-{s + 1:05d}-of-{n_shards:05d}.safetensors" for s in range(n_shards)]
+    weight_map, total = {}, 0
+    for s, fname in enumerate(names):
+        tensors = {k: torch.as_tensor(sd[k]).detach().to("cpu", torch.float32).contiguous()
+                   for k in keys[s::n_shards]}
+        header, offset = {}, 0
+        for k, t in tensors.items():
+            n = t.numel() * t.element_size()
+            header[k] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                         "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[k] = fname
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        path = os.path.join(out_dir, fname)
+        with open(f"{path}.tmp", "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for t in tensors.values():
+                if t.numel():
+                    f.write(t.view(-1).view(torch.uint8).numpy().data)
+        os.replace(f"{path}.tmp", path)
+        total += offset
+    with open(os.path.join(out_dir, f"{base}.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return total
+
+
+def export_dit_state_dict(state_dict: Mapping[str, torch.Tensor],
+                          lora: Optional[Mapping[str, torch.Tensor]] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A DiT's tensors in the reference ``WanModel`` layout as fp32 host
+    tensors (the reference's ``export_dit_state_dict``,
+    yume_tpu/utils/checkpoint.py:558-646). The port's parameter names are
+    the reference's, so ``state_dict`` (a ``WanDiT.state_dict()`` with the
+    EMA tensors in place of the trained ones; see
+    :func:`..training.lora.base_state_dict` for a model that carries LoRA)
+    is the export but for the dtype; with ``lora`` (adapters by
+    ``<layer>.lora_a``/``.lora_b``) they are merged into their weights first
+    (:func:`..training.lora.merge_lora`), one layer at a time: the 14B's
+    merged fp32 weights would not fit on the card beside its bf16 base."""
+    from ..training.lora import merge_lora
+
+    out = {}
+    for k, v in state_dict.items():
+        layer = k[: -len(".weight")]
+        if lora and f"{layer}.lora_a" in lora:
+            v = merge_lora({k: v}, {f"{layer}.lora_{s}": lora[f"{layer}.lora_{s}"]
+                                    for s in "ab"})[k]
+        out[k] = v.detach().to("cpu", torch.float32)
+    return out
 
 
 def restore_checkpoint(output_dir: str, state: TrainState) -> TrainState:
