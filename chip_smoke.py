@@ -104,13 +104,14 @@ result line:
    e. (after those pipelines are freed) the Yume-1.0 i2v-14B serving path
       at full width (dim 5,120, 40 layers, umT5-XXL, CLIP ViT-H/14, the
       Wan2.1 VAE; random bf16 weights) at 544×960: ``sample.main --config
-      i2v-14B --jpg_dir <a seeded 960×544 PNG> --steps 2 --sample_num 2``
-      (an image segment at 28,350 packed tokens and a 32-frame
-      continuation at 29,430, CFG: 8 forwards, exactly K1 960, K2 968, K3
-      640, K4 320, K5 320, K6 0 launches; umT5, CLIP, the VAE encodes, the
-      forwards and the decodes timed with their peak memory; the videos
-      finite [1, 81, 544, 960, 3] and [1, 113, 544, 960, 3], both files
-      written); then a fresh 14B pipeline's bf16 and W8A8 forward at
+      i2v-14B --jpg_dir <a seeded 960×544 PNG> --steps 2 --sample_num 2
+      --save_latents`` (an image segment at 28,350 packed tokens and a
+      32-frame continuation at 29,430, CFG: 8 forwards, exactly K1 960, K2
+      968, K3 640, K4 320, K5 320, K6 0 launches; umT5, CLIP, the VAE
+      encodes, the forwards and the decodes timed with their peak memory;
+      the videos finite [1, 81, 544, 960, 3] and [1, 113, 544, 960, 3],
+      both files written; the image segment's latents are phase 8b c's
+      reference); then a fresh 14B pipeline's bf16 and W8A8 forward at
       28,350 tokens (K6 240), their relative L2 (at most
       ``T2V_W8A8_REL_TOL``), and one profiled CFG step.
    f. (after those are freed) the video-input mode and the data path on a
@@ -172,9 +173,26 @@ result line:
    same random full-width 5B DiT (checksummed across ranks); Ulysses (sp
    4), ring (sp 4) and USP (2 x 2) forwards at 12,095 tokens against the
    unsharded forward, a 2-step ring Euler segment against the unsharded
-   one, and a 12-step ring W8A8 + adaptive TeaCache segment; every rank
+   one, and a 6-step ring W8A8 + adaptive TeaCache segment; every rank
    must return the same latents and n_full, and K7 must launch 120 times a
    forward on ring and USP and never on Ulysses.
+8b. multi-device serving (:func:`multi_device_phase`): the entry points
+   with ``--sp``/``--pp``, each command spawning its ranks, all sharing the
+   card over gloo, each path's launches per rank read from its ranks:
+   a. ``python -m yume_tpu_torch.sample`` in image mode on 640×352 frames
+      (4 Euler steps, one continuation) at ``--sp 4 --sp_kind ulysses``,
+      within 1e-2 relative L2 of the same command on one rank; b. the same
+      at ``--pp 2``, bit-equal, each rank holding its stage's blocks; c.
+      ``--config i2v-14B`` at 544×960 (full depth, 2 CFG steps) at ``--pp
+      2``, bit-equal to phase 6e's first segment, with the card's peak; d.
+      the 14B's SP CFG segment at full width on 10 of its 40 layers through
+      ``I2VPipeline.generate`` on two ranks launched by
+      ``parallel.mesh.launch``: a ring forward against the unsharded one,
+      Ulysses Euler and ring adaptive TeaCache against one rank, K7 on every
+      ring rank; e. ``python -m yume_tpu_torch.serving.webapp --sp 2``: one
+      t2v request of two segments, ``generating`` → ``done``.
+   Phase 3 holds K1 at Ulysses' 20 and 6 heads and K7 at the 14B's ring and
+   USP hops against their plain versions.
 
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -247,6 +265,11 @@ HBM_BYTES_PER_S = 3.35e12
 # bursts: 5 lossy traces of 480 within 2.4 s (scripts/torch_cupti_loss.py).
 # A trace that lost records is taken again after this pause.
 CUPTI_BURST_S = 3.0
+# device_ms stops retaking lossy traces after this many calls in a row whose
+# three traces all lost records, until a trace comes back whole; "lost"
+# counts the records lost in the traces read since the last case recorded
+CUPTI_FUTILE = 3
+_CUPTI = {"futile": 0, "lost": 0}
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
@@ -254,9 +277,21 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+# a call slower than this is timed over SLOW_REPS runs after one warm-up: its
+# launch jitter is negligible, and the plain versions at the 14B's shapes
+# take up to 1.2 s a call
+SLOW_MS, SLOW_REPS = 100.0, 3
+
+
 def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
-    for _ in range(warmup):
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events (at
+    most ``SLOW_REPS`` after one warm-up for a call over ``SLOW_MS``)."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > SLOW_MS:
+        warmup, reps = 1, min(reps, SLOW_REPS)
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -291,13 +326,22 @@ def device_ms(fn, names=None, reps: int = 10) -> dict:
     records, the one that lost fewest is read with each kernel's launches a
     call rounded up (``ceil(count / reps)``) and its lost launches counted
     at the mean of its kept records, and a log line says so. Three traces
-    without a kernel fail the run."""
+    without a kernel fail the run. On some hosts CUPTI loses a record of
+    nearly every short trace, retakes or not (in one H100 run 144 of the
+    147 calls whose first trace lost records lost on all three, and their
+    retakes cost ~1,000 s):
+    after ``CUPTI_FUTILE`` calls in a row whose retakes all lost records,
+    a lossy trace is read as it is, without retakes, until a trace comes
+    back whole. The records lost in the traces read go into the next case
+    recorded (``device_lost_records``), whose device times are then
+    estimates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     best = None  # (records lost, [(key, ms, count)])
+    tries = 1 if _CUPTI["futile"] >= CUPTI_FUTILE else 3
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -313,10 +357,17 @@ def device_ms(fn, names=None, reps: int = 10) -> dict:
         log(f"  device_ms: trace {attempt} of 3 lost "
             + (f"{lost} of {sum(c for *_, c in kernels) + lost} kernel records"
                if kernels else "every kernel record"))
+        if best is not None and attempt >= tries:
+            break
         if attempt < 3:
             time.sleep(CUPTI_BURST_S)
     require(best is not None, "device_ms: three profiler traces recorded no kernel")
     lost, kernels = best
+    if not lost:
+        _CUPTI["futile"] = 0
+    elif tries == 3:
+        _CUPTI["futile"] += 1
+    _CUPTI["lost"] += lost
     if lost:
         log(f"  device_ms: read from the trace that lost {lost}, each lost launch "
             "counted at its kernel's mean")
@@ -498,6 +549,9 @@ def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
 
 
 def _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms=None, **extra):
+    if _CUPTI["lost"]:
+        # a device time of this case was read from a trace with lost records
+        extra["device_lost_records"], _CUPTI["lost"] = _CUPTI["lost"], 0
     ok = err <= tol
     lib = "n/a" if lib_ms is None else f"{lib_ms:9.3f} ms"
     log(f"  {kernel:<23} {case:<26} max_abs_err {err:.3e}  tol {tol:.3e}  "
@@ -1268,6 +1322,85 @@ def partial_attention_kernel(results, gen):
     del q, k, v, dout, dlse, grads
 
 
+# phase 8b's attention shapes. Ulysses gives each rank every token and
+# heads/sp heads: the 14B at sp 2 runs K1 on [1, 28350, 20, 128], the 5B at
+# sp 4 on [1, 12096, 6, 128] (12,095 tokens padded to a multiple of 4, the
+# pad masked by kv_len). Ring and USP run K7 on one hop's blocks: the 14B at
+# sp 2 on [1, 14175, 40, 128] against [1, 14175, 40, 128] (28,350 tokens
+# split evenly, every key live); USP 2 x 2 on q [1, 14176, 20, 128] against
+# runs of 7,088 keys (28,352 padded tokens over 4 ranks), the last run with
+# kv_len 28,350 - 3 x 7,088 = 7,086.
+SP_K1_CASES = [  # (case, tokens, heads, live keys or None)
+    ("14B Ulysses sp=2 self [1,28350,20,128]", I2V_L, I2V_HEADS // 2, None),
+    ("5B Ulysses sp=4 self [1,12096,6,128] kv_len=12095", L_PAD, N // 4, L),
+]
+SP_K7_CASES = [  # (case, q rows, kv rows, heads, live keys of the block or None)
+    ("14B ring sp=2 hop [1,14175,40,128]", I2V_L // 2, I2V_L // 2, I2V_HEADS, None),
+    ("14B USP 2x2 q [1,14176,20,128] x run 7088 kv_len=7086", 14176, 7088,
+     I2V_HEADS // 2, I2V_L - 3 * 7088),
+]
+
+
+def sp_attention_kernels(results, gen):
+    """K1 and K7 at phase 8b's shapes (``SP_K1_CASES``, ``SP_K7_CASES``),
+    each against its plain version on two heads (the fp32 scores of every
+    head do not fit beside them), out within two bf16 ulps of the largest
+    |out| for K1 and ``K7_TOL`` for K7, the lse within ``K7_LSE_TOL``;
+    times beside the plain version (over every head, two at a time), SDPA
+    for K1 and ``aten._scaled_dot_product_flash_attention`` on the live keys
+    for K7, with their bounds."""
+    from yume_tpu_torch.ops import flash_attention as fl
+
+    hs = 2
+    for case, l, n, live in SP_K1_CASES:
+        q, k, v = (_randn(gen, 1, l, n, D) for _ in range(3))
+        kl = None if live is None else torch.tensor([live], dtype=torch.int32, device="cuda")
+        out, lse = fl.flash_attention(q, k, v, kv_len=kl, return_lse=True)
+        want, want_lse = fl.plain_attention(q[:, :, :hs], k[:, :, :hs], v[:, :, :hs],
+                                            kv_len=kl, return_lse=True)
+        lse_err = max_err(lse[:, :hs], want_lse)
+        require(lse_err <= K7_LSE_TOL, f"K1 {case}: lse error {lse_err}")
+        rows = l if live is None else live
+        kt, vt = k[:, :rows], v[:, :rows]
+
+        def plain():
+            for h in range(0, n, hs):
+                fl.plain_attention(q[:, :, h:h + hs], k[:, :, h:h + hs], v[:, :, h:h + hs],
+                                   kv_len=kl)
+
+        _k1_record(results, case, q, k, v, rows, max_err(out[:, :, :hs], want), plain,
+                   lambda: _sdpa(q, kt, vt), kv_len=kl, reps=5, plain_reps=1,
+                   tol=two_bf16_ulps(want), lse_max_abs_err=lse_err)
+        del q, k, v, kt, vt, out, lse, want, want_lse
+    for case, lq, lk, n, live in SP_K7_CASES:
+        q, k, v = _randn(gen, 1, lq, n, D), _randn(gen, 1, lk, n, D), _randn(gen, 1, lk, n, D)
+        kl = None if live is None else torch.tensor([live], dtype=torch.int32, device="cuda")
+        out, lse = fl.flash_attention_partial(q, k, v, kv_len=kl)
+        want, want_lse = fl.plain_attention_partial(q[:, :, :hs], k[:, :, :hs], v[:, :, :hs],
+                                                    kv_len=kl)
+        lse_err = max_err(lse[:, :hs], want_lse)
+        require(lse_err <= K7_LSE_TOL, f"K7 {case}: lse error {lse_err}")
+        rows = lk if live is None else live
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t[:, :rows].transpose(1, 2).contiguous() for t in (k, v))
+        lib_ms = median_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt), reps=5)
+        del qt, kt, vt
+
+        def plain():
+            for h in range(0, n, hs):
+                fl.plain_attention_partial(q[:, :, h:h + hs], k[:, :, h:h + hs],
+                                           v[:, :, h:h + hs], kv_len=kl)
+
+        ms = median_ms(lambda: fl.flash_attention_partial(q, k, v, kv_len=kl), reps=5)
+        bound = attn_bound(q, rows)
+        _record(results, "flash_attention_partial", case, max_err(out[:, :, :hs], want),
+                K7_TOL, ms, median_ms(plain, reps=1), bound, lib_ms,
+                lse_max_abs_err=lse_err, **attn_rate(q, rows, ms, bound))
+        del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+
+
 # K10 (bias_act) against its plain version: both compute in fp32 and round
 # once; fp32 to 1e-6 of the largest |output| (CUDA's expf/tanhf/log1pf and
 # ATen's may differ by an ulp or two), the half types to one of their ulps
@@ -1412,6 +1545,9 @@ def quant_matmul_kernel(results, gen):
                     **{key: round(v, 4) for key, v in zip(keys[4:], vals[4:])})
             for key, val in zip(keys, vals):
                 layer[key] += per_layer * val
+            lost = results["quant_matmul"]["cases"][-1].get("device_lost_records", 0)
+            if lost:
+                layer["device_lost_records"] = layer.get("device_lost_records", 0) + lost
             layer_ops += per_layer * ops
             del x, w_bf16, w, got, want, xq, a_scale, qw_t
         if layer_key is None:
@@ -2066,6 +2202,7 @@ def serving_phase(counters):
         Image.fromarray(img).save(os.path.join(jpg, "frame.png"))
         log("serving b: python -m yume_tpu_torch.sample --jpg_dir <1280x704 png> --steps 4")
         cli("cli image", ["--jpg_dir", jpg, "--steps", str(SERVING_STEPS)], ["segment_000.mp4"])
+        out["jpg"] = jpg      # phase 8b's image
 
         # c. the webapp
         log("serving c: python -m yume_tpu_torch.serving.webapp --memory_optimization")
@@ -2182,8 +2319,9 @@ def i2v_phase(counters):
     at 544×960, after phase 6d's pipelines are freed, each path with the
     launch counts set to 0 just before it and read just after:
     a. ``python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir <a seeded
-       960×544 PNG> --steps 2 --sample_num 2`` through ``sample.main``: an
-       image segment of 81 frames (28,350 packed tokens) and a
+       960×544 PNG> --steps 2 --sample_num 2 --save_latents`` through
+       ``sample.main``: an image segment of 81 frames (28,350 packed
+       tokens; phase 8b holds ``--pp 2`` to its latents) and a
        ``generate_next`` of 32 frames (113 frames, 29,430 tokens), two CFG
        Euler steps each, 8 forwards: exactly the launches of
        ``I2V_PER_FORWARD`` times 8; umT5, CLIP, the VAE encodes, the DiT
@@ -2242,7 +2380,8 @@ def i2v_phase(counters):
     try:
         # a. the CLI: an image segment and one continuation
         argv = ["--config", "i2v-14B", "--jpg_dir", jpg, "--width", str(w), "--height", str(h),
-                "--steps", str(I2V_STEPS), "--sample_num", "2", "--output_dir", out_dir]
+                "--steps", str(I2V_STEPS), "--sample_num", "2", "--save_latents",
+                "--output_dir", out_dir]
         log("i2v a: python -m yume_tpu_torch.sample " + " ".join(argv[:-2]))
         zero_counts()
         t0 = time.perf_counter()
@@ -2273,6 +2412,9 @@ def i2v_phase(counters):
                       "peak_gib": peak, "files": files,
                       "decode_peak_gib": [round(c["peak_gib"], 2)
                                           for c in by_call["decode_auto"]]}
+        # phase 8b holds the 14B's --pp run to this run's first segment
+        out["image_run"] = {"argv": argv[:argv.index("--sample_num")],
+                            "latents": os.path.join(out_dir, "segment_000.pt")}
     finally:
         rec.restore()
         steps.restore()
@@ -3918,7 +4060,9 @@ SP_KINDS = ("ulysses", "ring", "usp")
 # whose last-bit differences then propagate through 30 bf16 layers; as the
 # 2-layer bf16-vs-fp32 reference (3e-2)
 SP_REL_TOL = 3e-2
-SP_EULER_STEPS, SP_TEACACHE_STEPS = 2, 12
+# the W8A8 + adaptive TeaCache segment: 6 steps (12 took 49.9 s of the
+# phase's 115.7, on an H100)
+SP_EULER_STEPS, SP_TEACACHE_STEPS = 2, 6
 SP_TIMEOUT_S = 600
 # K7 launches per rank in one forward: 30 layers x 4 hops (ring sp 4) or
 # x 2 hops x 2 runs (USP 2 x 2); a cached TeaCache step runs 14 layers
@@ -4062,7 +4206,7 @@ def sp_phase() -> dict:
        ``SP_REL_TOL`` of the unsharded forward on rank 0;
     b. ``generate_segment`` with ``sp_kind="ring"``: a 2-step Euler segment
        (against the unsharded one on rank 0), then W8A8 + adaptive TeaCache
-       @0.1 over 12 steps.
+       @0.1 over ``SP_TEACACHE_STEPS`` (6) steps.
     Every rank must return the same velocity and latents, bit for bit, and
     the same n_full. K7 must launch 120 times a forward on ring and USP,
     never on Ulysses."""
@@ -4147,6 +4291,479 @@ def sp_phase() -> dict:
     return {"wall_s": wall, "ranks": [ranks[r] for r in range(SP_WORLD)]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: multi-device serving from the entry points, the ranks sharing the
+# one card over gloo
+# ---------------------------------------------------------------------------
+
+# the 5B CLI at --sp 4 (Ulysses) against one rank: each head's attention runs
+# over every token as in one rank (the 5B's Ulysses forward was 0 relative L2
+# from the unsharded one in phase 8); the other products run on each rank's
+# rows, whose cuBLAS tiling may round otherwise
+MDS_SP_REL_TOL = 1e-2
+# the frames of 8b a, b and e: the full-width 5B, smaller frames
+MDS_SIZE = (640, 352)
+# 14B sequence parallelism at full width: two whole bf16 replicas of 40
+# layers (2 x 33.3 GB) and rank 0's encoders do not fit one 80 GB card, 20
+# layers would (2 x 16.6 GB); 10 keep the phase within the script's time
+# (the ranks' transfers cross host memory over gloo: a 20-layer forward took
+# 15 s under ring and 20 s under Ulysses on an H100)
+MDS_I2V_LAYERS = 10
+# one CFG Euler step a kind (the ranks' transfers go through host memory over
+# gloo and dominate the time); two adaptive TeaCache steps, the second one
+# decided by rank 0
+MDS_I2V_STEPS, MDS_TEACACHE_STEPS = 1, 2
+# ring attention rounds each hop's output to bf16 before the fp32 merge (as
+# the reference): a forward lies within SP_REL_TOL of the unsharded one,
+# which this phase checks, and a CFG step's guided velocity v_u + 5·(v_c −
+# v_u) carries the two forwards' differences up to 1 + 2·5 = 11 times
+# further. On an H100 the 2-step ring adaptive TeaCache segment read 4.421e-2
+# at this depth, and a 1-step ring CFG Euler segment 5.486e-2 and 5.704e-2 at
+# 20 layers: the bound is about 35% above the reading at this depth, and
+# above those at twice it
+MDS_RING_CFG_REL_TOL = 6e-2
+MDS_TIMEOUT_S = 600
+MDS_K1_PER_LAYER = {"ti2v-5B": 2, "i2v-14B": 3}   # self, cross (text, CLIP)
+
+
+def _card_memory_mib() -> int:
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+class _CardPeak:
+    """The card's memory in use (every process's, by nvidia-smi), sampled
+    every 0.5 s in a thread while the block runs: the peak of ranks that are
+    other processes, in MiB."""
+
+    def __enter__(self):
+        import threading
+
+        self.mib, self._stop = _card_memory_mib(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.5):
+                self.mib = max(self.mib, _card_memory_mib())
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _stop_group(proc, sig):
+    """Signal ``proc``'s process group (the command and the ranks it
+    spawned) and wait for ``proc``."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, sig)
+        proc.wait(timeout=60)
+    except (ProcessLookupError, subprocess.TimeoutExpired):
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _rank_lines(stdout: str) -> list:
+    """The per-rank lines a --sp/--pp command prints: their JSON objects."""
+    return [json.loads(m) for m in re.findall(r"^rank \d+ of \d+: (\{.*\})$", stdout, re.M)]
+
+
+def _parallel_cli(what: str, argv: list, out_dir: str) -> dict:
+    """``python -m yume_tpu_torch.sample <argv> --output_dir out_dir`` in a
+    process group of its own (the command spawns its ranks; a timeout stops
+    them all): the wall time, the card's peak, the backend line, each rank's
+    line (DiT bytes held, peak device memory, kernel launches), rank 0's
+    phase table and when the command printed its launch and segment
+    lines."""
+    import signal
+    import threading
+
+    log(f"multi-device {what}: python -m yume_tpu_torch.sample " + " ".join(argv))
+    proc = subprocess.Popen([sys.executable, "-m", "yume_tpu_torch.sample", *argv,
+                             "--output_dir", out_dir], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    lines, err = [], []
+
+    def read(stream, into, stamp):
+        for ln in stream:
+            into.append((round(time.perf_counter() - t0, 1), ln.rstrip("\n")) if stamp
+                        else ln)
+
+    with _CardPeak() as peak:
+        t0 = time.perf_counter()
+        readers = [threading.Thread(target=read, args=a, daemon=True)
+                   for a in ((proc.stdout, lines, True), (proc.stderr, err, False))]
+        for r in readers:
+            r.start()
+        try:
+            proc.wait(timeout=MDS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            _stop_group(proc, signal.SIGKILL)
+            require(False, f"{what}: no end in {MDS_TIMEOUT_S} s")
+        for r in readers:
+            r.join()
+        wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{what}: exit code {proc.returncode}\n"
+            + "".join(err)[-4000:])
+    stdout = "\n".join(ln for _, ln in lines)
+    backend = next((ln for _, ln in lines if ln.startswith("launch:")), None)
+    ranks = _rank_lines(stdout)
+    require(backend is not None and ranks, f"{what}: no launch or rank lines\n{stdout[-2000:]}")
+    marks = [(t, ln[:40]) for t, ln in lines if ln.startswith(("launch:", "-->", "phase "))]
+    log(f"  {backend}; wall {wall:.3f} s; the card's peak {peak.mib} MiB "
+        f"({peak.mib / 1024:.2f} GiB, every process); lines at (s) {marks}")
+    table = next(i for i, (_, ln) in enumerate(lines) if ln.startswith("phase "))
+    log("\n".join(f"  | {ln}" for _, ln in lines[table:] if not ln.startswith("rank ")))
+    for r in ranks:
+        log(f"  rank {r['rank']}: DiT parameters held {r['dit_bytes']:,} B, peak device memory "
+            f"{r['peak_gib']:.2f} GiB, launches {r['launches']}")
+    return {"wall_s": wall, "card_peak_mib": peak.mib, "backend": backend, "ranks": ranks,
+            "line_times_s": marks}
+
+
+def _latents(out_dir: str, n: int) -> list:
+    return [torch.load(os.path.join(out_dir, f"segment_{s:03d}.pt")) for s in range(n)]
+
+
+def _dit_bytes(cfg) -> tuple:
+    """(the whole bf16 DiT's parameter bytes, its blocks' bytes), from the
+    config on the meta device."""
+    from yume_tpu_torch.models.dit import WanDiT
+
+    dit = WanDiT(cfg.dit, torch.bfloat16, device="meta", param_dtype=torch.bfloat16)
+    size = sum(p.numel() for p in dit.parameters()) * 2
+    return size, sum(p.numel() for p in dit.blocks.parameters()) * 2
+
+
+def _check_pp_ranks(what, run, cfg, stages, forwards):
+    """Each stage holds the DiT but the other stages' blocks, and launches K1
+    for its blocks only; no K7."""
+    whole, blocks = _dit_bytes(cfg)
+    want_held = whole - blocks * (stages - 1) // stages
+    per_layer = MDS_K1_PER_LAYER[cfg.name]
+    want_k1 = per_layer * cfg.dit.num_layers // stages * forwards
+    for r in run["ranks"]:
+        require(r["dit_bytes"] == want_held, f"{what} rank {r['rank']}: holds "
+                f"{r['dit_bytes']} B of the DiT, not {want_held}")
+        require(r["launches"]["flash_attention"] == want_k1
+                and r["launches"]["flash_attention_partial"] == 0,
+                f"{what} rank {r['rank']}: launches {r['launches']}, K1 not {want_k1}")
+    log(f"  {what}: each rank holds {want_held / whole:.3f} of the DiT's {whole:,} B "
+        f"({want_held:,} B: the blocks of its stage and all else), K1 {want_k1} a rank")
+
+
+def _mds_i2v_rank(rank, layers, steps, tc_steps) -> dict:
+    """One rank of phase 8b d (:func:`multi_device_phase`), launched by the
+    port's :func:`yume_tpu_torch.parallel.mesh.launch`."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from yume_tpu_torch.configs import i2v_14b
+    from yume_tpu_torch.ops import flash_attention as fl
+    from yume_tpu_torch.ops import fused_adaln as fa
+    from yume_tpu_torch.ops import quant_matmul as qm
+    from yume_tpu_torch.parallel.mesh import make_sp_groups
+    from yume_tpu_torch.parallel.sp_forward import sp_dit_forward
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    counters = [fl.flash_attention, fl.flash_attention_partial, fa.adaln_norm,
+                fa.adaln_residual, fa.qk_norm_rope, fa.rms_norm, qm.q8_dot]
+    dev, lead = rank.device, rank.rank == 0
+    cfg = i2v_14b()
+    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=layers))
+    t0 = time.perf_counter()
+    pipe = I2VPipeline.from_config(cfg, device=dev, seed=0, init_t5=False, init_clip=lead,
+                                   init_vae=lead)
+    out = {"rank": rank.rank, "times_s": {"init": time.perf_counter() - t0}, "launches": {},
+           "rel_l2": {}, "digests": {}}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ctx, ctx_null = (0.1 * torch.randn((1, cfg.dit.text_len, cfg.dit.text_dim), generator=gen,
+                                       device=dev) for _ in range(2))
+    shape = (1, 1, I2V_SIZE[1], I2V_SIZE[0], 3)
+    img = (torch.rand(shape, generator=gen, device=dev) * 2 - 1 if lead
+           else torch.empty(shape, device="meta"))   # the others need its shape only
+    lats = {}
+
+    def run(path, together=True, **kw):
+        if together:
+            dist.barrier()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lat, video = pipe.generate(img, ctx, ctx_null, frame_num=I2V_FRAMES, seed=1, **kw)
+        torch.cuda.synchronize()
+        out["times_s"][path] = time.perf_counter() - t1
+        out["launches"][path] = {c.__name__: c.launches for c in counters}
+        require(torch.isfinite(lat).all().item() and tuple(video.shape) ==
+                (1, I2V_FRAMES, I2V_SIZE[1], I2V_SIZE[0], 3), f"{path}: latents or video")
+        out["digests"][path] = hashlib.sha256(lat.float().cpu().numpy().tobytes()).hexdigest()
+        lats[path] = lat
+        return lat
+
+    pipe.sp_groups = make_sp_groups(rank.world)
+    # one ring forward against the unsharded one, on phase 6e's seeded inputs
+    x, t_frame, fctx, _, clip_ctx = _i2v_forward_inputs(cfg)
+    fwd = dict(latent_frame_zero=I2V_LFZ, clip_context=clip_ctx)
+    dist.barrier()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        v = sp_dit_forward(pipe.dit, pipe.sp_groups, x, t_frame, fctx, kind="ring", **fwd)
+        torch.cuda.synchronize()
+        out["times_s"]["ring forward"] = time.perf_counter() - t1
+        if lead:
+            out["rel_l2"]["ring forward"] = _rel_l2(v, pipe.dit(x, t_frame, fctx, **fwd))
+    del x, v
+    tc = dict(steps=tc_steps, sampler="teacache", teacache_threshold=HEADLINE_THRESHOLD)
+    pipe.sp_kind = "ulysses"
+    run("ulysses euler", steps=steps)
+    pipe.sp_kind = "ring"
+    run("ring adaptive teacache", **tc)
+    out["n_full"] = pipe.last_teacache_n_full
+    pipe.sp_groups = None
+    if lead:
+        for path, kw in (("ulysses euler", dict(steps=steps)), ("ring adaptive teacache", tc)):
+            ref = run(f"one rank: {path}", together=False, **kw)
+            out["rel_l2"][path] = _rel_l2(lats[path][:, -I2V_LFZ:], ref[:, -I2V_LFZ:])
+        out["n_full_one_rank"] = pipe.last_teacache_n_full
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    dist.barrier()
+    return out
+
+
+def _webapp_request(argv: list, out_dir: str, req: dict) -> dict:
+    """``python -m yume_tpu_torch.serving.webapp <argv>`` on a free port in
+    a process group of its own: one ``/api/generate_long`` request, the
+    statuses it went through, its files; then SIGINT stops the server and
+    its ranks."""
+    import signal
+    import urllib.request
+
+    log("multi-device e: python -m yume_tpu_torch.serving.webapp " + " ".join(argv))
+    proc = subprocess.Popen([sys.executable, "-m", "yume_tpu_torch.serving.webapp", *argv,
+                             "--port", "0", "--output_dir", out_dir], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines, port = [], None
+    try:
+        with _CardPeak() as peak:
+            t0 = time.perf_counter()
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                m = re.search(r"webapp on http://[\d.]+:(\d+)", line)
+                if m:
+                    port = int(m.group(1))
+                    break
+            require(port is not None, "webapp: no server line\n" + "\n".join(lines[-40:]))
+            up = time.perf_counter() - t0
+
+            def call(path, obj=None):
+                data = None if obj is None else json.dumps(obj).encode()
+                r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+                return json.loads(urllib.request.urlopen(r, timeout=60).read())
+
+            t0 = time.perf_counter()
+            require(call("/api/generate_long", req)["status"] == "started", "webapp: not started")
+            seen = []
+            while True:
+                st = call("/api/status")
+                if not seen or seen[-1] != st["status"]:
+                    seen.append(st["status"])
+                if st["status"] not in ("generating", "loaded", "idle"):
+                    break
+                require(time.perf_counter() - t0 < MDS_TIMEOUT_S, "webapp: request timed out")
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+    finally:
+        _stop_group(proc, signal.SIGINT)
+    log("\n".join(f"  | {ln}" for ln in lines if ln.startswith("launch:")))
+    return {"up_s": up, "wall_s": wall, "statuses": seen, "status": st,
+            "card_peak_mib": peak.mib}
+
+
+def multi_device_phase(jpg_5b: str, image_14b: dict) -> dict:
+    """Phase 8b: multi-device serving through the entry points a user runs,
+    every rank a process of its own and all sharing the one card over gloo
+    (so the times say nothing of multi-card speed), each command's ranks
+    spawned by the command itself; random bf16 weights from seed 0, as in
+    the one-rank runs they are held to:
+    a. ``python -m yume_tpu_torch.sample`` in image mode (phase 6d b's image
+       at ``MDS_SIZE``, 4 Euler steps, one continuation) at ``--sp 4
+       --sp_kind ulysses``: both segments' latents within
+       ``MDS_SP_REL_TOL`` of the same command's one-rank run (in this
+       process), K1 launched alike on every rank, no K7;
+    b. the same at ``--pp 2``: both segments' latents bit-equal to the
+       one-rank run's, each rank holding its stage's blocks and all else, K1
+       for its blocks;
+    c. ``--config i2v-14B`` with phase 6e's image (544×960, 28,350 tokens,
+       2 CFG steps, full depth) at ``--pp 2``: the latents bit-equal to
+       6e's first segment; each rank's bytes and K1, the card's peak;
+    d. the 14B's SP CFG segment at full width with the depth cut to
+       ``MDS_I2V_LAYERS`` (two replicas fit one card), on two ranks launched
+       by ``parallel.mesh.launch`` (rank 0 alone holds CLIP and the VAE): a
+       ring forward at 28,350 tokens within ``SP_REL_TOL`` of the unsharded
+       one, then ``I2VPipeline.generate`` with ``sp_groups``: Ulysses Euler
+       (``MDS_I2V_STEPS`` CFG steps) and ring adaptive TeaCache
+       (``MDS_TEACACHE_STEPS``), each held to the same model on one rank
+       (to ``MDS_SP_REL_TOL`` and ``MDS_RING_CFG_REL_TOL``); the same
+       latents on both ranks, the same n_full on both and on one rank, K7 on
+       every ring rank;
+    e. ``python -m yume_tpu_torch.serving.webapp --sp 2 --width 640
+       --height 352`` (the full-width 5B on smaller frames): one t2v request
+       of two segments (the t2v segment on rank 0, the continuation on
+       both), its status going ``generating`` → ``done`` and rank 0's
+       files."""
+    import shutil
+
+    from yume_tpu_torch.configs import i2v_14b, ti2v_5b
+    from yume_tpu_torch.parallel.mesh import launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"multi-device: {left:.2f} GiB left allocated in the parent; every rank a process, "
+        "the ranks sharing the one card over gloo (times are not multi-card speed)")
+    require(left < 1.0, "the SP phase left memory allocated")
+    root = os.path.join(REPO, "build", "multi_device")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # a and b: the 5B CLI, image mode and one continuation (8 forwards), on
+    # 640×352 frames: four 5B replicas beside rank 0's umT5 and its 121-frame
+    # 720p decode filled the 80 GB card (one run ended out of memory, one
+    # peaked at 79.07 GiB of 79.18)
+    from yume_tpu_torch import sample
+
+    cfg5 = ti2v_5b()
+    argv5 = ["--jpg_dir", jpg_5b, "--width", str(MDS_SIZE[0]), "--height", str(MDS_SIZE[1]),
+             "--steps", str(SERVING_STEPS), "--sample_num", "2", "--save_latents"]
+    t0 = time.perf_counter()
+    require(sample.main(argv5 + ["--output_dir", os.path.join(root, "one")]) == 0,
+            "the one-rank 5B run")
+    log(f"multi-device: the one-rank run, python -m yume_tpu_torch.sample {' '.join(argv5)}: "
+        f"{time.perf_counter() - t0:.3f} s")
+    one = _latents(os.path.join(root, "one"), 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, flags in (("a 5B --sp 4", ["--sp", "4", "--sp_kind", "ulysses"]),
+                        ("b 5B --pp 2", ["--pp", "2"])):
+        d = os.path.join(root, what.split()[0])
+        run = _parallel_cli(what, argv5 + flags, d)
+        run["files"] = _video_files(d, ["segment_000.mp4", "segment_001.mp4"])
+        got = _latents(d, 2)
+        if "--sp" in flags:
+            rel = [_rel_l2(g, w) for g, w in zip(got, one)]
+            tail = _rel_l2(got[1][:, -cfg5.latent_frame_zero:], one[1][:, -cfg5.latent_frame_zero:])
+            k1 = [r["launches"]["flash_attention"] for r in run["ranks"]]
+            log(f"  {what}: relative L2 to the one-rank run per segment {rel}, tail "
+                f"{tail:.3e}  tol {MDS_SP_REL_TOL:.0e}  "
+                f"{'ok' if max(rel) <= MDS_SP_REL_TOL else 'FAIL'}; K1 launches per rank {k1}")
+            require(max(rel) <= MDS_SP_REL_TOL, f"{what}: relative L2 {rel}")
+            require(len(set(k1)) == 1 and k1[0] > 0 and
+                    all(r["launches"]["flash_attention_partial"] == 0 for r in run["ranks"]),
+                    f"{what}: K1 launches {k1}, or K7 launched")
+            run.update(rel_l2=rel, tail_rel_l2=tail)
+        else:
+            equal = [torch.equal(g, w) for g, w in zip(got, one)]
+            log(f"  {what}: latents bit-equal to the one-rank run per segment {equal}")
+            require(all(equal), f"{what}: latents differ from one rank's: {equal}")
+            _check_pp_ranks(what, run, cfg5, 2, 2 * SERVING_STEPS)
+        out[what] = run
+
+    # c: the 14B CLI at --pp 2, full depth, against phase 6e's first segment
+    cfg14 = i2v_14b()
+    what = "c 14B --pp 2"
+    d = os.path.join(root, "c")
+    run = _parallel_cli(what, image_14b["argv"] + ["--sample_num", "1", "--save_latents",
+                                                   "--pp", "2"], d)
+    run["files"] = _video_files(d, ["segment_000.mp4"])
+    equal = torch.equal(_latents(d, 1)[0], torch.load(image_14b["latents"]))
+    log(f"  {what}: latents bit-equal to phase 6e's first segment: {equal}")
+    require(equal, f"{what}: latents differ from 6e's one-rank run")
+    _check_pp_ranks(what, run, cfg14, 2, 2 * I2V_STEPS)
+    out[what] = run
+
+    # d: the 14B's SP CFG segment at full width, 20 layers
+    what = "d 14B SP 2"
+    log(f"multi-device {what}: I2VPipeline.generate with sp_groups on 2 ranks, "
+        f"{MDS_I2V_LAYERS} of {cfg14.dit.num_layers} layers, {I2V_L} tokens")
+    t0 = time.perf_counter()
+    with _CardPeak() as peak:
+        ranks = launch(2, _mds_i2v_rank, MDS_I2V_LAYERS, MDS_I2V_STEPS, MDS_TEACACHE_STEPS)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        log(f"  {what} rank {r['rank']}: peak {r['peak_gib']:.2f} GiB; times (s) "
+            f"{ {k: round(v, 3) for k, v in r['times_s'].items()} }; launches {r['launches']}")
+    for path in ranks[1]["digests"]:
+        require(ranks[1]["digests"][path] == r0["digests"][path],
+                f"{what} {path}: the ranks' latents differ")
+    require(ranks[1]["n_full"] == r0["n_full"] == r0["n_full_one_rank"],
+            f"{what}: n_full {ranks[1]['n_full']} and {r0['n_full']}, one rank "
+            f"{r0['n_full_one_rank']}")
+    want_k7 = {"ulysses euler": 0}
+    # a cached step runs the num_layers // 4 blocks at each end
+    n_full, live = r0["n_full"], 2 * (MDS_I2V_LAYERS // 4)
+    want_k7["ring adaptive teacache"] = 2 * 2 * (n_full * MDS_I2V_LAYERS
+                                                 + (MDS_TEACACHE_STEPS - n_full) * live)
+    for path, k7 in want_k7.items():
+        got = [r["launches"][path]["flash_attention_partial"] for r in ranks]
+        require(got == [k7, k7], f"{what} {path}: K7 launches per rank {got}, not {k7}")
+    tols = {"ring forward": SP_REL_TOL, "ulysses euler": MDS_SP_REL_TOL,
+            "ring adaptive teacache": MDS_RING_CFG_REL_TOL}
+    for path, rel in r0["rel_l2"].items():
+        log(f"  {what} {path}: relative L2 to one rank {rel:.3e}  tol {tols[path]:.0e}  "
+            f"{'ok' if rel <= tols[path] else 'FAIL'}")
+    for path, rel in r0["rel_l2"].items():
+        require(rel <= tols[path], f"{what} {path}: relative L2 {rel}")
+    log(f"  {what}: latents identical on both ranks; adaptive TeaCache n_full {n_full} of "
+        f"{MDS_TEACACHE_STEPS} on both; K7 per ring rank {want_k7}; wall {wall:.3f} s; "
+        f"the card's peak {peak.mib} MiB")
+    out[what] = {"wall_s": wall, "card_peak_mib": peak.mib, "ranks": ranks}
+
+    # e: the webapp at --sp 2, one t2v request of two segments
+    what = "e webapp --sp 2"
+    d = os.path.join(root, "e")
+    run = _webapp_request(["--sp", "2", "--width", str(MDS_SIZE[0]),
+                           "--height", str(MDS_SIZE[1])], d,
+                          {"mode": "t2v", "segments": 2, "steps": 2, "seed": 0})
+    st = run["status"]
+    log(f"  {what}: statuses {run['statuses']}; up in {run['up_s']:.3f} s, request "
+        f"{run['wall_s']:.3f} s; files {st['outputs']}; the card's peak {run['card_peak_mib']} "
+        f"MiB")
+    require(run["statuses"][-2:] == ["generating", "done"] and len(st["outputs"]) == 2 and
+            all(os.path.exists(f) for f in st["outputs"]),
+            f"{what}: statuses {run['statuses']}, status {st}")
+    out[what] = run
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"multi-device: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def _multi_launches(multi: dict, key: str) -> dict:
+    """Phase 8b's launches of one kernel, per rank: each command's (a–c),
+    and each path of d."""
+    out = {}
+    for what, run in multi.items():
+        if not isinstance(run, dict) or "ranks" not in run:
+            continue
+        launches = [r["launches"] for r in run["ranks"]]
+        if all(isinstance(n, int) for n in launches[0].values()):   # a command's counts
+            out[what] = [n.get(key, 0) for n in launches]
+        else:                  # d's, by path (the one-rank paths are rank 0's alone)
+            for path in launches[0]:
+                out[f"{what}: {path}"] = [n[path].get(key, 0) for n in launches if path in n]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU fallback here",
@@ -4164,6 +4781,9 @@ def main() -> int:
     from yume_tpu_torch.ops import quant_matmul as qm
     from yume_tpu_torch.ops import flash_attention as fl
     from yume_tpu_torch.ops.flash_attention import flash_attention
+
+    def done(phase):
+        log(f"chip_smoke: {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     smi = device_phase()
     build_phase()
@@ -4194,16 +4814,21 @@ def main() -> int:
     log("kernels vs plain versions at the 5B segment shapes:")
     gen = torch.Generator(device="cuda").manual_seed(0)
     attention_and_glue_kernels(results, gen)
+    done("phase 3: the 5B shapes")
     i2v_kernels(results, gen)
     batch2_kernels(results, gen)
     video_kernels(results, gen)
     train_14b_kernels(results, gen)
+    done("phase 3: the 14B, batch-2, video and trainer shapes")
     quant_matmul_kernel(results, gen)
     storage = {"block": block_quantization_check(gen),
                "relay": quantized_storage_kernels(results, gen)}
+    done("phase 3: K6 and the quantized storage")
     flash_backward_kernels(results, gen)
     partial_attention_kernel(results, gen)
+    sp_attention_kernels(results, gen)
     bias_act_kernel(results, gen)
+    done("phase 3")
     torch.cuda.empty_cache()
     reference_phase()
     gradient_reference_phase()
@@ -4215,15 +4840,26 @@ def main() -> int:
     counters = [flash_attention, fa.adaln_norm, fa.adaln_residual, fa.qk_norm_rope,
                 fa.rms_norm, qm.q8_dot, fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv,
                 fl.flash_attention_partial, ba.bias_act]
+    done("phases 4-5")
     launches, euler_launches, t2v_launches = pipeline_phase(counters)
+    done("phases 6-6c")
     serving = serving_phase(counters)
+    done("phase 6d")
     i2v = i2v_phase(counters)
+    done("phase 6e")
     video = video_phase(counters)
+    done("phase 6f")
     quantized = quantized_phase(counters, i2v.pop("_bf16_forward"))
+    done("phase 6g")
     train_runs = train_phase(counters)
+    done("phase 7")
     train_launches = train_runs["full"]["launches"]
     train_14b = train_14b_phase(counters)
+    done("phase 7e")
     sp = sp_phase()
+    done("phase 8")
+    multi = multi_device_phase(serving["jpg"], i2v["image_run"])
+    done("phase 8b")
     sp_launches = sp["ranks"][0]["launches"]
     counter_name = {"quant_matmul": "q8_dot"}
 
@@ -4241,6 +4877,7 @@ def main() -> int:
                  "bound_by": r["cases"][0]["bound_by"],
                  "library_ms": head["library_ms"], "cases": r["cases"],
                  "launches_train_distill": train_runs["distill"]["launches"][key],
+                 "launches_multi_device_per_rank": _multi_launches(multi, key),
                  # phase 6c: the t2v first segment (4 Euler steps at 27,280
                  # tokens), its rollout, UniPC with CFG, one W8A8 forward
                  "launches_t2v_path": t2v_launches["t2v euler"][key],
@@ -4295,8 +4932,10 @@ def main() -> int:
                                  "product alone")
             for key in ("device_ms", "prepass_ms", "gemm_ms", "prepass_bound_ms",
                         "library_device_ms", "bf16_matmul_ms", "bf16_matmul_device_ms",
-                        "tops", "gemm_tops", "int_mm_tops", "bound_share"):
-                entry[key] = head[key]
+                        "tops", "gemm_tops", "int_mm_tops", "bound_share",
+                        "device_lost_records"):
+                if key in head:
+                    entry[key] = head[key]
         if backward:
             entry["timed_as"] = ("plain_ms and library_ms (the backward of "
                                  "F.scaled_dot_product_attention) compute dq, dk and dv "
@@ -4323,6 +4962,7 @@ def main() -> int:
     log("train: " + json.dumps(train))
     log("train 14B: " + json.dumps({k: v for k, v in train_14b.items() if k != "launches"}))
     log("sp: " + json.dumps(sp))
+    log("multi-device: " + json.dumps(multi))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

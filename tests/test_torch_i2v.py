@@ -12,7 +12,8 @@ FramePack) with perturbed parameters converted to the port:
 * ``generate`` with every sampler (euler, teacache at a fixed interval and
   adaptive, sde, time_travel, tts, the distilled cond-only mode) and two
   ``generate_next`` continuations, on JAX's noise and churn draws injected;
-* the refusals of what is not ported.
+* the refusals (pipeline-parallel staging without a process group:
+  ``tests/test_torch_pp.py`` runs it).
 
 fp32. Tolerances: the toy samplers 1e-5 (fp32 elementwise steps, their
 scalars rounded alike); one cross-attention 1e-5; the DiT outputs, ``y``,
@@ -418,5 +419,6 @@ def test_pipeline_refusals(pipes):
     img, ctx = _t(_frames(120, 1)), _t(_ctx(121))
     with pytest.raises(NotImplementedError, match="distilled"):
         tpipe.generate(img, ctx, None, frame_num=FRAMES, steps=2, sampler="teacache")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tpipe.parallelize_pp(2)
+    # staging needs a process group of the stages (tests/test_torch_pp.py)
+    with pytest.raises(RuntimeError, match="initialise the default process group"):
+        dataclasses.replace(tpipe).parallelize_pp(2)

@@ -284,7 +284,8 @@ def test_port_imports_no_jax():
               "yume_tpu_torch.training.i2v_batch", "yume_tpu_torch.training.distill",
               "yume_tpu_torch.diffusion.integrators",
               "yume_tpu_torch.diffusion.distill_schedule", "yume_tpu_torch.utils.stats",
-              "yume_tpu_torch.data.diffaugment"):
+              "yume_tpu_torch.data.diffaugment", "yume_tpu_torch.parallel.pipeline",
+              "yume_tpu_torch.parallel.route"):
         assert m in mods, m
     smoke = _chip_smoke_imports()
     assert "from yume_tpu_torch.ops import quant_matmul as qm" in smoke

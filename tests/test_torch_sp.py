@@ -9,6 +9,17 @@ JAX pipeline with a mesh (Euler; interval TeaCache with and without W8A8;
 W8A8 + adaptive TeaCache, whose refresh decisions must agree on every
 rank). Weights are carried across by ``utils/convert.py``.
 
+The 14B model (``tests/test_torch_i2v.py``'s tiny i2v pipeline):
+``sp_dit_forward`` with the CLIP context against ``sp_dit_apply``, and
+``I2VPipeline.generate`` with ``sp_groups`` on ranks 0 and 1 (sp 2; rank 0
+alone holds the VAE, umT5 and CLIP, and hands the conditioning and the
+noise to rank 1) against the JAX pipeline with a 2-device mesh, on JAX's
+noise: CFG Euler, ``cfg_parallel``, and adaptive TeaCache, whose refresh
+decisions are rank 0's on both ranks (n_full equal to JAX's). Its latents
+are held to 1e-4, the TeaCache ones to the 2e-3 of
+``tests/test_torch_i2v.py`` (a bf16 residual a rounding apart), and the
+videos to 1e-3 and 2e-2.
+
 fp32 inputs from numpy seeds. Tolerances: attention 1e-5, the DiT and its
 cache 1e-4, latents 1e-4 (as tests/test_torch_teacache.py: the order of
 float32 sums differs between XLA:CPU and ATen, and between the sharded and
@@ -26,13 +37,17 @@ import pytest
 import torch
 
 import torch_parity
+from test_torch_i2v import BF16_STEP_TOL, BF16_STEP_VIDEO_TOL, TINY as I2V, VIDEO_TOL
 from test_torch_pipeline import _params
+from test_torch_pp import SIZE, i2v_model  # noqa: F401 (a fixture)
 from test_torch_teacache import CFG, F_HIST, LFZ, STEPS
 from torch_parity import assert_close, port_config
 from yume_tpu.models.dit import WanDiT as JaxDiT
 from yume_tpu.parallel.mesh import make_mesh, make_usp_mesh
 from yume_tpu.pipelines.ti2v import TI2VPipeline as JaxPipeline
+from yume_tpu_torch.models.quantized import quantize_dit_blocks
 from yume_tpu_torch.parallel.mesh import SPGroups
+from yume_tpu_torch.pipelines.i2v import I2VPipeline
 from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
 from yume_tpu_torch.utils import convert
 
@@ -203,3 +218,87 @@ def test_sp_refuses_samplers_that_bypass_the_sp_forward():
         with pytest.raises(NotImplementedError, match="SP serving"):
             pipe.generate_segment(torch.zeros((1, F_HIST, 4, 4, 8)), torch.zeros((1, 16, 16)),
                                   sampler=sampler)
+
+
+# -- the 14B model ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def i2v_dit(ranks, i2v_model):
+    """The tiny i2v DiT on every rank (key "i2v")."""
+    jpipe, sds = i2v_model
+    ranks.run("rank_load_dit", "i2v", port_config(I2V.dit), sds["dit"])
+    return jpipe
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_sp_dit_forward_with_clip_context_matches_sp_dit_apply(ranks, i2v_dit, kind):
+    """Every rank embeds the CLIP tokens with the text; cross-attention over
+    both stays local."""
+    from yume_tpu.parallel.sp_forward import sp_dit_apply
+
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((1, F_HIST + LFZ, 8, 8, 18)).astype(np.float32)
+    t = np.concatenate([np.zeros((1, F_HIST)), np.full((1, LFZ), 700.0)], 1).astype(np.float32)
+    ctx = rng.standard_normal((1, 16, 16)).astype(np.float32)
+    clip = rng.standard_normal((1, 5, 12)).astype(np.float32)
+    want = jax.jit(lambda x, t, c, k: sp_dit_apply(
+        JaxDiT(I2V.dit, dtype=jnp.float32), i2v_dit.dit_params, _mesh(kind), x, t, c,
+        latent_frame_zero=LFZ, clip_context=k, kind=kind))(x, t, ctx, clip)
+    got = ranks.run("rank_sp_dit", "i2v", kind, x, t, ctx, LFZ, (), None, False, clip)
+    assert np.abs(np.asarray(want)).max() > 1e-2
+    assert_close(_same_on_every_rank(got), want, OUT_TOL)
+
+
+# mode: (generate kwargs, steps) — sp 2 on ranks 0 and 1, Ulysses and ring
+I2V_MODES = {
+    "euler_ulysses": ("ulysses", dict(), 2),
+    "euler_ring_cfg_parallel": ("ring", dict(cfg_parallel=True), 2),
+    "teacache_adaptive_ring": ("ring", dict(sampler="teacache", teacache_threshold=0.3), 5),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(I2V_MODES))
+def test_sp_i2v_generate_matches_jax(ranks, i2v_dit, mode):
+    import dataclasses as dc
+
+    kind, kw, steps = I2V_MODES[mode]
+    rng = np.random.default_rng(34)
+    img = rng.uniform(-1, 1, (1, 1, SIZE, SIZE, 3)).astype(np.float32)
+    ctx, ctx_null = (rng.standard_normal((1, 16, 16)).astype(np.float32) for _ in range(2))
+    seed = 3
+    noise = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1, 3, 8, 8, 8),
+                                         jnp.float32))
+    mesh = make_mesh(data=1, fsdp=1, sp=2, devices=jax.devices()[:2])
+    jpipe = dc.replace(i2v_dit, mesh=mesh, sp_kind=kind, _cond_cache=None,
+                       cfg_parallel=kw.get("cfg_parallel", False))
+    jkw = {k: v for k, v in kw.items() if k != "cfg_parallel"}
+    want_lat, want_video = jpipe.generate(jnp.asarray(img), jnp.asarray(ctx),
+                                          jnp.asarray(ctx_null), frame_num=5, steps=steps,
+                                          seed=seed, **jkw)
+    results = ranks.run("rank_i2v_generate", "sp2", port_config(I2V), convert.pipeline_state_dicts(
+        i2v_dit), img, ctx, ctx_null, noise, dict(frame_num=5, steps=steps, seed=seed, **kw),
+        kind)
+    assert results[2:] == [None, None]          # ranks outside the group
+    (lat0, n_full0, video), (lat1, n_full1, shape1) = results[:2]
+    np.testing.assert_array_equal(lat1, lat0)
+    assert shape1 == video.shape == (1, 5, SIZE, SIZE, 3)
+    lat_tol, video_tol = LATENT_TOL, VIDEO_TOL
+    if "teacache_threshold" in kw:
+        lat_tol, video_tol = BF16_STEP_TOL, BF16_STEP_VIDEO_TOL
+        assert n_full0 == n_full1 == int(jpipe.last_teacache_n_full)
+        assert 1 < n_full0 < steps
+    assert_close(lat0, want_lat, lat_tol)
+    assert_close(video, want_video, video_tol)
+
+
+def test_sp_i2v_refuses_the_storage_trunk(i2v_dit):
+    """The JAX guard: the int8/int4 storage trunk is single-chip."""
+    sds = convert.pipeline_state_dicts(i2v_dit)
+    pipe = I2VPipeline.from_state_dicts(port_config(I2V), sds["dit"], None, device="cpu",
+                                        dtype=torch.float32)
+    quantize_dit_blocks(pipe.dit, 8)
+    pipe.sp_groups = SPGroups(group=None, sp=2, rank=0)
+    with pytest.raises(NotImplementedError, match="storage trunk is single-chip"):
+        pipe.generate(torch.zeros((1, 1, SIZE, SIZE, 3)), torch.zeros((1, 16, 16)),
+                      torch.zeros((1, 16, 16)), frame_num=5, steps=2)

@@ -174,7 +174,7 @@ def _rank_main(rank, world, init_file, inbox, outbox):
 
     import torch.distributed as dist
 
-    from yume_tpu_torch.parallel.mesh import make_sp_groups, make_usp_groups
+    from yume_tpu_torch.parallel.mesh import SPGroups, make_sp_groups, make_usp_groups
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -183,6 +183,9 @@ def _rank_main(rank, world, init_file, inbox, outbox):
     sp = make_sp_groups(world)
     state = {"groups": {"ulysses": sp, "ring": sp, "usp": make_usp_groups(2, world // 2)},
              "models": {}}
+    # ranks 0 and 1 as a sequence-parallel group of 2 (the others sit out)
+    pair = dist.new_group([0, 1])
+    state["groups"]["sp2"] = SPGroups(group=pair, sp=2, rank=rank) if rank < 2 else None
     try:
         for fn, args in iter(inbox.get, None):
             try:
@@ -241,17 +244,18 @@ def rank_load_dit(state, key, cfg, sd):
 
 
 def rank_sp_dit(state, key, kind, x, t, ctx, lfz, cache_list=(), block_cache=None,
-                return_cache=False):
+                return_cache=False, clip=None):
     """``sp_dit_forward`` of the DiT under ``key``: the velocity (every
     rank's whole), and with ``return_cache`` this rank's residual chunks;
     ``block_cache``: the whole [n, B, L_pad, dim] cache, of which the rank
-    feeds back its own chunk."""
+    feeds back its own chunk; ``clip``: the 14B model's CLIP context."""
     from yume_tpu_torch.parallel.sp_forward import sp_dit_forward
 
     if block_cache is not None:
         block_cache = [_chunk(c, state) for c in block_cache]
     out = sp_dit_forward(state["models"][key], state["groups"][kind], torch.from_numpy(x),
                          torch.from_numpy(t), torch.from_numpy(ctx), latent_frame_zero=lfz,
+                         clip_context=None if clip is None else torch.from_numpy(clip),
                          kind=kind, cache_list=tuple(cache_list), block_cache=block_cache,
                          return_cache=return_cache)
     if return_cache:
@@ -271,3 +275,112 @@ def rank_sp_segment(state, key, pipe_cfg, kind, w8a8, history, ctx, noise, kw):
     out = pipe.generate_segment(torch.from_numpy(history), torch.from_numpy(ctx),
                                 noise=torch.from_numpy(noise), **kw)
     return out.numpy(), pipe.last_teacache_n_full
+
+
+# -- pipeline parallelism and the 14B pipeline (tests/test_torch_pp.py,
+# tests/test_torch_sp.py) ---------------------------------------------------
+
+
+def _port_dit(cfg, sd):
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.utils.convert import load_state_dict
+
+    dit = WanDiT(cfg, torch.float32, device="meta").to_empty(device="cpu")
+    load_state_dict(dit, sd)
+    return dit.eval()
+
+
+def _maybe(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def rank_pp_dit(state, cfg, sd, x, t, ctx, clip, packed, lfz, microbatches=None):
+    """``pp_dit_forward`` over the pool (a stage a rank) of a DiT built from
+    ``sd``, against the one-rank forward of the same DiT here: (velocity,
+    whether they are equal, bytes held after staging, bytes before, the
+    blocks' bytes before)."""
+    import torch.distributed as dist
+
+    from yume_tpu_torch.parallel.pipeline import (held_bytes, keep_stage_, make_pp_groups,
+                                                  pp_dit_forward)
+
+    dit = _port_dit(cfg, sd)
+    args = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx))
+    kw = dict(packed=packed, latent_frame_zero=lfz, clip_context=_maybe(clip))
+    one = dit(*args, **kw)
+    total, blocks = held_bytes(dit), held_bytes(dit.blocks)
+    groups = make_pp_groups(dist.get_world_size())
+    held = keep_stage_(dit, groups)
+    got = pp_dit_forward(dit, groups, *args, num_microbatches=microbatches, **kw)
+    return got.numpy(), torch.equal(got, one), held, total, blocks
+
+
+def rank_pp_ti2v(state, pipe_cfg, sd, method, args, kw):
+    """``TI2VPipeline.<method>(*args, **kw)`` (``generate_segment`` or
+    ``generate_t2v``) of a DiT-only pipeline, staged over the pool."""
+    from yume_tpu_torch.pipelines.ti2v import TI2VPipeline
+
+    pipe = TI2VPipeline(pipe_cfg, _port_dit(pipe_cfg.dit, sd), None)
+    pipe.parallelize_pp(torch.distributed.get_world_size())
+    args = [torch.from_numpy(a) for a in args]
+    kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    return getattr(pipe, method)(*args, **kw).numpy()
+
+
+def rank_i2v_generate(state, kind, pipe_cfg, sds, img, ctx, ctx_null, noise, kw,
+                      kind_name=None):
+    """``I2VPipeline.generate`` as one rank of a ``kind`` run ("pp", or
+    sequence parallel over ``state["groups"][kind]`` with attention
+    ``kind_name``): rank 0 holds the VAE, umT5 and CLIP, the other ranks
+    the DiT alone and the image as a meta tensor. (latents, n_full, video
+    or None); None on a rank outside the group."""
+    from yume_tpu_torch.pipelines.i2v import I2VPipeline
+
+    groups = None if kind == "pp" else state["groups"][kind]
+    rank = torch.distributed.get_rank()
+    if kind != "pp" and groups is None:
+        return None
+    encoders = rank == 0
+    pipe = I2VPipeline.from_state_dicts(
+        pipe_cfg, sds["dit"], sds["vae"] if encoders else None,
+        sds["t5"] if encoders else None, sds["clip"] if encoders else None, device="cpu",
+        dtype=torch.float32)
+    if kind == "pp":
+        pipe.parallelize_pp(torch.distributed.get_world_size())
+    else:
+        pipe.sp_groups, pipe.sp_kind = groups, kind_name
+    pipe.cfg_parallel = kw.pop("cfg_parallel", False)
+    image = torch.from_numpy(img) if encoders else torch.empty(img.shape, device="meta")
+    lat, video = pipe.generate(image, torch.from_numpy(ctx), _maybe(ctx_null),
+                               noise=torch.from_numpy(noise), **kw)
+    return (lat.numpy(), pipe.last_teacache_n_full,
+            video.numpy() if encoders else tuple(video.shape))
+
+
+def rank_webapp_decode_failure(rank, args):
+    """One rank of a parallel webapp (``parallel.mesh.launch``) whose rank
+    0 fails its first decode: each request's (status, progress) on this
+    rank, for that request and the one after it."""
+    from yume_tpu_torch.serving.webapp import WebApp
+
+    torch.set_num_threads(1)
+    app = WebApp(args, rank)
+    app.load_models()
+    if rank.rank == 0:
+        decode, calls = app.pipe.decode_auto, []
+
+        def fail_once(z):
+            calls.append(z)
+            if len(calls) == 1:
+                raise RuntimeError("decode failed on rank 0")
+            return decode(z)
+        app.pipe.decode_auto = fail_once
+    out = []
+    for req in ({"mode": "t2v", "steps": 2, "segments": 2, "seed": 5},
+                {"mode": "t2v", "steps": 2, "seed": 6}):
+        if app.leader:
+            app.lock.acquire()   # the HTTP handler's, which generate releases
+        app.generate(req)
+        out.append((app.status, app.progress))
+    app.close()
+    return out

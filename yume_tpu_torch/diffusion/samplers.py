@@ -422,11 +422,13 @@ def cfg_euler_sample_segment_cached_adaptive(
     guide_scale: float,
     *,
     threshold: float = 0.15,
+    decide: Optional[Callable[[bool], bool]] = None,
 ) -> Tuple[torch.Tensor, int]:
     """The CFG form of :func:`euler_sample_segment_cached_adaptive`: the
     cond and uncond caches refresh together when the accumulated rel-L1
     change of the tail latent (their shared input) reaches ``threshold``.
-    Step 0 runs full. Returns ``(latent, n_full)``."""
+    Step 0 runs full. ``decide`` as there (rank 0's decision under sequence
+    parallelism). Returns ``(latent, n_full)``."""
     r = _Renoise(latent, noise, latent_frame_zero)
     sig = np.asarray(sigmas, np.float32)
     latent = r.start(sig[0])
@@ -441,7 +443,10 @@ def cfg_euler_sample_segment_cached_adaptive(
         cur_tail = latent[:, -latent_frame_zero:]
         accum = accum + _rel_l1(cur_tail, prev_tail).float()
         t_frame = r.t_frame(sig[i], latent.device)
-        if bool(accum >= threshold):  # one host read per step
+        refresh = bool(accum >= threshold)  # one host read per step
+        if decide is not None:
+            refresh = decide(refresh)
+        if refresh:
             v_c, cache_c = denoise_full(latent, t_frame, ctx)
             v_u, cache_u = denoise_full(latent, t_frame, ctx_null)
             accum = torch.zeros_like(accum)

@@ -16,14 +16,32 @@ Ulysses-major: ``rank = i_u·sp_r + i_r``, so the chunk order is the
 
 The ``data`` and ``fsdp`` axes and the parameter-sharding rules wait for
 FSDP: every rank of the default group is one sequence-parallel rank.
+
+:func:`launch` starts the ranks of a multi-device run from one command
+(the JAX package drives its devices from one process): it spawns one
+process a rank, joins them in the default group over a ``file://``
+rendezvous, and gives each its device, ``cuda:(rank % cards)``. The
+backend is NCCL when every rank has a card of its own, else gloo, which
+the collectives here stage through host memory. :func:`from_rank0` hands
+every rank what only rank 0 computes (the encoders and the VAE live
+there).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import datetime
+import os
+import sys
+import tempfile
+import traceback
+from typing import Any, Callable, Optional
 
+import torch
 import torch.distributed as dist
+
+# how long a collective waits for the other ranks before it raises
+COLLECTIVE_TIMEOUT_S = 1800
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +102,200 @@ def make_usp_groups(sp_u: int, sp_r: int) -> SPGroups:
             ring = g
     return SPGroups(group=dist.group.WORLD, sp=sp_u * sp_r, rank=rank, ulysses=ulysses,
                     ring=ring, sp_u=sp_u, sp_r=sp_r, i_u=i_u, i_r=i_r)
+
+
+# -- launching the ranks of one run ------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Rank:
+    """One process of a :func:`launch`: its rank in the default group of
+    ``world`` ranks, its device and the group's backend."""
+
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+
+
+def backend_for(device_type: str, world: int) -> str:
+    """NCCL when every rank has a card of its own, else gloo (NCCL refuses
+    two ranks on one device; gloo serves ranks that share a card, or the
+    CPU)."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _rank_entry(rank, world, init_file, device, fn, args, results):
+    """A spawned rank: join the default group, run ``fn``, report its result
+    or its traceback to the parent and leave the group."""
+    try:
+        dev = torch.device(device)
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            dev = torch.device("cuda", rank % cards)
+            torch.cuda.set_device(dev)
+        backend = backend_for(dev.type, world)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        try:
+            if rank == 0:
+                print(f"launch: {world} ranks over {backend}, {cards} card(s)", flush=True)
+            out = fn(Rank(rank, world, dev, backend), *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:  # the parent reports it and stops every rank
+        results.put((rank, "error", traceback.format_exc()))
+        sys.exit(1)
+
+
+def launch(world: int, fn: Callable, *args, device: str = "cuda") -> list:
+    """``fn(Rank, *args)`` on ``world`` spawned processes joined in one
+    default group; their results in rank order. ``fn`` and ``args`` must
+    pickle (a module-level function). Rank 0 prints the backend, the world
+    size and the card count. A rank that raises or dies stops every rank
+    and raises here with its traceback, so a failed run ends, never hangs;
+    each collective gives up after ``COLLECTIVE_TIMEOUT_S``."""
+    import multiprocessing
+    import queue
+    import signal
+    import threading
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    if main_thread:
+        # a terminated parent still stops its ranks (the finally below)
+        on_term = signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="yume_launch_") as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_entry, daemon=True,
+                             args=(r, world, init_file, str(device), fn, args, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            while len(out) < world:
+                try:
+                    rank, status, payload = results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise RuntimeError(f"rank {dead[0]} exited with code "
+                                           f"{procs[dead[0]].exitcode}") from None
+                    continue
+                if status == "error":
+                    raise RuntimeError(f"rank {rank} of {world} failed:\n{payload}")
+                out[rank] = payload
+            for p in procs:
+                p.join()
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            if main_thread:
+                signal.signal(signal.SIGTERM, on_term)
+    return [out[r] for r in range(world)]
+
+
+# -- what rank 0 computes, on every rank --------------------------------------
+
+
+def staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` crosses the group through host memory. Gloo runs its
+    collectives on host buffers and its point-to-point send and recv take
+    CPU tensors only, so under gloo a CUDA tensor is copied to the host
+    and back explicitly, in one place, instead of relying on what each gloo
+    collective does with device memory. NCCL sends device tensors
+    directly."""
+    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` overwritten with global rank ``src``'s, in place; returns it."""
+    buf = t.cpu() if staged(t, group) else t
+    dist.broadcast(buf, src=src, group=group)
+    if buf is not t:
+        t.copy_(buf)
+    return t
+
+
+def _spec(out):
+    if out is None:
+        return None
+    if torch.is_tensor(out):
+        return (tuple(out.shape), out.dtype)
+    return type(out), [_spec(o) for o in out]
+
+
+def _empty(spec, device):
+    if spec is None:
+        return None
+    if isinstance(spec[0], type):
+        return spec[0](_empty(s, device) for s in spec[1])
+    return torch.empty(spec[0], dtype=spec[1], device=device)
+
+
+def _leaves(out):
+    if out is None:
+        return []
+    if torch.is_tensor(out):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
+
+
+def _rank0_says(fn: Callable[[], Any], group, describe: Callable[[Any], Any]):
+    """(``fn()`` on rank 0 of ``group``, None on the others; ``describe``
+    of it on the others, None on rank 0). Rank 0 tells the others whether
+    ``fn`` raised; its exception is raised on every rank (a RuntimeError
+    that names it on the others), so all leave the step together."""
+    src = dist.get_global_rank(group, 0)
+    if dist.get_rank(group) == 0:
+        try:
+            out = fn()
+        except Exception as e:
+            dist.broadcast_object_list([("error", f"{type(e).__name__}: {e}")], src=src,
+                                       group=group)
+            raise
+        dist.broadcast_object_list([("ok", describe(out))], src=src, group=group)
+        return out, None
+    box = [None]
+    dist.broadcast_object_list(box, src=src, group=group)
+    status, said = box[0]
+    if status == "error":
+        raise RuntimeError(f"rank 0 failed: {said}")
+    return None, said
+
+
+def from_rank0(fn: Callable[[], Any], group, device) -> Any:
+    """``fn()`` computed on rank 0 of ``group`` only, its result on every
+    rank: a tensor, None, or a tuple or list of them, on ``device`` on the
+    other ranks. An exception of ``fn`` on rank 0 is raised on every rank
+    (a RuntimeError that names it on the others), so no rank waits for a
+    result that will not come. Without a group, ``fn()``."""
+    if group is None:
+        return fn()
+    out, spec = _rank0_says(fn, group, _spec)
+    if dist.get_rank(group) != 0:
+        out = _empty(spec, device)
+    src = dist.get_global_rank(group, 0)
+    for t in _leaves(out):
+        broadcast_(t, src, group)
+    return out
+
+
+def on_rank0_only(fn: Callable[[], Any], group, elsewhere: Callable[[], Any] = lambda: None):
+    """``fn()`` on rank 0 of ``group`` (a step only rank 0 can take: a
+    decode, the encoders' offload), ``elsewhere()`` on the other ranks; an
+    exception of ``fn`` is raised on every rank, as :func:`from_rank0`'s,
+    so no rank goes on to the next collective alone. Without a group,
+    ``fn()``."""
+    if group is None:
+        return fn()
+    out, _ = _rank0_says(fn, group, lambda _: None)
+    return out if dist.get_rank(group) == 0 else elsewhere()

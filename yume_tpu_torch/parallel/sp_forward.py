@@ -3,13 +3,15 @@ yume_tpu/parallel/sp_forward.py): one rank's part of a packed forward
 whose token axis is sharded over an sp group between embedding and
 unpatchify.
 
-Every rank embeds the whole input (cheap, and the same on every rank),
-pads L to a multiple of sp, and runs the 30 blocks and the head on its own
-chunk of tokens with their per-token modulation indices and RoPE rows (the
-reference's rank-sliced RoPE). Self-attention goes through Ulysses, ring
-or USP attention with ``kv_len`` masking the pad tokens; cross-attention is
-local. The head's output is gathered from every rank, cut to the true
-length and unpatchified, so every rank returns the same velocity.
+Every rank embeds the whole input (cheap, and the same on every rank;
+the 14B's CLIP tokens with the text context), pads L to a multiple of sp,
+and runs the blocks and the head on its own chunk of tokens with their
+per-token modulation indices and RoPE rows (the reference's rank-sliced
+RoPE). Self-attention goes through Ulysses, ring or USP attention with
+``kv_len`` masking the pad tokens; cross-attention is local. A batch of
+two (batched CFG) passes through as it is. The head's output is gathered
+from every rank, cut to the true length and unpatchified, so every rank
+returns the same velocity.
 """
 
 from __future__ import annotations
@@ -43,14 +45,16 @@ def sp_dit_forward(
     context: torch.Tensor,
     *,
     latent_frame_zero: int = 8,
+    clip_context: Optional[torch.Tensor] = None,
     kind: str = "ulysses",
     cache_list: tuple = (),
     block_cache: Optional[list] = None,
     return_cache: bool = False,
 ):
-    """This rank's part of ``dit(x, t_frame, context, latent_frame_zero=...)``
-    with the trunk sequence-sharded over ``groups`` (kind ``"ulysses"``,
-    ``"ring"`` or ``"usp"``; USP needs :func:`make_usp_groups`). Every rank
+    """This rank's part of ``dit(x, t_frame, context, latent_frame_zero=...,
+    clip_context=...)`` with the trunk sequence-sharded over ``groups``
+    (kind ``"ulysses"``, ``"ring"`` or ``"usp"``; USP needs
+    :func:`make_usp_groups`). Every rank
     of the group calls it with the same inputs and gets the whole tail
     velocity [B, latent_frame_zero, H, W, C_out].
 
@@ -59,7 +63,7 @@ def sp_dit_forward(
     the ``cache_list`` blocks' residuals of this rank's tokens [B, L_pad/sp,
     dim], which stay on the rank; ``block_cache`` feeds them back on a
     cached step."""
-    emb = dit.embed_packed(x, t_frame, context, latent_frame_zero)
+    emb = dit.embed_packed(x, t_frame, context, latent_frame_zero, clip_context)
     tokens = emb["tokens"]
     b, l_true, _ = tokens.shape
     sp = groups.sp

@@ -20,21 +20,11 @@ import torch.distributed as dist
 
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention_partial
-from .mesh import SPGroups
+from .mesh import SPGroups, staged
 
 # the lse a ring starts from (the reference's): below every real lse, far
 # above the kernel's MASKED_LSE, so a block with no live key weighs nothing
 _INITIAL_LSE = -1e30
-
-
-def _staged(t: torch.Tensor, group) -> bool:
-    """Whether ``t`` crosses the group through host memory. Gloo runs its
-    collectives on host buffers and its point-to-point send and recv take
-    CPU tensors only, so under gloo a CUDA tensor is copied to the host
-    and back explicitly, in one place, instead of relying on what each gloo
-    collective does with device memory. NCCL sends device tensors
-    directly."""
-    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
 
 
 def _all_to_all(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
@@ -47,12 +37,12 @@ def _all_to_all(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> to
         raise ValueError(f"all_to_all: dim {scatter_dim} of {tuple(x.shape)} "
                          f"does not split over {sp} ranks")
     send = torch.stack(x.chunk(sp, dim=scatter_dim))  # [sp, ...] contiguous
-    staged = _staged(x, group)
-    if staged:
+    via_host = staged(x, group)
+    if via_host:
         send = send.cpu()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    if staged:
+    if via_host:
         recv = recv.to(x.device)
     return torch.cat(recv.unbind(0), dim=gather_dim)
 
@@ -64,7 +54,7 @@ def _ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     i = dist.get_rank(group)
     dst = dist.get_global_rank(group, (i + 1) % sp)
     src = dist.get_global_rank(group, (i - 1) % sp)
-    sends = [t.cpu() if _staged(t, group) else t.contiguous() for t in tensors]
+    sends = [t.cpu() if staged(t, group) else t.contiguous() for t in tensors]
     recvs = [torch.empty_like(s) for s in sends]
     ops = ([dist.P2POp(dist.isend, s, dst, group) for s in sends]
            + [dist.P2POp(dist.irecv, r, src, group) for r in recvs])
@@ -76,8 +66,7 @@ def _ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     send = x.contiguous()
-    staged = _staged(x, group)
-    if staged:
+    if staged(x, group):
         send = send.cpu()
     parts = [torch.empty_like(send) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, send, group=group)

@@ -24,13 +24,22 @@ or built block by block by :func:`..models.quantized.quantize_host_blocks`
 into a pipeline made with ``init_dit=False``) runs every sampler,
 TeaCache in the reference's delta-cache form (``cache_edge``).
 
-Not ported yet, refused with its ROADMAP queue 1 item: pipeline and
-sequence parallelism (``parallelize_pp``, a mesh; item 8).
+Multi-device serving, as the TI2V pipeline's (:mod:`.ti2v`): with
+``sp_groups`` every DiT forward of every sampler shards its tokens over
+the group (:func:`..parallel.sp_forward.sp_dit_forward` with the CLIP
+context; kind ``sp_kind``), the adaptive TeaCache decision is rank 0's;
+with ``pp_groups`` (:meth:`I2VPipeline.parallelize_pp`) the CFG Euler
+sampler's forwards run staged (:func:`..parallel.pipeline.pp_dit_forward`).
+Either way umT5, CLIP and the VAE live on rank 0: the conditioning, the
+contexts and the seeded noise are computed there and handed to every rank,
+the decode runs there alone, and the other ranks' videos are meta tensors
+of their shape, so every rank makes the same calls with the same arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
@@ -44,6 +53,10 @@ from ..models.dit import WanDiT
 from ..models.quantized import is_quantized, quantize_dit_blocks
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode
+from ..parallel.mesh import SPGroups, from_rank0
+from ..parallel.pipeline import PPGroups
+from ..parallel.route import decoded_placeholder, dit_forward, on_rank0, run_group, stage_dit
+from ..parallel.ulysses import agree
 from .ti2v import build_modules, module_factories, w8a8_twin
 
 _TTS_SAMPLERS = ("sde", "time_travel", "tts")
@@ -70,17 +83,15 @@ def build_mask_channels(frame_num: int, lat_h: int, lat_w: int, *, cond_pixel_fr
     return m[None, :, None, None, :].expand(batch, -1, lat_h, lat_w, -1).contiguous()
 
 
-def _factories(config: PipelineConfig, dtype: torch.dtype, *, t5: bool, clip: bool):
-    """The DiT's, the VAE's, umT5's and CLIP's factories; None for an
-    encoder left out."""
+def _factories(config: PipelineConfig, dtype: torch.dtype, *, dit: bool, vae: bool, t5: bool,
+               clip: bool):
+    """The DiT's, the VAE's, umT5's and CLIP's factories; None for a module
+    left out."""
     dit_f, vae_f, t5_f = module_factories(config, dtype)
     clip_f = (lambda device: CLIPVisual(config.clip, dtype, device=device,
                                         param_dtype=dtype))
-    return dit_f, vae_f, t5_f if t5 else None, clip_f if clip else None
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"not ported yet: {what} (ROADMAP queue 1, item {item})")
+    return (dit_f if dit else None, vae_f if vae else None, t5_f if t5 else None,
+            clip_f if clip else None)
 
 
 @dataclasses.dataclass(eq=False)
@@ -104,6 +115,11 @@ class I2VPipeline:
     # the streaming VAE encoder's state after the last history encode
     # (_encode_history_incremental)
     _cond_cache: Optional[dict] = None
+    # sequence-parallel serving: this rank's groups and the attention kind
+    sp_groups: Optional[SPGroups] = None
+    sp_kind: str = "ulysses"
+    # pipeline-parallel serving: this rank's stage (parallelize_pp)
+    pp_groups: Optional[PPGroups] = None
 
     @property
     def device(self) -> torch.device:
@@ -114,6 +130,7 @@ class I2VPipeline:
     @classmethod
     def from_config(cls, config: PipelineConfig, *, device="cuda", seed: int = 0,
                     init_t5: bool = True, init_clip: bool = True, init_dit: bool = True,
+                    init_vae: bool = True, dit_keep: Optional[Callable[[str], bool]] = None,
                     dtype: torch.dtype = torch.bfloat16) -> "I2VPipeline":
         """Random-initialised pipeline at the config's full width: N(0, 0.02)
         weights allocated and drawn directly on ``device`` from a seeded
@@ -121,28 +138,28 @@ class I2VPipeline:
         real weights come from checkpoints). ``init_dit=False`` leaves the
         DiT out (``dit`` None): the quantized 14B path streams its trunk in
         (:func:`..models.quantized.quantize_host_blocks`) without the bf16
-        trunk ever being made."""
+        trunk ever being made. ``init_vae=False`` leaves the VAE out (a
+        parallel run's rank other than 0); ``dit_keep`` builds a pipeline
+        stage's DiT (:meth:`.ti2v.TI2VPipeline.from_config`)."""
         gen = torch.Generator(device=device).manual_seed(seed)
-        dit_f, vae_f, t5_f, clip_f = _factories(
-            config, dtype, t5=init_t5, clip=init_clip and config.clip is not None)
-        return cls(config, *build_modules((dit_f if init_dit else None, vae_f, t5_f, clip_f),
-                                          device, generator=gen))
+        factories = _factories(config, dtype, dit=init_dit, vae=init_vae, t5=init_t5,
+                               clip=init_clip and config.clip is not None)
+        return cls(config, *build_modules(factories, device, generator=gen, dit_keep=dit_keep))
 
     @classmethod
     def from_state_dicts(cls, config: PipelineConfig, dit_sd: Optional[Mapping],
-                         vae_sd: Mapping,
+                         vae_sd: Optional[Mapping],
                          t5_sd: Optional[Mapping] = None, clip_sd: Optional[Mapping] = None,
-                         *, device="cuda",
+                         *, device="cuda", dit_keep: Optional[Callable[[str], bool]] = None,
                          dtype: torch.dtype = torch.bfloat16) -> "I2VPipeline":
         """Pipeline from the port's state dicts (reference names; torch
         tensors or numpy arrays), loaded strictly, stored and computed in
         ``dtype``. ``clip_sd`` holds the visual tower's tensors without the
-        released file's ``visual.`` prefix; ``dit_sd=None`` leaves the DiT
-        out."""
-        dit_f, vae_f, t5_f, clip_f = _factories(config, dtype, t5=t5_sd is not None,
-                                                clip=clip_sd is not None)
-        return cls(config, *build_modules((dit_f if dit_sd is not None else None, vae_f, t5_f,
-                                           clip_f), device,
+        released file's ``visual.`` prefix; a state dict of None leaves its
+        module out; ``dit_keep`` as :meth:`from_config`."""
+        factories = _factories(config, dtype, dit=dit_sd is not None, vae=vae_sd is not None,
+                               t5=t5_sd is not None, clip=clip_sd is not None)
+        return cls(config, *build_modules(factories, device, dit_keep=dit_keep,
                                           state_dicts=(dit_sd, vae_sd, t5_sd, clip_sd)))
 
     def with_w8a8(self) -> "I2VPipeline":
@@ -159,8 +176,13 @@ class I2VPipeline:
         if not is_quantized(self.dit):
             quantize_dit_blocks(self.dit, bits)
 
-    def parallelize_pp(self, stages: int, *, devices=None):
-        _not_ported("pipeline-parallel staging of the 14B trunk", 8)
+    def parallelize_pp(self, stages: int, groups: Optional[PPGroups] = None) -> int:
+        """Stage the bf16 trunk over ``stages`` ranks (``groups``, default the
+        whole default group), the unquantized route to a multi-card 14B: this
+        rank keeps its stage's blocks and the CFG Euler sampler runs through
+        :func:`..parallel.pipeline.pp_dit_forward`. Returns the DiT bytes this
+        rank holds. Refuses a quantized trunk."""
+        return stage_dit(self, stages, groups)
 
     # -- conditioning --------------------------------------------------------
 
@@ -168,16 +190,22 @@ class I2VPipeline:
         if self.phase_cb is not None:
             self.phase_cb(name)
 
+    def _from_rank0(self, fn):
+        """``fn()`` on rank 0 of a parallel run, its result on every rank."""
+        return from_rank0(fn, run_group(self), self.device)
+
     @torch.no_grad()
     def encode_text(self, ids, mask) -> torch.Tensor:
         """[B, text_len] ids and mask → [B, text_len, text_dim] fp32 context
-        with the padding zeroed."""
-        assert self.t5 is not None, "pipeline built without a text encoder"
-        # umT5's own device: under the phase shuttle the DiT may be parked
-        device = next(self.t5.parameters()).device
-        ids = torch.as_tensor(np.asarray(ids), device=device)
-        mask = torch.as_tensor(np.asarray(mask), device=device)
-        return encode_text(self.t5, ids, mask).float()
+        with the padding zeroed (umT5 on rank 0 of a parallel run)."""
+
+        def encode():
+            assert self.t5 is not None, "pipeline built without a text encoder"
+            # umT5's own device: under the phase shuttle the DiT may be parked
+            device = next(self.t5.parameters()).device
+            return encode_text(self.t5, torch.as_tensor(np.asarray(ids), device=device),
+                               torch.as_tensor(np.asarray(mask), device=device)).float()
+        return self._from_rank0(encode)
 
     @torch.no_grad()
     def clip_features(self, frame: torch.Tensor) -> torch.Tensor:
@@ -191,8 +219,11 @@ class I2VPipeline:
         while out_pixels·96·4 bytes stay under 2 GiB, otherwise the streaming
         decode (latent frame 0, then one frame a chunk) from bf16 latents.
         Both compute the same function (the de-normalisation promotes the
-        latents back to fp32)."""
+        latents back to fp32). On a parallel run's rank other than 0, the
+        video's shape on the meta device."""
         s = self.config.vae.stride
+        if not on_rank0(self):
+            return decoded_placeholder(z, s)
         out_px = z.shape[1] * s[0] * z.shape[2] * s[1] * z.shape[3] * s[2]
         if out_px * 96 * 4 < _FULL_DECODE_BYTES:
             return self.vae.decode(z)
@@ -269,7 +300,8 @@ class I2VPipeline:
         ``[latent | y]`` in bf16 (as the reference feeds it), zeros over the
         history, in the latent's dtype; ``**kw`` reaches the DiT (TeaCache).
         A latent batch that is a multiple of y's (batched CFG) tiles y and
-        the CLIP features to it."""
+        the CLIP features to it. Sequence-parallel when ``sp_groups`` is set,
+        pipelined when ``pp_groups`` is."""
         lfz = self.config.latent_frame_zero
         dit = self.dit
 
@@ -279,7 +311,8 @@ class I2VPipeline:
             clip_ = (clip_ctx.repeat(reps, 1, 1) if reps > 1 and clip_ctx is not None
                      else clip_ctx)
             x_in = torch.cat([latent, y_.to(latent.dtype)], dim=-1).to(torch.bfloat16)
-            out = dit(x_in, t_frame, context, latent_frame_zero=lfz, clip_context=clip_, **kw)
+            out = dit_forward(self, dit, x_in, t_frame, context, latent_frame_zero=lfz,
+                              clip_context=clip_, **kw)
             out, cache = out if kw.get("return_cache") else (out, None)
             pad = torch.zeros_like(latent[:, : latent.shape[1] - lfz])
             v = torch.cat([pad, out.to(latent.dtype)], dim=1)
@@ -330,8 +363,11 @@ class I2VPipeline:
         args = (full, cached, self._latent0(y, noise), noise, ctx, ctx_null,
                 sampling_sigmas(steps, shift), self.config.latent_frame_zero, guide_scale)
         if cache_threshold is not None:
+            decide = None
+            if self.sp_groups is not None:
+                decide = functools.partial(agree, group=self.sp_groups.group)
             return samplers.cfg_euler_sample_segment_cached_adaptive(
-                *args, threshold=cache_threshold)
+                *args, threshold=cache_threshold, decide=decide)
         out = samplers.cfg_euler_sample_segment_cached(*args, cache_interval=cache_interval)
         return out, -(-steps // cache_interval)
 
@@ -379,7 +415,13 @@ class I2VPipeline:
         from a generator seeded ``seed + 7777``, or in order from
         ``churn_noise``. ``ctx_null=None`` is the distilled mode: one
         cond-only forward a step, Euler only. ``noise`` [B, F_lat, h, w, z]
-        overrides the seeded fp32 noise."""
+        overrides the seeded fp32 noise.
+
+        With ``sp_groups`` or ``pp_groups`` set every rank makes this call
+        with the same arguments. Rank 0 computes the conditioning, the
+        seeded noise and churn draws and hands them to every rank; the other
+        ranks use ``cond_frames`` for its shape only (a meta tensor will do)
+        and get the video as a meta tensor of its shape."""
         shift = self.config.sample_shift if shift is None else shift
         b, _, h, w, _ = cond_frames.shape
         s = self.config.vae.stride
@@ -394,17 +436,27 @@ class I2VPipeline:
         if self.dit is None:
             raise ValueError("the pipeline has no DiT: build its quantized trunk "
                              "(models/quantized.py: quantize_host_blocks) first")
+        if self.pp_groups is not None and sampler != "euler":
+            raise NotImplementedError(f"pp trunk supports the euler sampler, got {sampler!r}")
+        if self.sp_groups is not None and is_quantized(self.dit):
+            raise NotImplementedError(
+                "the int8/int4 storage trunk is single-chip; use --w8a8 (dynamic int8 "
+                "matmuls) for quantized SP serving")
+
+        def condition():
+            y = self.make_conditioning(cond_frames, frame_num, history_mode=history_mode)
+            clip_frame = cond_frames[:, -1] if history_mode else cond_frames[:, 0]
+            return y, self.clip_features(clip_frame) if self.clip is not None else None
 
         self._phase("vae")
-        y = self.make_conditioning(cond_frames, frame_num, history_mode=history_mode)
-        clip_frame = cond_frames[:, -1] if history_mode else cond_frames[:, 0]
-        clip_ctx = self.clip_features(clip_frame) if self.clip is not None else None
+        y, clip_ctx = self._from_rank0(condition)
         self._phase("dit")
         device = y.device
         if noise is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            noise = torch.randn((b, f_lat, h // s[1], w // s[2], self.config.vae.z_dim),
-                                generator=gen, device=device, dtype=torch.float32)
+            noise = self._from_rank0(lambda: torch.randn(
+                (b, f_lat, h // s[1], w // s[2], self.config.vae.z_dim), generator=gen,
+                device=device, dtype=torch.float32))
         noise = noise.to(device)
         args = (noise, y, ctx, ctx_null, clip_ctx, steps, shift, guide_scale)
         if sampler == "teacache":
@@ -415,8 +467,8 @@ class I2VPipeline:
                 gen = torch.Generator(device=device).manual_seed(seed + _TTS_SEED_OFFSET)
 
                 def noise_fn(shape):
-                    return torch.randn(shape, generator=gen, device=device,
-                                       dtype=torch.float32)
+                    return self._from_rank0(lambda: torch.randn(
+                        shape, generator=gen, device=device, dtype=torch.float32))
             else:
                 draws = iter(churn_noise)
 

@@ -34,14 +34,28 @@ the reference's do.
 
 Sequence-parallel serving (the JAX pipeline's ``mesh``/``sp_kind``): with
 ``sp_groups`` set, the pipeline is one rank of a run in which every rank
-holds the whole model and calls :meth:`TI2VPipeline.generate_segment` with
+holds the whole DiT and calls :meth:`TI2VPipeline.generate_segment` with
 the same arguments; each DiT forward of a segment shards its tokens over
 the group (:func:`..parallel.sp_forward.sp_dit_forward`, kind ``sp_kind``)
-and every rank gets the same latents. The t2v first segment runs unsharded
-on every rank, as the JAX pipeline runs it outside its mesh. W8A8
-composes: each rank quantizes its own tokens. TeaCache's residual cache
-stays on each rank's tokens, and the adaptive refresh decision is rank 0's
-on every rank, so the ranks always run the same collectives.
+and every rank gets the same latents. The t2v first segment runs unsharded,
+as the JAX pipeline runs it outside its mesh, once on rank 0, whose latents
+the other ranks receive. W8A8 composes: each rank quantizes its own tokens.
+TeaCache's residual cache stays on each rank's tokens, and the adaptive
+refresh decision is rank 0's on every rank, so the ranks always run the
+same collectives.
+
+Pipeline-parallel serving (the JAX ``parallelize_pp``): with ``pp_groups``
+set (:meth:`TI2VPipeline.parallelize_pp`) each rank holds one stage of the
+bf16 trunk, and every DiT forward of ``generate_t2v`` (Euler and the
+multistep solvers) and of the Euler segment sampler runs through
+:func:`..parallel.pipeline.pp_dit_forward`, the same on every rank.
+
+In either run only rank 0 needs umT5 and the VAE (``from_config(init_t5=
+False, init_vae=False)`` elsewhere): :meth:`TI2VPipeline.encode_text`, the
+VAE encodes, the seeded noise and a sequence-parallel t2v segment are
+computed there and handed to every rank (:func:`..parallel.mesh.from_rank0`),
+and the decodes run there alone. On the other ranks a decoded video is a
+meta tensor of its shape, so every rank can make the same calls.
 """
 
 from __future__ import annotations
@@ -61,8 +75,9 @@ from ..models.dit import WanDiT
 from ..models.quantized import is_quantized, quantize_dit_blocks
 from ..models.t5 import T5Encoder, encode_text
 from ..models.vae import WanVAE, streaming_decode, streaming_encode
-from ..parallel.mesh import SPGroups
-from ..parallel.sp_forward import sp_dit_forward
+from ..parallel.mesh import SPGroups, from_rank0
+from ..parallel.pipeline import PPGroups
+from ..parallel.route import decoded_placeholder, dit_forward, on_rank0, run_group, stage_dit
 from ..parallel.ulysses import agree
 from ..utils.convert import load_state_dict
 from ..utils.masks import masks_like
@@ -79,21 +94,37 @@ _TTS_SEED_OFFSET = 7919
 _T2V_SOLVERS = {"euler": None, "dpmpp": None, "unipc": 2, "unipc3": 3}
 
 
-def _materialize(factory: Callable[..., nn.Module], device) -> nn.Module:
+def _materialize(factory: Callable[..., nn.Module], device,
+                 keep: Optional[Callable[[str], bool]] = None) -> nn.Module:
     """Build a module without allocating or initialising on the host: on
-    the meta device first, then uninitialised storage on ``device``."""
-    return factory(device="meta").to_empty(device=device)
+    the meta device first, then uninitialised storage on ``device``; with
+    ``keep``, only for the parameters whose names it accepts (the others
+    stay on the meta device: a pipeline stage's DiT)."""
+    module = factory(device="meta")
+    if keep is None:
+        return module.to_empty(device=device)
+    for name, sub in module.named_modules():
+        for attr, p in list(sub.named_parameters(recurse=False)):
+            if keep(f"{name}.{attr}" if name else attr):
+                sub.register_parameter(attr, nn.Parameter(torch.empty_like(p, device=device),
+                                                          requires_grad=p.requires_grad))
+    return module
 
 
 @torch.no_grad()
 def _random_init_(module: nn.Module, generator: torch.Generator, std: float = 0.02):
     """Random weights for smoke runs: N(0, std) for every tensor with more
-    than one element, zero for scalars (as the reference's bf16 init)."""
+    than one element, zero for scalars (as the reference's bf16 init). A
+    parameter on the meta device is drawn and dropped, so the ones kept get
+    the values they have in the whole module."""
     for p in module.parameters():
-        if p.numel() > 1:
-            p.normal_(0.0, std, generator=generator)
-        else:
+        if p.numel() <= 1:
             p.zero_()
+        elif p.is_meta:
+            torch.empty(p.shape, dtype=p.dtype, device=generator.device).normal_(
+                0.0, std, generator=generator)
+        else:
+            p.normal_(0.0, std, generator=generator)
 
 
 def module_factories(config: PipelineConfig, dtype: torch.dtype):
@@ -105,15 +136,18 @@ def module_factories(config: PipelineConfig, dtype: torch.dtype):
 
 
 def build_modules(factories, device, *, generator: Optional[torch.Generator] = None,
-                  state_dicts: Optional[tuple] = None) -> list:
+                  state_dicts: Optional[tuple] = None,
+                  dit_keep: Optional[Callable[[str], bool]] = None) -> list:
     """One module a factory (None: left out), built on ``device`` in eval
     mode: loaded strictly from the state dict in the same place of
-    ``state_dicts`` or, without them, drawn in order from ``generator``."""
+    ``state_dicts`` or, without them, drawn in order from ``generator``.
+    ``dit_keep`` materializes only the first module's (the DiT's)
+    parameters it accepts (:func:`_materialize`)."""
     out = []
     for i, factory in enumerate(factories):
         module = None
         if factory is not None:
-            module = _materialize(factory, device)
+            module = _materialize(factory, device, dit_keep if i == 0 else None)
             if state_dicts is None:
                 _random_init_(module, generator)
             else:
@@ -147,6 +181,8 @@ class TI2VPipeline:
     # ("ulysses", "ring" or "usp")
     sp_groups: Optional[SPGroups] = None
     sp_kind: str = "ulysses"
+    # pipeline-parallel serving: this rank's stage (parallelize_pp)
+    pp_groups: Optional[PPGroups] = None
 
     @property
     def device(self) -> torch.device:
@@ -156,30 +192,38 @@ class TI2VPipeline:
 
     @classmethod
     def from_config(cls, config: PipelineConfig, *, device="cuda", seed: int = 0,
-                    init_t5: bool = False, init_dit: bool = True,
+                    init_t5: bool = False, init_dit: bool = True, init_vae: bool = True,
+                    dit_keep: Optional[Callable[[str], bool]] = None,
                     dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Random-initialised pipeline at the config's full width, allocated
         and initialised directly on ``device`` from a seeded
         ``torch.Generator`` (real weights come from checkpoints). Without
         ``init_dit`` it holds only the encoders and the VAE (the trainer's
-        encode path)."""
+        encode path); without ``init_vae`` no VAE (a parallel run's rank
+        other than 0). ``dit_keep`` builds only the DiT parameters it
+        accepts (a pipeline stage, :func:`..parallel.pipeline.stage_keep`),
+        with the values they have in the whole DiT."""
         gen = torch.Generator(device=device).manual_seed(seed)
         dit_f, vae_f, t5_f = module_factories(config, dtype)
-        return cls(config, *build_modules((dit_f if init_dit else None, vae_f,
-                                           t5_f if init_t5 else None), device, generator=gen))
+        return cls(config, *build_modules((dit_f if init_dit else None,
+                                           vae_f if init_vae else None,
+                                           t5_f if init_t5 else None), device, generator=gen,
+                                          dit_keep=dit_keep))
 
     @classmethod
     def from_state_dicts(cls, config: PipelineConfig, dit_sd: Optional[Mapping],
-                         vae_sd: Mapping, t5_sd: Optional[Mapping] = None, *,
-                         device="cuda",
+                         vae_sd: Optional[Mapping], t5_sd: Optional[Mapping] = None, *,
+                         device="cuda", dit_keep: Optional[Callable[[str], bool]] = None,
                          dtype: torch.dtype = torch.bfloat16) -> "TI2VPipeline":
         """Pipeline from reference-named state dicts (torch tensors or numpy
         arrays, e.g. from :mod:`..utils.convert`), loaded strictly, stored
-        and computed in ``dtype``; ``dit_sd=None`` leaves the DiT out."""
+        and computed in ``dtype``; a state dict of None leaves its module
+        out; ``dit_keep`` as :meth:`from_config`."""
         dit_f, vae_f, t5_f = module_factories(config, dtype)
         return cls(config, *build_modules(
-            (dit_f if dit_sd is not None else None, vae_f, t5_f if t5_sd is not None else None),
-            device, state_dicts=(dit_sd, vae_sd, t5_sd)))
+            (dit_f if dit_sd is not None else None, vae_f if vae_sd is not None else None,
+             t5_f if t5_sd is not None else None),
+            device, state_dicts=(dit_sd, vae_sd, t5_sd), dit_keep=dit_keep))
 
     def with_w8a8(self) -> "TI2VPipeline":
         """This pipeline with ``config.dit.w8a8`` on (:func:`w8a8_twin`),
@@ -194,28 +238,42 @@ class TI2VPipeline:
         if not is_quantized(self.dit):
             quantize_dit_blocks(self.dit, bits)
 
+    def parallelize_pp(self, stages: int, groups: Optional[PPGroups] = None) -> int:
+        """Stage the bf16 trunk over ``stages`` ranks (``groups``, default
+        the whole default group): this rank keeps its stage's blocks, and
+        ``generate_t2v`` and the Euler segment sampler run through
+        :func:`..parallel.pipeline.pp_dit_forward`. Returns the DiT bytes
+        this rank holds. Refuses a quantized trunk (the JAX
+        ``parallelize_pp`` skips it and serves it unstaged)."""
+        return stage_dit(self, stages, groups)
+
     # -- conditioning --------------------------------------------------------
+
+    def _from_rank0(self, fn):
+        """``fn()`` on rank 0 of a parallel run, its result on every rank
+        (:func:`..parallel.mesh.from_rank0`); alone, ``fn()``."""
+        return from_rank0(fn, run_group(self), self.device)
 
     @torch.no_grad()
     def encode_text(self, ids, mask) -> torch.Tensor:
         """[B, text_len] ids and mask → [B, text_len, text_dim] fp32 context
-        with the padding zeroed."""
-        assert self.t5 is not None, "pipeline built without a text encoder"
-        ids = torch.as_tensor(np.asarray(ids), device=self.device)
-        mask = torch.as_tensor(np.asarray(mask), device=self.device)
-        return encode_text(self.t5, ids, mask).float()
+        with the padding zeroed (umT5 on rank 0 of a parallel run)."""
+
+        def encode():
+            assert self.t5 is not None, "pipeline built without a text encoder"
+            dev = next(self.t5.parameters()).device
+            return encode_text(self.t5, torch.as_tensor(np.asarray(ids), device=dev),
+                               torch.as_tensor(np.asarray(mask), device=dev)).float()
+        return self._from_rank0(encode)
 
     # -- generation ----------------------------------------------------------
 
     def _dit(self, lat, t_frame, ctx, **kw):
         """Packed DiT forward on ``lat``, sequence-parallel when
-        ``sp_groups`` is set; the reference feeds the DiT a bf16 latent
-        whatever its dtype."""
-        lfz = self.config.latent_frame_zero
-        if self.sp_groups is not None:
-            return sp_dit_forward(self.dit, self.sp_groups, lat.to(torch.bfloat16), t_frame,
-                                  ctx, latent_frame_zero=lfz, kind=self.sp_kind, **kw)
-        return self.dit(lat.to(torch.bfloat16), t_frame, ctx, latent_frame_zero=lfz, **kw)
+        ``sp_groups`` is set, pipelined when ``pp_groups`` is; the
+        reference feeds the DiT a bf16 latent whatever its dtype."""
+        return dit_forward(self, self.dit, lat.to(torch.bfloat16), t_frame, ctx,
+                           latent_frame_zero=self.config.latent_frame_zero, **kw)
 
     @staticmethod
     def _pad_v(lat, out):
@@ -315,11 +373,14 @@ class TI2VPipeline:
         the reference's callback receives, computed on the host from the
         sigma table: it reads nothing from the device.
 
-        With ``sp_groups`` set every rank of the group makes this call with
-        the same arguments (the same history, context, seed or noise)."""
+        With ``sp_groups`` or ``pp_groups`` set every rank of the group makes
+        this call with the same arguments (the same history, context, seed or
+        noise); the seeded noise is rank 0's."""
         if self.sp_groups is not None and sampler not in _SP_SAMPLERS:
             raise NotImplementedError(
                 f"SP serving runs the samplers {_SP_SAMPLERS}, not {sampler!r}")
+        if self.pp_groups is not None and sampler != "euler":
+            raise NotImplementedError(f"pp trunk supports the euler sampler, got {sampler!r}")
         if sampler not in _SP_SAMPLERS + _TTS_SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}")
         if is_quantized(self.dit) and sampler not in _SP_SAMPLERS:
@@ -336,8 +397,8 @@ class TI2VPipeline:
         device = history_latents.device
         if noise is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            noise = torch.randn((b, lfz, h, w, c), generator=gen, device=device,
-                                dtype=torch.float32)
+            noise = self._from_rank0(lambda: torch.randn(
+                (b, lfz, h, w, c), generator=gen, device=device, dtype=torch.float32))
         # jnp.concatenate promotes: a bf16 history with fp32 noise is an fp32
         # latent, so the tail integrates in fp32
         dtype = torch.promote_types(history_latents.dtype, noise.dtype)
@@ -391,17 +452,18 @@ class TI2VPipeline:
                 "the port's quantized trunk is a WanDiT (models/quantized.py: "
                 "quantize_dit_blocks), not the reference's (other, stacked) tuple")
         raise NotImplementedError(
-            f"not ported yet: DiT parameters of type {type(params).__name__}; pass a "
-            "WanDiT (pipeline-parallel staging, the reference's PPParams, is "
-            "ROADMAP queue 1, item 8)")
+            f"DiT parameters of type {type(params).__name__}: pass a WanDiT (pipeline "
+            "parallelism, ROADMAP queue 1 item 8, stages a pipeline's own trunk with "
+            "parallelize_pp, not the reference's PPParams)")
 
-    @staticmethod
-    def _unpacked_fn(dit: WanDiT):
+    def _unpacked_fn(self, dit: WanDiT):
         """The unpacked forward on a bf16 latent (as the reference feeds the
-        DiT), its velocity cast back to the latent's dtype (fp32)."""
+        DiT), its velocity cast back to the latent's dtype (fp32); pipelined
+        when ``dit`` is this pipeline's staged trunk."""
 
         def fwd(x, t_frame, ctx):
-            return dit(x.to(torch.bfloat16), t_frame, ctx, packed=False).to(x.dtype)
+            return dit_forward(self, dit, x.to(torch.bfloat16), t_frame, ctx,
+                               packed=False).to(x.dtype)
         return fwd
 
     def _sample_t2v(self, dit, noise, ctx, steps, shift):
@@ -439,15 +501,23 @@ class TI2VPipeline:
         cfgv = self.config.vae
         f_lat = (frame_num - 1) // cfgv.stride[0] + 1
         h_lat, w_lat = size[1] // cfgv.stride[1], size[0] // cfgv.stride[2]
-        if noise is None:
+
+        def draw():
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            noise = torch.randn((ctx.shape[0], f_lat, h_lat, w_lat, cfgv.z_dim),
-                                generator=gen, device=self.device, dtype=torch.float32)
-        if solver == "euler":
-            latent = self._sample_t2v(dit, noise, ctx, steps, shift)
+            return torch.randn((ctx.shape[0], f_lat, h_lat, w_lat, cfgv.z_dim),
+                               generator=gen, device=self.device, dtype=torch.float32)
+
+        def sample(noise):
+            if solver == "euler":
+                return self._sample_t2v(dit, noise, ctx, steps, shift)
+            return self._sample_t2v_multistep(dit, noise, ctx, ctx_null, steps, shift,
+                                              solver, guide_scale)
+        if self.sp_groups is not None:
+            # dense, as outside the JAX mesh: once, on rank 0
+            latent = self._from_rank0(lambda: sample(draw() if noise is None else noise))
         else:
-            latent = self._sample_t2v_multistep(dit, noise, ctx, ctx_null, steps, shift,
-                                                solver, guide_scale)
+            # every stage of a pipelined trunk runs it, on rank 0's noise
+            latent = sample(self._from_rank0(draw) if noise is None else noise)
         return latent if return_latents else self.decode_auto(latent)
 
     @torch.no_grad()
@@ -474,7 +544,9 @@ class TI2VPipeline:
         ``ctx_null`` is given. ``noise`` [B, F_lat, H_lat, W_lat, z]
         overrides the seeded fp32 noise. Returns the latents
         (``return_latents``, the history :meth:`generate_segment` continues)
-        or the video [B, frame_num, H, W, 3] in [-1, 1]."""
+        or the video [B, frame_num, H, W, 3] in [-1, 1]. With ``sp_groups``
+        rank 0 runs the segment unsharded and hands its latents to every
+        rank; with ``pp_groups`` every rank runs it, staged."""
         shift = self.config.sample_shift if shift is None else shift
         return self._t2v(self.dit, ctx, size, frame_num, steps, shift, seed, solver,
                          ctx_null, guide_scale, return_latents, noise)
@@ -506,7 +578,10 @@ class TI2VPipeline:
     def decode_auto(self, z: torch.Tensor) -> torch.Tensor:
         """Streaming decode in chunks of 2 latent frames, in the VAE's
         parameter dtype, without width tiling (the reference's tiling was
-        sized for a 16 GB chip); equal to ``WanVAE.decode``."""
+        sized for a 16 GB chip); equal to ``WanVAE.decode``. On a parallel
+        run's rank other than 0, the video's shape on the meta device."""
+        if not on_rank0(self):
+            return decoded_placeholder(z, self.config.vae.stride)
         vae_dtype = next(self.vae.parameters()).dtype
         return streaming_decode(self.vae, z.to(vae_dtype), chunk_latent_frames=2)
 
@@ -514,6 +589,8 @@ class TI2VPipeline:
         """Width-tiled decode with blended overlaps (the webapp's large-frame
         decode; :func:`.tiled_decode.tiled_decode`), each tile through the
         streaming :meth:`decode_auto`, which bounds its peak."""
+        if not on_rank0(self):
+            return decoded_placeholder(z, self.config.vae.stride)
         return tiled_decode(self.decode_auto, z, n_tiles=n_tiles,
                             scale_factor=self.config.vae.stride[1])
 
@@ -525,12 +602,16 @@ class TI2VPipeline:
         full-clip encode in the video's dtype while its largest activation
         (T·H·W·160 channels·2 bytes) stays under 2 GiB, otherwise the
         streaming encode (pixel frame 0, then chunks of 4) in the VAE's
-        parameter dtype. Both compute the same function."""
-        pixels = video.shape[1] * video.shape[2] * video.shape[3]
-        if pixels * 160 * 2 < (2 << 30):
-            return self.vae.encode(video)
-        vae_dtype = next(self.vae.parameters()).dtype
-        return streaming_encode(self.vae, video.to(vae_dtype))
+        parameter dtype. Both compute the same function. On rank 0 of a
+        parallel run, handed to every rank (``video`` is read there only)."""
+
+        def encode():
+            pixels = video.shape[1] * video.shape[2] * video.shape[3]
+            if pixels * 160 * 2 < (2 << 30):
+                return self.vae.encode(video)
+            vae_dtype = next(self.vae.parameters()).dtype
+            return streaming_encode(self.vae, video.to(vae_dtype))
+        return self._from_rank0(encode)
 
     @torch.no_grad()
     def encode_image_conditioning(self, img: torch.Tensor,
@@ -539,8 +620,9 @@ class TI2VPipeline:
         encode the (repeated) conditioning frames ``img`` [B, T, H, W, 3],
         zero-pad the latents to ``frame_num``'s latent length, and return
         them with ``masks_like``'s mask2 (zero over the history, one over
-        the trailing ``latent_frame_zero`` frames)."""
-        z = self.vae.encode(img)
+        the trailing ``latent_frame_zero`` frames). Encoded on rank 0 of a
+        parallel run, handed to every rank."""
+        z = self._from_rank0(lambda: self.vae.encode(img))
         f_target = (frame_num - 1) // self.config.vae.stride[0] + 1
         pad = f_target - z.shape[1]
         if pad > 0:

@@ -51,12 +51,30 @@ storage, and under ``--memory_optimization`` the quantized trunk joins the
 phase shuttle too. ``--cfg_parallel`` (14B) runs each CFG step's cond and
 uncond forwards as one batch-2 forward.
 
-Not ported, and refused with the ROADMAP queue 1 item that brings them:
-``--pp`` (item 8); ``--sp > 1`` (a CLI launch of the SP groups, item 4).
+Multi-device serving, from the one command: ``--sp N --sp_kind
+{ulysses,ring,usp}`` (sequence parallelism: every rank holds the DiT and
+takes 1/N of each forward's tokens) or ``--pp N`` (pipeline parallelism:
+rank p holds the p-th of N contiguous stages of the bf16 trunk, the
+unquantized route to a multi-card 14B) spawns N ranks itself
+(:func:`.parallel.mesh.launch`): NCCL when every rank has a card of its
+own, else gloo, the ranks sharing the card. Rank 0 alone holds umT5, the
+VAE and CLIP, encodes, decodes and writes; it hands every rank what they
+need. The parent prints one line a rank: the DiT bytes it holds, its peak
+device memory and its kernel launches. Refused, as the reference refuses
+them: ``--sp`` with the int8/int4 trunk or the 5B's TTS samplers, ``--pp``
+with a sampler other than Euler. Refused by the port: ``--pp`` with
+``--int8/--int4`` (the reference would serve that trunk unstaged) and
+``--sp`` with ``--pp``.
+
+``--save_latents`` also writes each segment's latents beside its video
+(``segment_000.pt``: the whole latent sequence after it, ``torch.save``).
 
     python -m yume_tpu_torch.sample --t2v --int8 --w8a8 --teacache       # 5B, int8 trunk
     python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir ./jpg --width 960 \
         --height 544 --int4 --w8a8 --memory_optimization --cfg_parallel
+    python -m yume_tpu_torch.sample --jpg_dir ./jpg --sp 4 --sp_kind ulysses  # 4 ranks
+    python -m yume_tpu_torch.sample --config i2v-14B --jpg_dir ./jpg --width 960 \
+        --height 544 --pp 2                                               # 2 stages
 """
 
 from __future__ import annotations
@@ -64,6 +82,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import os
 import time
 import warnings
@@ -142,10 +161,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="14B: distilled weights, one cond-only forward a step (no "
                         "negative prompt, Euler)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree; > 1 is not ported to the CLI "
-                        "(ROADMAP queue 1, item 4)")
-    p.add_argument("--sp_kind", default="ulysses", choices=["ulysses", "ring", "usp"])
-    p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP queue 1, item 8)")
+                   help="sequence-parallel degree: spawns that many ranks, each with the "
+                        "whole DiT and 1/N of every forward's tokens")
+    p.add_argument("--sp_kind", default="ulysses", choices=["ulysses", "ring", "usp"],
+                   help="the attention of --sp: Ulysses all-to-all, ring, or USP (2 x N/2)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline-parallel stages of the bf16 trunk: spawns that many "
+                        "ranks, each holding 1/N of the blocks (the unquantized route to "
+                        "a multi-card 14B); Euler only")
     p.add_argument("--cfg_parallel", action="store_true",
                    help="14B: each CFG step's cond and uncond forwards as one batch-2 "
                         "forward")
@@ -169,13 +192,21 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace of the run here")
     p.add_argument("--device", default="cuda",
                    help="device of the pipeline (cuda or cpu)")
+    p.add_argument("--save_latents", action="store_true",
+                   help="also write each segment's latents (the whole latent sequence "
+                        "after it) beside its video, as <video name>.pt")
     return p
 
 
+def parallel_world(args) -> int:
+    """The ranks a run spawns: ``--sp`` or ``--pp`` when above 1, else 1."""
+    return max(args.sp, args.pp, 1)
+
+
 def refuse_unported(args, webapp: bool = False):
-    """NotImplementedError, naming the ROADMAP queue 1 item, for every flag
-    whose path the port does not have yet (the webapp's flags too: the
-    webapp serves the 5B)."""
+    """Refuse, with a message, the flags that mean nothing for the model
+    asked for and the combinations the reference (or the port) refuses;
+    the webapp's flags too (the webapp serves the 5B)."""
     i2v = args.config == "i2v-14B"
     if getattr(args, "distilled", False) and not i2v:
         raise SystemExit("--distilled is the 14B pipeline's cond-only serving "
@@ -183,17 +214,33 @@ def refuse_unported(args, webapp: bool = False):
     if getattr(args, "cfg_parallel", False) and not i2v:
         raise SystemExit("--cfg_parallel batches the 14B pipeline's CFG forwards "
                          "(--config i2v-14B); the 5B segment sampler runs no CFG")
-    unported = [
-        (webapp and args.config != "ti2v-5B", "the webapp serves the 5B; a 14B webapp "
-                                              "comes with the rest of the 14B (ROADMAP "
-                                              "queue 1, item 6)"),
-        (args.pp > 1, "--pp is pipeline parallelism (ROADMAP queue 1, item 8)"),
-        (args.sp > 1, "--sp > 1 needs a CLI launch of the port's SP groups (ROADMAP "
-                      "queue 1, item 4); TI2VPipeline with sp_groups is ported"),
+    if webapp and args.config != "ti2v-5B":
+        raise NotImplementedError(
+            "the webapp serves the 5B: its requests run generate_t2v, generate_segment "
+            "and the 5B VAE's encodes, which the 14B's I2VPipeline does not have (nor "
+            "does the reference's, whose webapp calls them on any --config)")
+    bits = _bits(args) or getattr(args, "quant", "none") != "none"
+    tts = getattr(args, "sde", False) or getattr(args, "time_travel", False)
+    refused = [
+        (args.sp > 1 and args.pp > 1,
+         "--sp and --pp do not combine: give one of them"),
+        (args.sp > 1 and bits,
+         "the int8/int4 storage trunk is single-chip; use --w8a8 (dynamic int8 matmuls) "
+         "for quantized SP serving"),
+        (args.sp > 1 and tts and not i2v,
+         "multi-chip SP serving of the 5B supports the euler and teacache samplers; drop "
+         "--sp or --sde/--time_travel"),
+        (args.pp > 1 and (tts or getattr(args, "teacache", False)),
+         "pp trunk supports the euler sampler; drop --teacache/--sde/--time_travel"),
+        (args.pp > 1 and bits,
+         "--pp stages the bf16 trunk; the int8/int4 trunk is not staged (the reference "
+         "would serve it unstaged): drop --int8/--int4 or --pp"),
+        (args.sp > 1 and args.sp_kind == "usp" and args.sp % 2,
+         f"--sp_kind usp splits the ranks 2 x N/2; --sp {args.sp} is odd"),
     ]
-    for flag, why in unported:
+    for flag, why in refused:
         if flag:
-            raise NotImplementedError(f"not ported yet: {why}")
+            raise NotImplementedError(why)
 
 
 def teacache_settings(args):
@@ -245,46 +292,80 @@ def smoke_config(cfg):
     )
 
 
-def load_pipeline(args):
-    """(config, pipeline) on ``args.device``: a TI2VPipeline for the 5B, an
-    I2VPipeline for the 14B, at the smoke or the full config, W8A8 with
-    ``--w8a8``; released weights from ``--ckpt_dir``, otherwise random ones
-    from ``--seed``. The pipeline computes in fp32 on the CPU and in bf16 on
-    the card. With ``--int8``/``--int4`` the 14B pipeline comes without its
-    DiT, which :func:`quantize_trunk` streams in."""
+def run_config(args):
+    """The pipeline config ``args`` ask for: the smoke or the full one, W8A8
+    with ``--w8a8``."""
     from .configs import CONFIGS
-    from .pipelines.i2v import I2VPipeline
-    from .pipelines.ti2v import TI2VPipeline
 
-    refuse_unported(args)
     cfg = CONFIGS[args.config]()
     if args.smoke:
         cfg = smoke_config(cfg)
     if args.w8a8:
         cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, w8a8=True))
+    return cfg
+
+
+def load_pipeline(args, rank=None):
+    """(config, pipeline) on ``args.device``: a TI2VPipeline for the 5B, an
+    I2VPipeline for the 14B, at the smoke or the full config, W8A8 with
+    ``--w8a8``; released weights from ``--ckpt_dir``, otherwise random ones
+    from ``--seed``. The pipeline computes in fp32 on the CPU and in bf16 on
+    the card. With ``--int8``/``--int4`` the 14B pipeline comes without its
+    DiT, which :func:`quantize_trunk` streams in.
+
+    ``rank`` (a :class:`.parallel.mesh.Rank` of a ``--sp``/``--pp`` run):
+    the pipeline is that rank's. Only rank 0 builds umT5, the VAE and CLIP;
+    under ``--pp`` the DiT holds the rank's stage only (its blocks made or
+    loaded alone, with the values they have in the whole model)."""
+    from .parallel.pipeline import stage_keep
+    from .pipelines.i2v import I2VPipeline
+    from .pipelines.ti2v import TI2VPipeline
+
+    refuse_unported(args)
+    cfg = run_config(args)
     device = torch.device(args.device)
     dtype = _dtype(device)
+    encoders = rank is None or rank.rank == 0
+    dit_keep = (stage_keep(cfg.dit.num_layers, args.pp, rank.rank)
+                if rank is not None and args.pp > 1 else None)
     # the 14B quantized trunk never exists in bf16: quantize_trunk streams it
     with_dit = not (cfg.name == "i2v-14B" and _bits(args))
     if args.ckpt_dir:
         if not os.path.isdir(args.ckpt_dir):
             raise SystemExit(f"--ckpt_dir {args.ckpt_dir!r} is not a directory")
-        return cfg, load_torch_weights(cfg, args.ckpt_dir, device=device, dtype=dtype,
-                                       load_dit=with_dit)
-    if not args.smoke:
-        warnings.warn(
-            "no --ckpt_dir: running with RANDOM weights (capability/perf runs only; "
-            "outputs are noise). Pass --ckpt_dir with the released torch checkpoints "
-            "for real generation.", stacklevel=2)
-    if cfg.name == "i2v-14B":
-        return cfg, I2VPipeline.from_config(cfg, device=device, seed=args.seed, dtype=dtype,
-                                            init_dit=with_dit)
-    return cfg, TI2VPipeline.from_config(cfg, device=device, seed=args.seed, init_t5=True,
-                                         dtype=dtype)
+        pipe = load_torch_weights(cfg, args.ckpt_dir, device=device, dtype=dtype,
+                                  load_dit=with_dit, encoders=encoders, dit_keep=dit_keep)
+    else:
+        if not args.smoke:
+            warnings.warn(
+                "no --ckpt_dir: running with RANDOM weights (capability/perf runs only; "
+                "outputs are noise). Pass --ckpt_dir with the released torch checkpoints "
+                "for real generation.", stacklevel=2)
+        kw = dict(device=device, seed=args.seed, dtype=dtype, init_t5=encoders,
+                  init_vae=encoders, dit_keep=dit_keep)
+        if cfg.name == "i2v-14B":
+            pipe = I2VPipeline.from_config(cfg, init_dit=with_dit, init_clip=encoders, **kw)
+        else:
+            pipe = TI2VPipeline.from_config(cfg, **kw)
+    if rank is not None:
+        _join_run(args, pipe)
+    return cfg, pipe
+
+
+def _join_run(args, pipe):
+    """Make ``pipe`` this rank's part of the ``--sp``/``--pp`` run."""
+    from .parallel.mesh import make_sp_groups, make_usp_groups
+
+    if args.pp > 1:
+        pipe.parallelize_pp(args.pp)
+    elif args.sp_kind == "usp":
+        pipe.sp_groups, pipe.sp_kind = make_usp_groups(2, args.sp // 2), "usp"
+    else:
+        pipe.sp_groups, pipe.sp_kind = make_sp_groups(args.sp), args.sp_kind
 
 
 def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bfloat16,
-                       load_dit: bool = True):
+                       load_dit: bool = True, encoders: bool = True, dit_keep=None):
     """A TI2VPipeline (5B) or an I2VPipeline (14B) from released torch
     checkpoints in ``ckpt_dir``: the DiT's safetensors (one file, several,
     or shards with an index), the VAE's (``Wan2.2_VAE.pth`` or
@@ -293,7 +374,10 @@ def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bflo
     and so does a missing or unknown tensor (wrapper segments such as
     ``module.`` are dropped from the DiT's keys). ``load_dit=False`` builds
     a pipeline without a DiT (the 5B trainer's encode path, the 14B's
-    quantized load; the reference's ``load_dit=False``)."""
+    quantized load; the reference's ``load_dit=False``); ``encoders=False``
+    one without the VAE, umT5 and CLIP (a parallel run's rank other than
+    0); ``dit_keep`` loads a pipeline stage's DiT, the other blocks' tensors
+    dropped as they are read."""
     from .pipelines.i2v import I2VPipeline
     from .pipelines.ti2v import TI2VPipeline
     from .utils.checkpoint import (clip_visual_from_released, load_safetensors_state_dict,
@@ -308,15 +392,23 @@ def load_torch_weights(config, ckpt_dir: str, *, device="cuda", dtype=torch.bflo
     if missing:
         raise RuntimeError(f"checkpoint dir {ckpt_dir!r} is missing: {', '.join(missing)}; "
                            "refusing to run with random-init modules")
-    dit_sd = normalize_torch_keys(load_safetensors_state_dict(ckpt_dir)) if load_dit else None
-    vae_sd, t5_sd = (load_torch_state_dict(os.path.join(ckpt_dir, f)) for f in files[:2])
+    dit_sd = None
+    if load_dit:
+        dit_sd = normalize_torch_keys(load_safetensors_state_dict(ckpt_dir))
+        if dit_keep is not None:
+            # strict all the same: a block of another stage stays on the meta device
+            dit_sd = {k: (v if dit_keep(k) else v.to("meta")) for k, v in dit_sd.items()}
+    vae_sd = t5_sd = clip_sd = None
+    if encoders:
+        vae_sd, t5_sd = (load_torch_state_dict(os.path.join(ckpt_dir, f)) for f in files[:2])
+    kw = dict(device=device, dtype=dtype, dit_keep=dit_keep)
     if i2v:
-        clip_sd = clip_visual_from_released(
-            load_torch_state_dict(os.path.join(ckpt_dir, CLIP_FILE)), config.clip.num_layers)
-        return I2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, clip_sd,
-                                            device=device, dtype=dtype)
-    return TI2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, device=device,
-                                         dtype=dtype)
+        if encoders:
+            clip_sd = clip_visual_from_released(
+                load_torch_state_dict(os.path.join(ckpt_dir, CLIP_FILE)),
+                config.clip.num_layers)
+        return I2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, clip_sd, **kw)
+    return TI2VPipeline.from_state_dicts(config, dit_sd, vae_sd, t5_sd, **kw)
 
 
 def offload_slot(cfg, pipe, device):
@@ -388,25 +480,82 @@ def _first_image(jpg_dir: str) -> str:
     return images[0]
 
 
-def main(argv=None) -> int:
-    from .data.tokenizer import Tokenizer, resolve_tokenizer_path
-    from .utils.logging_ import PhaseTimer
-    from .utils.offload import OffloadSlot
+def kernel_launches() -> dict:
+    """The launch counts of the DiT's kernels (0 on the CPU, where their
+    plain versions run)."""
+    from .ops import flash_attention as fl
+    from .ops import fused_adaln as fa
+    from .ops import quant_matmul as qm
 
+    return {f.__name__: f.launches for f in (
+        fl.flash_attention, fl.flash_attention_partial, fa.adaln_norm, fa.adaln_residual,
+        fa.qk_norm_rope, fa.rms_norm, qm.q8_dot)}
+
+
+def rank_stats(rank, pipe) -> dict:
+    """What a rank of a ``--sp``/``--pp`` run reports: the DiT bytes it
+    holds, its peak device memory and its kernel launches."""
+    from .parallel.pipeline import held_bytes
+
+    cuda = rank.device.type == "cuda"
+    return {"rank": rank.rank, "device": str(rank.device), "backend": rank.backend,
+            "dit_bytes": held_bytes(pipe.dit),
+            "peak_gib": torch.cuda.max_memory_allocated(rank.device) / 2**30 if cuda else None,
+            "launches": kernel_launches()}
+
+
+def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     teacache = teacache_settings(args) if args.teacache else (3, None)
     video_mode = bool(args.input_video or args.video_root_dir)
     if args.config == "i2v-14B" and not (args.jpg_dir or video_mode):
         raise SystemExit("the 14B i2v pipeline needs --jpg_dir (image mode), "
                          "--input_video, or --video_root_dir")
-    cfg, pipe = load_pipeline(args)
-    os.makedirs(args.output_dir, exist_ok=True)
+    refuse_unported(args)
+    world = parallel_world(args)
+    if world == 1:
+        _serve(args, teacache)
+        return 0
+    if args.pp > 1:
+        from .parallel.pipeline import stage_blocks
+
+        try:
+            stage_blocks(run_config(args).dit.num_layers, args.pp, 0)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    from .parallel.mesh import launch
+
+    for st in launch(world, _serve_rank, args, teacache, device=args.device):
+        print(f"rank {st['rank']} of {world}: {json.dumps(st)}")
+    return 0
+
+
+def _serve_rank(rank, args, teacache) -> dict:
+    """One rank of a ``--sp``/``--pp`` run (:func:`.parallel.mesh.launch`)."""
+    args = argparse.Namespace(**{**vars(args), "device": str(rank.device)})
+    pipe = _serve(args, teacache, rank)
+    return rank_stats(rank, pipe)
+
+
+def _serve(args, teacache, rank=None):
+    """The run of :func:`main`, alone or as ``rank`` of a parallel run
+    (every rank makes the same pipeline calls; rank 0 alone writes and
+    prints). Returns the pipeline."""
+    from .data.tokenizer import Tokenizer, resolve_tokenizer_path
+    from .parallel.route import on_rank0
+    from .utils.logging_ import PhaseTimer
+
+    video_mode = bool(args.input_video or args.video_root_dir)
+    cfg, pipe = load_pipeline(args, rank)
+    leader = on_rank0(pipe)
+    if leader:
+        os.makedirs(args.output_dir, exist_ok=True)
     device = torch.device(args.device)
     timer = PhaseTimer(device)
     slot = None
     if args.cfg_parallel:
         pipe.cfg_parallel = True
-    if args.memory_optimization:
+    if args.memory_optimization and leader:
         slot = offload_slot(cfg, pipe, device)
     # after the shuttle is set up: umT5 has left the device when the 14B's
     # quantized trunk streams in
@@ -442,14 +591,14 @@ def main(argv=None) -> int:
                "teacache" if args.teacache else "euler")
     with contextlib.ExitStack() as stack:
         prof = None
-        if args.profile_dir:
+        if args.profile_dir and leader:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = stack.enter_context(torch.profiler.profile(activities=acts))
         if video_mode:
             _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer,
-                       device=device)
+                       device=device, shard=rank is None)
         elif cfg.name == "i2v-14B":
             _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num,
                      steps, slot, timer, device=device)
@@ -461,8 +610,28 @@ def main(argv=None) -> int:
         path = os.path.join(args.profile_dir, "trace.json")
         prof.export_chrome_trace(path)
         print(f"trace written to {path}")
-    timer.summary()
-    return 0
+    if leader:
+        timer.summary()
+    return pipe
+
+
+def _writer(args, cfg, pipe):
+    """(save, say): ``save(video [T, H, W, 3], name, latents)`` writes the
+    video under ``--output_dir`` (and with ``--save_latents`` the latents
+    beside it) and returns its path; ``say`` prints. Both do nothing on a
+    parallel run's rank other than 0."""
+    from .parallel.route import on_rank0
+    from .utils.video import save_video
+
+    if not on_rank0(pipe):
+        return (lambda video, name, latents=None: name), (lambda msg: None)
+
+    def save(video, name, latents=None):
+        path = os.path.join(args.output_dir, name)
+        if args.save_latents and latents is not None:
+            torch.save(latents.detach().cpu(), os.path.splitext(path)[0] + ".pt")
+        return save_video(video.float().cpu().numpy(), path, fps=cfg.sample_fps)
+    return save, print
 
 
 # the camera-metrics suffix of every video-mode caption: a constant in the
@@ -473,15 +642,16 @@ _VIDEO_METRICS_SUFFIX = (
     "View rotation speed:4.14601429683874179.")
 
 
-def iter_video_samples(args, size):
+def iter_video_samples(args, size, shard: bool = True):
     """Yield (video [1, F, H, W, 3] in [-1, 1] on the host, caption, tag)
     from ``--input_video`` and then ``--video_root_dir``, whose
     ``<category>/*.mp4`` scan is strided by the ``torch.distributed`` rank
     so that each process serves other clips (the reference's
-    ``(step-1)*world_size+rank``, fastvideo/sample/sample.py:667). A clip's
-    sibling ``.txt`` control file gives the key/mouse caption; tags count
-    the scan's global index, so ranks sharing an output directory do not
-    collide."""
+    ``(step-1)*world_size+rank``, fastvideo/sample/sample.py:667; not with
+    ``shard=False``, where the ranks of one ``--sp``/``--pp`` run serve every
+    clip together). A clip's sibling ``.txt`` control file gives the
+    key/mouse caption; tags count the scan's global index, so ranks sharing
+    an output directory do not collide."""
     import glob
 
     from .data.controls import control_caption, parse_control_txt
@@ -502,7 +672,7 @@ def iter_video_samples(args, size):
     if args.input_video:
         yield load(args.input_video, args.prompt) + ("video000",)
     if args.video_root_dir:
-        rank, world = process_rank()
+        rank, world = process_rank() if shard else (0, 1)
         files = [mp4 for sub in sorted(glob.glob(os.path.join(args.video_root_dir, "*/")))
                  for mp4 in sorted(glob.glob(os.path.join(sub, "*.mp4")))]
         for i, mp4 in enumerate(files[rank::world]):
@@ -510,7 +680,7 @@ def iter_video_samples(args, size):
 
 
 def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, timer,
-               device=None):
+               device=None, shard=True):
     """The video-input mode (reference sample_one's video branch,
     fastvideo/sample/sample.py:686-714). 5B: ``encode_auto`` of the clip
     gives the history latents, then ``--sample_num`` segments, each tail
@@ -520,20 +690,16 @@ def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, ti
     ``generate_next`` of ``(latent_frame_zero - 1)·stride`` frames per
     sample, the history growing by the decoded video each time. The clips
     go to ``device`` (default the pipeline's; the 14B's quantized trunk may
-    be parked on the host when they are read)."""
-    from .utils.video import save_video
-
+    be parked on the host when they are read). ``shard``: as
+    :func:`iter_video_samples`."""
     interval, threshold = teacache
     seg_kw = dict(sampler=sampler, teacache_interval=interval,
                   teacache_edge=args.teacache_edge, teacache_threshold=threshold)
     lfz, s0 = cfg.latent_frame_zero, cfg.vae.stride[0]
-
-    def save(video, name):
-        return save_video(video.float().cpu().numpy(), os.path.join(args.output_dir, name),
-                          fps=cfg.sample_fps)
+    save, say = _writer(args, cfg, pipe)
 
     n_out = 0
-    for video, caption, tag in iter_video_samples(args, size):
+    for video, caption, tag in iter_video_samples(args, size, shard):
         ctx = encode(caption + _VIDEO_METRICS_SUFFIX)
         video = video.to(pipe.device if device is None else device)
         t0 = time.time()
@@ -546,11 +712,11 @@ def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, ti
             frame_zero = (lfz - 1) * s0
             for s in range(args.sample_num):
                 with timer.phase("generate_next"):
-                    _, history = pipe.generate_next(
+                    latents, history = pipe.generate_next(
                         history, ctx, ctx_null, frame_zero=frame_zero, steps=steps,
                         shift=args.shift, guide_scale=args.guide_scale, seed=args.seed + s,
                         **seg_kw)
-                save(history[0, -frame_zero:], f"{tag}_seg{s:03d}.mp4")
+                save(history[0, -frame_zero:], f"{tag}_seg{s:03d}.mp4", latents)
                 n_out += 1
         else:
             with timer.phase("vae_encode"):
@@ -566,10 +732,10 @@ def _run_video(args, cfg, pipe, encode, sampler, teacache, size, steps, slot, ti
                     if slot is not None:
                         slot.use("vae")
                     tail = pipe.decode_auto(latents[:, -lfz:])
-                save(tail[0], f"{tag}_seg{s:03d}.mp4")
+                save(tail[0], f"{tag}_seg{s:03d}.mp4", latents)
                 n_out += 1
-        print(f"--> {tag}: {args.sample_num} segment(s) in {time.time() - t0:.1f}s "
-              f"({caption[:60]})")
+        say(f"--> {tag}: {args.sample_num} segment(s) in {time.time() - t0:.1f}s "
+            f"({caption[:60]})")
     if n_out == 0:
         raise FileNotFoundError(
             f"no input videos found under {args.video_root_dir or args.input_video}")
@@ -580,20 +746,17 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
     """The 5B branches: a t2v first segment re-encoded to latents
     (``encode_auto``), or an image-conditioned one (``--jpg_dir``); then one
     continuation segment per remaining sample, each with the next caption."""
-    from .utils.video import load_image, save_video
+    from .utils.video import load_image
 
     lfz = cfg.latent_frame_zero
     interval, threshold = teacache
     seg_kw = dict(sampler=sampler, teacache_interval=interval,
                   teacache_edge=args.teacache_edge, teacache_threshold=threshold)
+    save, say = _writer(args, cfg, pipe)
 
     def vae_phase():
         if slot is not None:
             slot.use("vae")
-
-    def save(video, name):
-        return save_video(video[0].float().cpu().numpy(), os.path.join(args.output_dir, name),
-                          fps=cfg.sample_fps)
 
     t0 = time.time()
     if args.t2v or args.jpg_dir is None:
@@ -603,11 +766,12 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
         ctx_null = (encode(args.neg_prompt or cfg.sample_neg_prompt)
                     if args.sample_solver != "euler" else None)
         with timer.phase("generate"):
-            vae_phase()     # generate_t2v decodes its latents
-            video = pipe.generate_t2v(ctx, size=size, frame_num=frame_num, steps=steps,
+            vae_phase()     # the t2v latents are decoded here
+            first = pipe.generate_t2v(ctx, size=size, frame_num=frame_num, steps=steps,
                                       shift=args.shift, seed=args.seed,
                                       solver=args.sample_solver, ctx_null=ctx_null,
-                                      guide_scale=args.guide_scale)
+                                      guide_scale=args.guide_scale, return_latents=True)
+            video = pipe.decode_auto(first)
         with timer.phase("vae_encode"):
             vae_phase()
             latents = pipe.encode_auto(video)
@@ -629,8 +793,9 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
         with timer.phase("vae_decode"):
             vae_phase()
             video = pipe.decode_auto(latents)
-    out = save(video, "segment_000.mp4")
-    print(f"--> segment 0 written to {out} ({time.time() - t0:.1f}s, frames={video.shape[1]})")
+        first = latents
+    out = save(video[0], "segment_000.mp4", first)
+    say(f"--> segment 0 written to {out} ({time.time() - t0:.1f}s, frames={video.shape[1]})")
     del video
 
     for s in range(1, args.sample_num):
@@ -642,8 +807,8 @@ def _run(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, 
         with timer.phase("vae_decode"):
             vae_phase()
             tail = pipe.decode_auto(latents[:, -lfz:])
-        out = save(tail, f"segment_{s:03d}.mp4")
-        print(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
+        out = save(tail[0], f"segment_{s:03d}.mp4", latents)
+        say(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
 
 
 def _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_num, steps,
@@ -654,34 +819,33 @@ def _run_i2v(args, cfg, pipe, encode, captions, sampler, teacache, size, frame_n
     video so far and adds 32 frames (``generate_next``), written alone. As
     the reference, the continuations take no sampler and run Euler. The
     image goes to ``device`` (as :func:`_run_video`)."""
-    from .utils.video import load_image, save_video
+    from .utils.video import load_image
 
     interval, threshold = teacache
+    save, say = _writer(args, cfg, pipe)
     ctx = encode(captions[0])
     ctx_null = None if args.distilled else encode(args.neg_prompt or cfg.sample_neg_prompt)
     img = load_image(_first_image(args.jpg_dir), size=(size[1], size[0]))
     t0 = time.time()
     with timer.phase("generate"):
-        _, video = pipe.generate(
+        latents, video = pipe.generate(
             torch.from_numpy(img)[None, None].to(pipe.device if device is None else device),
             ctx, ctx_null,
             frame_num=frame_num, steps=steps, shift=args.shift, guide_scale=args.guide_scale,
             seed=args.seed, sampler=sampler, teacache_interval=interval,
             teacache_edge=args.teacache_edge, teacache_threshold=threshold)
-    out = save_video(video[0].float().cpu().numpy(),
-                     os.path.join(args.output_dir, "segment_000.mp4"), fps=cfg.sample_fps)
-    print(f"--> segment 0 written to {out} ({time.time() - t0:.1f}s, frames={video.shape[1]})")
+    out = save(video[0], "segment_000.mp4", latents)
+    say(f"--> segment 0 written to {out} ({time.time() - t0:.1f}s, frames={video.shape[1]})")
     for s in range(1, args.sample_num):
         ctx = encode(captions[min(s, len(captions) - 1)])
         t1 = time.time()
         with timer.phase("generate_next"):
-            _, video = pipe.generate_next(video, ctx, ctx_null, frame_zero=I2V_FRAME_ZERO,
-                                          steps=steps, shift=args.shift,
-                                          guide_scale=args.guide_scale, seed=args.seed + s)
-        out = save_video(video[0, -I2V_FRAME_ZERO:].float().cpu().numpy(),
-                         os.path.join(args.output_dir, f"segment_{s:03d}.mp4"),
-                         fps=cfg.sample_fps)
-        print(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
+            latents, video = pipe.generate_next(video, ctx, ctx_null,
+                                                frame_zero=I2V_FRAME_ZERO, steps=steps,
+                                                shift=args.shift, guide_scale=args.guide_scale,
+                                                seed=args.seed + s)
+        out = save(video[0, -I2V_FRAME_ZERO:], f"segment_{s:03d}.mp4", latents)
+        say(f"--> segment {s} written to {out} ({time.time() - t1:.4f} s)")
 
 
 if __name__ == "__main__":

@@ -19,8 +19,19 @@ the device only for its phase. ``--quant int8|int4`` quantizes the DiT
 trunk at the first request (``models/quantized.py``); every mode then runs
 on it. The log goes to ``<output_dir>/webapp.log``.
 
-Not ported, and refused with the ROADMAP queue 1 item that brings them:
-``--pp`` (item 8) and ``--sp > 1`` (a CLI launch of the SP groups, item 4).
+``--sp N`` and ``--pp N`` serve one request at a time on N ranks spawned
+from the one command, as the sample CLI's (:func:`..parallel.mesh.launch`):
+the models load at start on every rank (umT5 and the VAE on rank 0 only),
+rank 0 runs the HTTP server, and each ``/api/generate_long`` request goes
+to the other ranks (``broadcast_object_list``; an idle rank 0 sends a
+heartbeat, so a collective's timeout still means a lost rank). Every rank
+runs the same ``_generate`` in lockstep; status, the session's outputs and
+the files are rank 0's. A request that fails on any rank fails on all of
+them and is reported, and the server goes on serving: the steps only rank
+0 takes (the encoders, the decode, the offload shuttle) tell every rank
+whether they failed, so the ranks leave the request together. A rank that
+fails inside a sharded forward leaves the others in its collective: they
+give up after ``COLLECTIVE_TIMEOUT_S`` and the server ends.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import io
 import json
 import logging
 import os
+import queue
 import threading
 import time
 import traceback
@@ -38,6 +50,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+# an idle rank 0 of a parallel server tells the other ranks so this often
+HEARTBEAT_S = 60.0
 
 # Bilingual (EN/中文) single-page UI over the REST endpoints: mode select,
 # image upload, prompt + refine, camera vocabulary, per-step progress, log
@@ -147,10 +162,14 @@ class WebApp:
     """The server's state: the pipeline, the session's last latents, the
     request status and the outputs. One generation runs at a time."""
 
-    def __init__(self, args):
+    def __init__(self, args, rank=None):
         from ..sample import refuse_unported, teacache_settings
 
         refuse_unported(args, webapp=True)
+        # a parallel server's rank (parallel.mesh.Rank); its rank 0 queues
+        # the requests for the dispatch loop
+        self.rank = rank
+        self.requests = queue.Queue() if rank is not None else None
         if args.refiner_model:
             from ..data.prompt_refine import get_refiner
 
@@ -162,11 +181,15 @@ class WebApp:
         self.last = None          # session state: latents of the last generation
         self.outputs = []
         self.lock = threading.Lock()
-        os.makedirs(args.output_dir, exist_ok=True)
         self.log_path = os.path.join(args.output_dir, "webapp.log")
         self.log = logging.Logger("yume_tpu_torch.webapp")
-        self._log_file = logging.FileHandler(self.log_path)
-        self._log_file.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        if self.leader:
+            os.makedirs(args.output_dir, exist_ok=True)
+            self._log_file = logging.FileHandler(self.log_path)
+            self._log_file.setFormatter(
+                logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+        else:   # the files are rank 0's
+            self._log_file = logging.NullHandler()
         self.log.addHandler(self._log_file)
 
     def close(self):
@@ -184,8 +207,8 @@ class WebApp:
         from ..utils.offload import OffloadSlot
 
         args = self.args
-        self.cfg, self.pipe = load_pipeline(args)
-        if args.memory_optimization:
+        self.cfg, self.pipe = load_pipeline(args, self.rank)
+        if args.memory_optimization and self.leader:
             # umT5 and the VAE wait in host memory; the DiT stays resident
             self.slot = OffloadSlot(self.pipe.device)
             self.slot.register("t5", self.pipe.t5)
@@ -198,15 +221,35 @@ class WebApp:
         self.log.info("models loaded (%s, smoke=%s, device=%s)", args.config, args.smoke,
                       args.device)
 
-    def _phase(self, name):
-        """Bring the model of phase ``name`` ('t5', 'vae' or 'dit') onto the
-        device and park the others (a no-op without memory_optimization)."""
+    @property
+    def leader(self) -> bool:
+        """Whether this process serves HTTP and writes: rank 0, or alone."""
+        return self.rank is None or self.rank.rank == 0
+
+    def _on_rank0(self, fn):
+        """``fn()`` on rank 0 of a parallel server, None on the others; a
+        failure on rank 0 fails the step on every rank
+        (:func:`..parallel.mesh.on_rank0_only`), so the ranks leave the
+        request together. Alone, ``fn()``."""
+        from ..parallel.mesh import on_rank0_only
+        from ..parallel.route import run_group
+
+        return on_rank0_only(fn, None if self.rank is None else run_group(self.pipe))
+
+    def _move(self, name):
         if self.slot is None:
             return
         if name == "dit":
             self.slot.park()
         else:
             self.slot.use(name)
+
+    def _phase(self, name):
+        """Bring the model of phase ``name`` ('t5', 'vae' or 'dit') onto the
+        device and park the others (a no-op without memory_optimization);
+        rank 0's step on a parallel server, whose slot it is."""
+        if self.args.memory_optimization:
+            self._on_rank0(lambda: self._move(name))
 
     def refine_prompt(self, prompt, image=None):
         """The template refiner (the reference's fallback; its model-backed
@@ -255,10 +298,15 @@ class WebApp:
                              f"step {s['i']}/{s['n']} t={t:.1f}")
 
         def decode(tail):
-            self._phase("vae")
-            # width tiles bound the decode's memory at 720p-class frames
-            video = pipe.decode_tiled(tail) if tail.shape[3] >= 40 else pipe.decode_auto(tail)
-            return video[0].float().cpu().numpy()
+            """The tail's video on the host; None on a rank other than 0."""
+
+            def run():
+                self._move("vae")
+                # width tiles bound the decode's memory at 720p-class frames
+                video = (pipe.decode_tiled(tail) if tail.shape[3] >= 40 else
+                         pipe.decode_auto(tail))
+                return video[0].float().cpu().numpy()
+            return self._on_rank0(run)
 
         videos = []
         if mode == "continue_from_last" and self.last is not None:
@@ -288,7 +336,7 @@ class WebApp:
                 latents, ctx, steps=steps, seed=seed + s_idx,
                 sampler="teacache" if args.teacache else "euler",
                 teacache_interval=interval, teacache_threshold=threshold,
-                progress_cb=None if args.teacache else on_step)
+                progress_cb=None if args.teacache or not self.leader else on_step)
             if args.teacache:
                 # the cached sampler reports no steps: per-segment progress
                 self.step["i"] = steps
@@ -297,6 +345,8 @@ class WebApp:
             self.step["segment"] += 1
 
         self.last = latents
+        if not self.leader:
+            return
         outs = []
         for video in videos:
             out = os.path.join(args.output_dir, f"web_{len(self.outputs):04d}.mp4")
@@ -308,17 +358,63 @@ class WebApp:
         self.log.info("generated %s in %.1fs", outs, time.time() - t0)
 
     def generate(self, req):
-        """Run one request (the lock held by the caller); a failure becomes
-        the status ``error`` with its message, and the log gets its
-        traceback."""
+        """Run one request (the lock held by the caller on rank 0); a
+        failure becomes the status ``error`` with its message, and the log
+        gets its traceback. On a parallel server every rank runs it, and a
+        request that failed on any rank fails on all of them."""
+        error = None
         try:
             self._generate(req)
         except Exception as e:  # noqa: the server keeps serving after a failed request
-            self.status = "error"
-            self.progress = str(e)
+            error = f"{type(e).__name__}: {e}"
             self.log.error("generate failed: %s\n%s", e, traceback.format_exc())
-        finally:
+        if self.rank is not None:
+            import torch.distributed as dist
+
+            every = [None] * self.rank.world
+            dist.all_gather_object(every, error)
+            failed = [f"rank {r}: {e}" for r, e in enumerate(every) if e is not None]
+            error = "; ".join(failed) or None
+        if error is not None:
+            self.status = "error"
+            self.progress = error
+        if self.leader:
             self.lock.release()
+
+    def submit(self, req):
+        """Start one request (the lock held): on a worker thread, or on a
+        parallel server through rank 0's dispatch loop. The seed is fixed
+        here, so every rank takes the same one."""
+        req = {**req, "seed": int(req.get("seed", int(time.time()) % 100000))}
+        if self.requests is not None:
+            self.requests.put(req)
+        else:
+            threading.Thread(target=self.generate, args=(req,), daemon=True).start()
+
+    def dispatch(self):
+        """Rank 0 of a parallel server: hand each request to every rank and
+        run it; with no request for ``HEARTBEAT_S`` seconds, an idle
+        message. Runs until the process ends."""
+        import torch.distributed as dist
+
+        while True:
+            try:
+                req = self.requests.get(timeout=HEARTBEAT_S)
+            except queue.Empty:
+                req = None
+            dist.broadcast_object_list([req], src=0)
+            if req is not None:
+                self.generate(req)
+
+    def follow(self):
+        """A rank other than 0: run each request rank 0 hands out."""
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] is not None:
+                self.generate(box[0])
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -390,7 +486,7 @@ class Handler(BaseHTTPRequestHandler):
             # before the reply: a poll right after "started" must not read the
             # previous request's status
             app.status = "generating"
-            threading.Thread(target=app.generate, args=(req,), daemon=True).start()
+            app.submit(req)
             self._json({"status": "started"})
         elif self.path == "/api/refine_prompt":
             from ..utils.video import load_image
@@ -428,10 +524,12 @@ def build_argparser():
                         "network; /api/refine_prompt runs the template refiner")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree; > 1 is not ported to the CLI "
-                        "(ROADMAP queue 1, item 4)")
+                   help="sequence-parallel degree: serve on that many spawned ranks, each "
+                        "with the whole DiT and 1/N of every forward's tokens")
     p.add_argument("--sp_kind", default="ulysses", choices=["ulysses", "ring", "usp"])
-    p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP queue 1, item 8)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline-parallel stages of the bf16 trunk: serve on that many "
+                        "spawned ranks, each holding 1/N of the blocks; Euler only")
     p.add_argument("--w8a8", action="store_true",
                    help="int8 × int8 matmuls for the DiT blocks' projections")
     p.add_argument("--teacache", action="store_true",
@@ -448,19 +546,48 @@ def build_argparser():
     return p
 
 
-def main(argv=None):
-    args = build_argparser().parse_args(argv)
-    app = WebApp(args)
-    if args.preload:
+def _serve(args, rank=None):
+    """Serve until the process ends: alone, or as ``rank`` of a parallel
+    server (rank 0 serves HTTP on a thread and dispatches; the others
+    follow)."""
+    app = WebApp(args, rank)
+    if args.preload or rank is not None:
         app.load_models()
+    if not app.leader:
+        try:
+            return app.follow()
+        finally:
+            app.close()
     srv = ThreadingHTTPServer((args.host, args.port), app.handler())
     print(f"yume_tpu_torch webapp on http://{args.host}:{srv.server_address[1]} "
-          f"(log: {app.log_path})")
+          f"(log: {app.log_path})", flush=True)
     try:
-        srv.serve_forever()
+        if rank is None:
+            srv.serve_forever()
+        else:
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            app.dispatch()
     finally:
         srv.server_close()
         app.close()
+
+
+def _serve_rank(rank, args):
+    """One rank of a ``--sp``/``--pp`` server (:func:`..parallel.mesh.launch`)."""
+    _serve(argparse.Namespace(**{**vars(args), "device": str(rank.device)}), rank)
+
+
+def main(argv=None):
+    from ..sample import parallel_world, refuse_unported
+
+    args = build_argparser().parse_args(argv)
+    refuse_unported(args, webapp=True)
+    world = parallel_world(args)
+    if world == 1:
+        return _serve(args)
+    from ..parallel.mesh import launch
+
+    launch(world, _serve_rank, args, device=args.device)
 
 
 if __name__ == "__main__":

@@ -128,8 +128,8 @@ def _refuse_unported(args, device: torch.device):
         raise NotImplementedError(
             "not ported yet: --sp > 1 is sequence-parallel training, which needs a "
             "differentiable all-to-all and a ring backward that sends dK/dV round the ring "
-            "(ROADMAP queue 1, item 8); sequence-parallel serving is TI2VPipeline with "
-            "sp_groups")
+            "(ROADMAP queue 1, item 8); sequence-parallel serving is "
+            "python -m yume_tpu_torch.sample --sp N")
     if (args.config == "i2v-14B" and device.type == "cuda" and not args.smoke
             and not args.lora_rank):
         raise NotImplementedError(
