@@ -172,27 +172,36 @@ result line:
    host memory and their times say nothing of SP speed. Each rank holds the
    same random full-width 5B DiT (checksummed across ranks); Ulysses (sp
    4), ring (sp 4) and USP (2 x 2) forwards at 12,095 tokens against the
-   unsharded forward, a 2-step ring Euler segment against the unsharded
-   one, and a 6-step ring W8A8 + adaptive TeaCache segment; every rank
+   unsharded forward, a 1-step ring Euler segment against the unsharded
+   one, and a 3-step ring W8A8 + adaptive TeaCache segment; every rank
    must return the same latents and n_full, and K7 must launch 120 times a
-   forward on ring and USP and never on Ulysses.
+   forward on ring and USP and never on Ulysses. Then sequence-parallel
+   training on the same ranks (:func:`_sp_train`): a 6-layer full-width
+   5B DiT (bf16, remat), rank 0's dense loss and gradients against the
+   Ulysses, ring and USP loss and gradients summed over the ranks, then
+   one whole Ulysses step (AdamW, EMA) whose parameters must be the same
+   bits on every rank; each path's exact launches a rank.
+8c. ``train.main(["--smoke", "--sp", "2", "--sp_kind", "ring", "--Distil",
+   ...])`` on the card against the same run on one rank
+   (:func:`sp_train_cli`).
 8b. multi-device serving (:func:`multi_device_phase`): the entry points
    with ``--sp``/``--pp``, each command spawning its ranks, all sharing the
    card over gloo, each path's launches per rank read from its ranks:
    a. ``python -m yume_tpu_torch.sample`` in image mode on 640×352 frames
-      (4 Euler steps, one continuation) at ``--sp 4 --sp_kind ulysses``,
+      (2 Euler steps, one continuation) at ``--sp 4 --sp_kind ulysses``,
       within 1e-2 relative L2 of the same command on one rank; b. the same
       at ``--pp 2``, bit-equal, each rank holding its stage's blocks; c.
       ``--config i2v-14B`` at 544×960 (full depth, 2 CFG steps) at ``--pp
       2``, bit-equal to phase 6e's first segment, with the card's peak; d.
-      the 14B's SP CFG segment at full width on 10 of its 40 layers through
+      the 14B's SP CFG segment at full width on 4 of its 40 layers through
       ``I2VPipeline.generate`` on two ranks launched by
       ``parallel.mesh.launch``: a ring forward against the unsharded one,
       Ulysses Euler and ring adaptive TeaCache against one rank, K7 on every
       ring rank; e. ``python -m yume_tpu_torch.serving.webapp --sp 2``: one
       t2v request of two segments, ``generating`` → ``done``.
    Phase 3 holds K1 at Ulysses' 20 and 6 heads and K7 at the 14B's ring and
-   USP hops against their plain versions.
+   USP hops against their plain versions, and K8 and K9 at phase 8's
+   Ulysses and USP training shapes.
 
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -1079,22 +1088,31 @@ def flash_backward_kernels(results, gen):
         _flash_backward_case(results, gen, case, lq, lk, N)
 
 
-def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None):
+def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None, live=None,
+                         dlse=False):
     """One K8/K9 case of :func:`flash_backward_kernels` with ``heads``
     heads; ``hs``: the fp32 plain version fits only that many heads at a
     time, so the kernels are held to it on the first ``hs`` heads and it is
-    timed over all of them ``hs`` at a time."""
+    timed over all of them ``hs`` at a time. ``live``: the keys past it are
+    masked (``kv_len``); they must get zero dK and dV. ``dlse``: a random
+    lse cotangent folds into delta, as K7's VJP (a ring or USP hop) runs
+    the pair."""
     from yume_tpu_torch.ops import flash_attention as fl
 
     hs = hs or heads
     q, do = _randn(gen, 1, lq, heads, D), _randn(gen, 1, lq, heads, D)
     k, v = _randn(gen, 1, lk, heads, D), _randn(gen, 1, lk, heads, D)
-    out, lse = fl.flash_attention(q, k, v, return_lse=True)
+    kl = None if live is None else torch.tensor([live], dtype=torch.int32, device="cuda")
+    rows = lk if live is None else live
+    out, lse = fl.flash_attention(q, k, v, kv_len=kl, return_lse=True)
     delta = fl.attention_delta(out, do)
+    if dlse:
+        delta = (delta - torch.randn(delta.shape, generator=gen, device="cuda")).contiguous()
 
     def plain(h0=0, h1=hs):
         return fl.plain_attention_bwd(q[:, :, h0:h1], k[:, :, h0:h1], v[:, :, h0:h1],
-                                      out[:, :, h0:h1], lse[:, h0:h1], do[:, :, h0:h1])
+                                      out[:, :, h0:h1], lse[:, h0:h1], do[:, :, h0:h1],
+                                      kv_len=kl, delta=delta[:, h0:h1])
 
     want = plain()
 
@@ -1105,7 +1123,9 @@ def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None):
     plain_ms = median_ms(plain_all, reps=3 if hs == heads else 1,
                          warmup=2 if hs == heads else 1)
 
-    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    # the library's backward over the live keys
+    leaves = [t[:, :n].transpose(1, 2).detach().requires_grad_()
+              for t, n in ((q, lq), (k, rows), (v, rows))]
     do_t = do.transpose(1, 2)
 
     def sdpa_fwd():
@@ -1122,17 +1142,24 @@ def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None):
     lib_dev = device_ms(lambda: torch.autograd.grad(lib_out, leaves, do_t,
                                                     retain_graph=True))["all"]
     del lib_out
-    flops = 2.0 * heads * lq * lk * D  # one [Lq, Lk, D] product, all heads
+    flops = 2.0 * heads * lq * rows * D  # one [Lq, live keys, D] product, all heads
     stats = nbytes(lse, delta)
     pair = {}
     for kernel, ref, run, ops in (
             ("flash_attention_bwd_dq", want[:1],
-             lambda: (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),), 3 * flops),
+             lambda: (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_len=kl),),
+             3 * flops),
             ("flash_attention_bwd_dkv", want[1:],
-             lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta), 4 * flops)):
+             lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_len=kl),
+             4 * flops)):
         got = run()
         same = all(torch.equal(a, b) for _ in range(2) for a, b in zip(got, run()))
         require(same, f"{kernel} {case}: a repeat run gave other bits")
+        require(all(torch.isfinite(g).all().item() for g in got),
+                f"{kernel} {case}: a gradient is not finite")
+        if kernel == "flash_attention_bwd_dkv" and rows < lk:
+            require(not any(g[:, rows:].any().item() for g in got),
+                    f"{kernel} {case}: a masked key got a gradient")
         err = max(max_err(g[:, :, :hs], w) for g, w in zip(got, ref))
         tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in ref)
         ms = median_ms(run, reps=10)
@@ -1140,6 +1167,10 @@ def _flash_backward_case(results, gen, case, lq, lk, heads, hs=None):
         bound = bound_ms(nbytes(q, k, v, do, *got) + stats, ops, "bf16")
         pair[kernel] = (ms, dev)
         extra = {} if hs == heads else {"held_on_heads": hs}
+        if rows < lk:
+            extra["masked_keys_zero_dkv"] = True
+        if dlse:
+            extra["delta_minus_dlse"] = True
         _record(results, kernel, case, err, tol, ms, plain_ms, bound, lib_ms,
                 device_ms=round(dev, 4), library_device_ms=round(lib_dev, 4),
                 tflops=round(ops / ms / 1e9, 1),
@@ -1298,10 +1329,21 @@ def partial_attention_kernel(results, gen):
     del q, k, v, o, lse, want, want_lse
 
     # the VJP: a cotangent on both outputs, gradients against plain autograd
-    q, k, v = (_randn(gen, 1, 3024, N, D) for _ in range(3))
-    dout, dlse = _randn(gen, 1, 3024, N, D), torch.randn((1, N, 3024), generator=gen,
-                                                         device="cuda")
-    kl = torch.tensor([3023], dtype=torch.int32, device="cuda")
+    results["flash_attention_partial"]["vjp"] = _k7_vjp_check(gen, 3024, 3024, N, 3023)
+
+
+def _k7_vjp_check(gen, lq, lk, heads, live) -> dict:
+    """K7's VJP (K7, then K8 and K9 with the lse cotangent folded into
+    delta) with cotangents on both outputs, against the plain version's
+    autograd gradients, on q [1, lq, heads, 128] over a block of ``lk``
+    keys of which ``live`` are live."""
+    from yume_tpu_torch.ops import flash_attention as fl
+
+    q, k = _randn(gen, 1, lq, heads, D), _randn(gen, 1, lk, heads, D)
+    v = _randn(gen, 1, lk, heads, D)
+    dout, dlse = _randn(gen, 1, lq, heads, D), torch.randn((1, heads, lq), generator=gen,
+                                                           device="cuda")
+    kl = torch.tensor([live], dtype=torch.int32, device="cuda")
     grads, times = [], []
     for fn in (fl.flash_attention_partial, fl.plain_attention_partial):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1313,13 +1355,15 @@ def partial_attention_kernel(results, gen):
         times.append(median_ms(fwd_bwd, reps=3))
     err = max(max_err(g, w) for g, w in zip(*grads))
     tol = BWD_REL_TOL * max(w.float().abs().max().item() for w in grads[1])
-    log(f"  flash_attention_partial VJP with dlse (K7 + K8 + K9) [1,3024,24,128] "
-        f"kv_len=3023: max_abs_err {err:.3e}  tol {tol:.3e}  forward + backward "
-        f"{times[0]:.3f} ms, plain autograd {times[1]:.3f} ms  {'ok' if err <= tol else 'FAIL'}")
-    require(err <= tol, f"K7 VJP: error {err} exceeds {tol}")
-    results["flash_attention_partial"]["vjp"] = {"max_abs_err": err, "tol": tol,
-                                                 "ms": times[0], "plain_ms": times[1]}
-    del q, k, v, dout, dlse, grads
+    masked = not any(g[:, live:].any().item() for g in grads[0][1:])
+    log(f"  flash_attention_partial VJP with dlse (K7 + K8 + K9) [1,{lq},{heads},128] over "
+        f"{lk} keys, kv_len={live}: max_abs_err {err:.3e}  tol {tol:.3e}  forward + backward "
+        f"{times[0]:.3f} ms, plain autograd {times[1]:.3f} ms; masked keys' dK, dV zero "
+        f"{masked}  {'ok' if err <= tol and masked else 'FAIL'}")
+    require(err <= tol and masked, f"K7 VJP [1,{lq},{heads},128]: error {err} exceeds {tol}, "
+            f"or a masked key got a gradient")
+    return {"case": f"[1,{lq},{heads},128] x {lk} keys, kv_len {live}", "max_abs_err": err,
+            "tol": tol, "ms": times[0], "plain_ms": times[1], "masked_keys_zero_dkv": masked}
 
 
 # phase 8b's attention shapes. Ulysses gives each rank every token and
@@ -1398,6 +1442,30 @@ def sp_attention_kernels(results, gen):
                 K7_TOL, ms, median_ms(plain, reps=1), bound, lib_ms,
                 lse_max_abs_err=lse_err, **attn_rate(q, rows, ms, bound))
         del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+
+
+# phase 8's sequence-parallel training shapes (the 5B at 12,095 tokens, sp
+# 4): Ulysses' backward runs K8 and K9 over every token with a quarter of
+# the heads, the pad key masked; a USP 2 x 2 hop runs K7's VJP (K8 and K9
+# with the lse cotangent folded into delta) of half the tokens and heads
+# over one run of 3,024 keys, the last run with kv_len 12,095 - 3 x 3,024
+SP_BWD_CASES = [  # (case, q rows, kv rows, heads, plain heads at a time, live keys, dlse)
+    (f"5B Ulysses sp=4 self [1,{L_PAD},6,128] kv_len={L}", L_PAD, L_PAD, N // 4, 3, L, False),
+    (f"5B USP 2x2 hop q [1,{L_PAD // 2},12,128] x run 3024 kv_len=3023, dlse", L_PAD // 2,
+     3024, N // 2, None, L - 3 * 3024, True),
+]
+
+
+def sp_backward_kernels(results, gen):
+    """K8 and K9 at phase 8's training shapes (``SP_BWD_CASES``, as
+    :func:`_flash_backward_case`: against the plain backward, masked keys'
+    dK and dV zero, bounds, SDPA's backward over the live keys), then K7's
+    whole VJP at the USP hop."""
+    for case, lq, lk, n, hs, live, dlse in SP_BWD_CASES:
+        _flash_backward_case(results, gen, case, lq, lk, n, hs, live=live, dlse=dlse)
+    results["flash_attention_partial"]["vjp_usp"] = _k7_vjp_check(
+        gen, L_PAD // 2, 3024, N // 2, L - 3 * 3024)
     torch.cuda.empty_cache()
 
 
@@ -4054,16 +4122,46 @@ def train_14b_phase(counters) -> dict:
 
 SP_WORLD = 4
 SP_KINDS = ("ulysses", "ring", "usp")
-# relative L2 of a sharded 30-layer bf16 forward (or 2-step Euler segment)
+# relative L2 of a sharded 30-layer bf16 forward (or 1-step Euler segment)
 # against the unsharded one: the same arithmetic but for the attention
 # (all-to-all and K1 over the whole sequence, or K7 blocks merged in fp32),
 # whose last-bit differences then propagate through 30 bf16 layers; as the
 # 2-layer bf16-vs-fp32 reference (3e-2)
 SP_REL_TOL = 3e-2
-# the W8A8 + adaptive TeaCache segment: 6 steps (12 took 49.9 s of the
-# phase's 115.7, on an H100)
-SP_EULER_STEPS, SP_TEACACHE_STEPS = 2, 6
-SP_TIMEOUT_S = 600
+# the Euler segment 1 step (2 took 12.5 s) and the W8A8 + adaptive
+# TeaCache segment 3 (12 took 49.9 s of the phase's 115.7 on an H100, 6 took
+# 25.0 s and 4 18.8 s of 149.1 once the phase trained too)
+SP_EULER_STEPS, SP_TEACACHE_STEPS = 1, 3
+SP_TIMEOUT_S = 900
+# SP training on the four ranks: the full-width 5B DiT cut to 6 of its 30
+# layers, 1.27B bf16 parameters (2.55 GB); with its gradients, the two Adam
+# moments and the EMA, 12.7 GB a rank, 51 GB for four beside the ranks'
+# CUDA contexts and rank 0's dense gradients (which are freed before the
+# optimizer's state is made). 8 layers (1.60B, 16.0 GB a rank) fit too, the
+# ranks' peaks 19.16 and 16.18 GiB on an H100, but took 14 s more than the
+# script's time allows
+SP_TRAIN_LAYERS = 6
+# the SP loss's relative error and the summed gradients' relative L2 from
+# the dense ones: Ulysses runs every head's attention over all tokens as the
+# dense forward (its 720p forward was bit-equal), ring and USP round each
+# hop's output to bf16 before the fp32 merge
+SP_TRAIN_LOSS_TOL = {"ulysses": 1e-3, "ring": 5e-2, "usp": 5e-2}
+SP_TRAIN_GRAD_TOL = {"ulysses": 2e-2, "ring": 5e-2, "usp": 5e-2}
+
+
+def sp_train_launches(kind: str, layers: int = SP_TRAIN_LAYERS) -> dict:
+    """A rank's kernel launches for one loss and gradient through remat'd
+    blocks (each block's forward runs twice): K1 for self- (Ulysses, dense)
+    and cross-attention, K7 for each ring hop and run (``SP_WORLD`` a
+    layer under ring sp 4 and USP 2 x 2), K8 and K9 once for each, K2 3, K3
+    2, K4 and K5 1 a block's forward, and K2 once for the head."""
+    hops = 0 if kind in ("ulysses", "dense") else SP_WORLD
+    attn = 1 if hops else 2
+    return {"flash_attention": 2 * attn * layers, "flash_attention_partial": 2 * hops * layers,
+            "adaln_norm": 6 * layers + 1, "adaln_residual": 4 * layers,
+            "qk_norm_rope": 2 * layers, "rms_norm": 2 * layers, "q8_dot": 0,
+            "flash_attention_bwd_dq": (attn + hops) * layers,
+            "flash_attention_bwd_dkv": (attn + hops) * layers, "bias_act": 0}
 # K7 launches per rank in one forward: 30 layers x 4 hops (ring sp 4) or
 # x 2 hops x 2 runs (USP 2 x 2); a cached TeaCache step runs 14 layers
 K7_PER_LAYER = {"ulysses": 0, "ring": SP_WORLD, "usp": SP_WORLD}
@@ -4176,9 +4274,103 @@ def _sp_rank_run(rank: int, world: int, init_file: str) -> dict:
     same_on_every_rank("the ring TeaCache latents", digest(lat))
     same_on_every_rank("n_full", out["n_full"])
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del w8, pipe, dit, lat, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_train(rank, groups, run, out, same_on_every_rank, torch.cat([history, tail], 1), ctx)
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+def _sp_train(rank, groups, run, out, same_on_every_rank, latents, ctx):
+    """Phase 8's training part on one rank (see :func:`sp_phase`): the
+    ``SP_TRAIN_LAYERS``-layer 5B DiT, its dense loss and gradients on rank
+    0, the SP loss and summed gradients of each kind, then one whole
+    Ulysses step."""
+    import functools
+
+    from yume_tpu_torch.configs import ti2v_5b
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.parallel.mesh import all_reduce_sum_
+    from yume_tpu_torch.parallel.sp_forward import sp_dit_forward
+    from yume_tpu_torch.pipelines.ti2v import _random_init_
+    from yume_tpu_torch.train import param_checksum
+    from yume_tpu_torch.training.train_step import (TrainConfig, draw_step, global_norm,
+                                                    init_train_state, make_loss_fn,
+                                                    make_train_step, trainable_params)
+
+    cfg = dataclasses.replace(ti2v_5b().dit, num_layers=SP_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = WanDiT(cfg, torch.bfloat16, device="meta", param_dtype=torch.bfloat16,
+                   remat=True).to_empty(device="cuda")
+    _random_init_(model, torch.Generator(device="cuda").manual_seed(6))
+    params = trainable_params(model)
+    names = list(params)
+    checksum = sum(p.float().sum(dtype=torch.float64).item() for p in params.values())
+    same_on_every_rank("the train model's checksum", checksum)
+    train = out["train"] = {"layers": SP_TRAIN_LAYERS,
+                            "params": sum(p.numel() for p in params.values()),
+                            "param_bytes": sum(p.numel() * p.element_size()
+                                               for p in params.values()),
+                            "init_s": time.perf_counter() - t0, "peak_gib": {},
+                            "loss": {}, "grad_norm": {}, "loss_rel": {}, "grad_rel_l2": {}}
+    tc = TrainConfig(latent_frame_zero=8)
+    batch = {"latents": latents, "context": ctx}
+    draws = draw_step(batch, tc, torch.Generator(device="cuda").manual_seed(3))
+    group = groups["ulysses"].group
+
+    def grads_of(forward, reduce=False):
+        loss, _ = make_loss_fn(model, tc, forward=forward)(batch, draws)
+        grads = list(torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True,
+                                         materialize_grads=True))
+        if reduce:
+            all_reduce_sum_(grads, group)
+        return loss.detach().float(), grads
+
+    def measured(path, fn, every_rank=True):
+        torch.cuda.reset_peak_memory_stats()
+        res = run(path, fn, every_rank)
+        train["peak_gib"][path] = torch.cuda.max_memory_allocated() / 2**30
+        return res
+
+    dense = measured("train dense", lambda: grads_of(None), False) if rank == 0 else None
+    for kind in SP_KINDS:
+        fwd = functools.partial(sp_dit_forward, model, groups[kind], kind=kind)
+        loss, grads = measured(f"train {kind}", lambda: grads_of(fwd, True))
+        norm = global_norm(grads).item()
+        train["loss"][kind], train["grad_norm"][kind] = loss.item(), norm
+        same_on_every_rank(f"the {kind} loss and grad norm", (loss.item(), norm))
+        if rank == 0:
+            want_loss, want = dense
+            train["loss_rel"][kind] = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+            num = sum(((g.float() - w.float()) ** 2).sum() for g, w in zip(grads, want))
+            den = sum((w.float() ** 2).sum() for w in want)
+            train["grad_rel_l2"][kind] = (num / den).sqrt().item()
+        del loss, grads
+    if rank == 0:
+        train["loss"]["dense"] = dense[0].item()
+        train["grad_norm"]["dense"] = global_norm(dense[1]).item()
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c: one whole Ulysses step, AdamW and EMA
+    state = init_train_state(params, tc)
+    step = make_train_step(
+        model, tc, forward=functools.partial(sp_dit_forward, model, groups["ulysses"],
+                                             kind="ulysses"),
+        reduce_grads=lambda grads: all_reduce_sum_(grads.values(), group))
+    _, metrics = measured("train ulysses step", lambda: step(state, batch, draws))
+    train["step"] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                     "finite": all(torch.isfinite(p).all().item() for p in params.values())}
+    t0 = time.perf_counter()
+    train["step"]["checksum"] = param_checksum(params)
+    train["step"]["checksum_s"] = time.perf_counter() - t0
+    same_on_every_rank("the parameters after the Ulysses step", train["step"]["checksum"])
+    del state, step, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def sp_rank(rank: int, world: int, init_file: str, results):
@@ -4204,12 +4396,24 @@ def sp_phase() -> dict:
     a. ``sp_dit_forward`` with Ulysses (sp 4), ring (sp 4) and USP (2 x 2)
        on 31 history + 8 tail frames at 44x80 (12,095 tokens), each within
        ``SP_REL_TOL`` of the unsharded forward on rank 0;
-    b. ``generate_segment`` with ``sp_kind="ring"``: a 2-step Euler segment
+    b. ``generate_segment`` with ``sp_kind="ring"``: a 1-step Euler segment
        (against the unsharded one on rank 0), then W8A8 + adaptive TeaCache
-       @0.1 over ``SP_TEACACHE_STEPS`` (6) steps.
+       @0.1 over ``SP_TEACACHE_STEPS`` (3) steps.
     Every rank must return the same velocity and latents, bit for bit, and
     the same n_full. K7 must launch 120 times a forward on ring and USP,
-    never on Ulysses."""
+    never on Ulysses.
+    Then SP training (:func:`_sp_train`): each rank frees its DiT and builds
+    the same full-width 5B DiT cut to ``SP_TRAIN_LAYERS`` layers, bf16
+    parameters, per-block remat, and trains on the same geometry and
+    seeded draws:
+    c. rank 0 computes the dense loss and gradients once;
+    d. for Ulysses, ring and USP: the SP loss and the gradients summed over
+       the group (``all_reduce_sum_``), within ``SP_TRAIN_LOSS_TOL`` and
+       ``SP_TRAIN_GRAD_TOL`` (relative L2) of the dense ones, with each
+       rank's peak, time and exact launches (:func:`sp_train_launches`);
+    e. one whole Ulysses step (clipped AdamW, EMA): finite parameters,
+       bit-equal on every rank (sha256), its loss and grad norm those of
+       d.'s Ulysses gradients."""
     import multiprocessing
     import queue
 
@@ -4283,12 +4487,132 @@ def sp_phase() -> dict:
             and tc["bias_act"] == 0,
             f"SP ring TeaCache: K7 launches {tc['flash_attention_partial']} != {want_k7}, "
             f"or K6 did not launch, or K10 did")
+    tr = r0["train"]
+    log(f"  train: {tr['layers']}-layer full-width 5B DiT, {tr['params']:,} bf16 parameters "
+        f"({tr['param_bytes'] / 1e9:.2f} GB) a rank, remat; dense loss {tr['loss']['dense']:.6f}, "
+        f"grad norm {tr['grad_norm']['dense']:.6f} (rank 0)")
+    for kind in SP_KINDS:
+        path = f"train {kind}"
+        per_rank = [ranks[r]["launches"][path] for r in range(SP_WORLD)]
+        want = sp_train_launches(kind)
+        lr, gr = tr["loss_rel"][kind], tr["grad_rel_l2"][kind]
+        ok = lr <= SP_TRAIN_LOSS_TOL[kind] and gr <= SP_TRAIN_GRAD_TOL[kind]
+        log(f"  {path}: loss {tr['loss'][kind]:.6f}, relative error vs dense {lr:.3e} (tol "
+            f"{SP_TRAIN_LOSS_TOL[kind]:.0e}); summed gradients' relative L2 vs dense {gr:.3e} "
+            f"(tol {SP_TRAIN_GRAD_TOL[kind]:.0e}); grad norm {tr['grad_norm'][kind]:.6f}  "
+            f"{'ok' if ok else 'FAIL'}; launches a rank {per_rank[0]}")
+        require(ok, f"SP {path}: loss error {lr} or gradient error {gr} over tolerance")
+        require(all(c == want for c in per_rank), f"SP {path}: launches {per_rank}, not {want}")
+    dense_launches = r0["launches"]["train dense"]
+    require(dense_launches == sp_train_launches("dense"),
+            f"SP train dense: launches {dense_launches}")
+    st = tr["step"]
+    step_launches = [ranks[r]["launches"]["train ulysses step"] for r in range(SP_WORLD)]
+    same_norm = abs(st["grad_norm"] - tr["grad_norm"]["ulysses"]) <= 1e-6 * tr["grad_norm"]["ulysses"]
+    log(f"  train ulysses step (AdamW, EMA): loss {st['loss']:.6f}, grad norm "
+        f"{st['grad_norm']:.6f} (the Ulysses gradients' {tr['grad_norm']['ulysses']:.6f}); "
+        f"parameters finite {st['finite']}, checksum {st['checksum'][:16]} on every rank "
+        f"(hashed in {st['checksum_s']:.2f} s)")
+    require(st["finite"] and st["loss"] == tr["loss"]["ulysses"] and same_norm,
+            f"SP train step: finite {st['finite']}, loss {st['loss']} vs "
+            f"{tr['loss']['ulysses']}, grad norm {st['grad_norm']} vs {tr['grad_norm']['ulysses']}")
+    require(all(c == sp_train_launches("ulysses") for c in step_launches),
+            f"SP train step: launches {step_launches}")
     log("  per-rank wall times (s; four ranks time-share one card, transfers through host "
         "memory over gloo):")
     for r in range(SP_WORLD):
         log(f"    rank {r}: " + ", ".join(f"{k} {v:.3f}" for k, v in ranks[r]["times_s"].items())
-            + f"; peak device memory {ranks[r]['peak_gib']:.2f} GiB")
+            + f"; peak device memory {ranks[r]['peak_gib']:.2f} GiB serving, train "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ranks[r]["train"]["peak_gib"].items())
+            + " GiB")
     return {"wall_s": wall, "ranks": [ranks[r] for r in range(SP_WORLD)]}
+
+
+# phase 8c: train --sp 2 --sp_kind ring --Distil through the entry point on
+# the card, against the one-rank run. The smoke DiT computes in bf16 on the
+# card: ring rounds each hop's output to bf16 before the merge, which moves
+# the losses and the grad norms by a few bf16 ulps of the velocity at most.
+# The losses (the generator's and the discriminator's) and grad norms of
+# each step, relative: a gradient scaled by the group's size (a gather
+# whose backward sums over the ranks) doubles the grad norms, while
+# AdamW's steps, and so the losses, hardly move
+SP_CLI_LOSS_TOL = 1e-4
+SP_CLI_GRAD_NORM_TOL = 1e-3
+# the exported EMA's change from its initial weights against one rank's,
+# relative L2 over the whole export: Adam maps a gradient near 0 to ±lr,
+# so an element whose gradient's sign the bf16 rounding flips moves the
+# other way (2.1e-2 on an H100); an EMA that never moved reads 1
+SP_CLI_EXPORT_TOL = 0.1
+
+
+def sp_train_cli() -> dict:
+    """Phase 8c: ``train.main(["--smoke", "--sp", "2", "--sp_kind", "ring",
+    "--Distil", "--checkpointing_steps", "1", "--export_torch_dir", ...])``
+    on the card (two spawned ranks sharing it over gloo; 3 steps), against
+    the same command on one rank: the flow and discriminator losses within
+    ``SP_CLI_LOSS_TOL`` and the grad norms within ``SP_CLI_GRAD_NORM_TOL``
+    relative, the exported EMA's change from its initial weights (a 0-step
+    run's export) within ``SP_CLI_EXPORT_TOL`` of one rank's, both ranks'
+    parameters the same bits, rank 0's one set of checkpoints and its
+    export, and each rank's launches (K7, K8, K9 and K10 on both)."""
+    import shutil
+
+    from yume_tpu_torch import train
+    from yume_tpu_torch.utils.checkpoint import load_safetensors_state_dict
+
+    root = os.path.join(REPO, "build", "sp_train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--smoke", "--sp_kind", "ring", "--Distil", "--checkpointing_steps", "1",
+              "--max_train_steps", "3"]
+    runs, walls = {}, {}
+    for what, flags in (("init", ["--smoke", "--max_train_steps", "0"]),
+                        ("one rank", common), ("sp 2", common + ["--sp", "2"])):
+        d = os.path.join(root, what.replace(" ", "_"))
+        t0 = time.perf_counter()
+        require(train.main(flags + ["--output_dir", d, "--export_torch_dir",
+                                    os.path.join(d, "export")]) == 0, f"train {what}")
+        walls[what] = time.perf_counter() - t0
+        runs[what] = dict(train.main.last_run, files=sorted(os.listdir(d)))
+    one, sp = runs["one rank"], runs["sp 2"]
+    rel = [abs(a - b) / abs(b) for key in ("losses", "d_losses")
+           for a, b in zip(sp[key], one[key])]
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(sp["grad_norms"], one["grad_norms"])]
+    exp_sp, exp_one, exp_init = (load_safetensors_state_dict(os.path.join(root, w, "export"))
+                                 for w in ("sp_2", "one_rank", "init"))
+    moved = {n: t.float() - exp_init[n].float() for n, t in exp_one.items()}
+    moved_norm = sum((m ** 2).sum() for m in moved.values()).sqrt().item()
+    exp_rel = (sum(((exp_sp[n].float() - exp_init[n].float() - m) ** 2).sum()
+                   for n, m in moved.items()).sqrt().item() / max(moved_norm, 1e-30))
+    launches = sp["launches_per_rank"]
+    log(f"  8c train --sp 2 --sp_kind ring --Distil: losses {sp['losses']} against one rank's "
+        f"{one['losses']}, with d's relative {max(rel):.3e} (tol {SP_CLI_LOSS_TOL:.0e}); grad norms "
+        f"{sp['grad_norms']} against {one['grad_norms']}, relative {max(gn_rel):.3e} (tol "
+        f"{SP_CLI_GRAD_NORM_TOL:.0e}); gan {sp['gan_losses']} against {one['gan_losses']}, "
+        f"d {sp['d_losses']} against {one['d_losses']}; checksums equal "
+        f"{len(set(sp['param_checksums'])) == 1}; files {sp['files']}; the exported EMA "
+        f"moved {moved_norm:.3e} (L2) from its initial weights on one rank, and the --sp 2 "
+        f"move differs from it by {exp_rel:.3e} relative (tol {SP_CLI_EXPORT_TOL:.0e}); "
+        f"walls {walls}; launches per rank {launches}")
+    require(max(rel) <= SP_CLI_LOSS_TOL, f"8c: losses {sp['losses']}, d {sp['d_losses']} vs "
+            f"{one['losses']}, {one['d_losses']}")
+    require(max(gn_rel) <= SP_CLI_GRAD_NORM_TOL,
+            f"8c: grad norms {sp['grad_norms']} vs {one['grad_norms']}")
+    require(len(set(sp["param_checksums"])) == 1, "8c: the ranks' parameters differ")
+    require(sp["files"] == one["files"] == ["checkpoint-1.pt", "checkpoint-2.pt",
+                                            "checkpoint-3.pt", "export"],
+            f"8c: files {sp['files']}, one rank {one['files']}")
+    require(set(exp_sp) == set(exp_one) == set(exp_init) and moved_norm > 0
+            and exp_rel <= SP_CLI_EXPORT_TOL,
+            f"8c: the exported EMA's move differs from one rank's ({exp_rel}, one rank's "
+            f"move {moved_norm})")
+    require(all(n["flash_attention_partial"] > 0 and n["flash_attention_bwd_dq"] > 0
+                and n["flash_attention_bwd_dkv"] > 0 and n["bias_act"] > 0 for n in launches),
+            f"8c: K7, K8, K9 or K10 did not launch on a rank: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"losses": sp["losses"], "one_rank_losses": one["losses"], "loss_rel": rel,
+            "grad_norms": sp["grad_norms"], "one_rank_grad_norms": one["grad_norms"],
+            "grad_norm_rel": gn_rel, "export_move_l2": moved_norm,
+            "export_move_rel_l2": exp_rel, "wall_s": walls, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4303,12 +4627,16 @@ def sp_phase() -> dict:
 MDS_SP_REL_TOL = 1e-2
 # the frames of 8b a, b and e: the full-width 5B, smaller frames
 MDS_SIZE = (640, 352)
+# 8b a and b's Euler steps a segment (4 until the training phases needed
+# the time)
+MDS_STEPS = 2
 # 14B sequence parallelism at full width: two whole bf16 replicas of 40
 # layers (2 x 33.3 GB) and rank 0's encoders do not fit one 80 GB card, 20
-# layers would (2 x 16.6 GB); 10 keep the phase within the script's time
-# (the ranks' transfers cross host memory over gloo: a 20-layer forward took
-# 15 s under ring and 20 s under Ulysses on an H100)
-MDS_I2V_LAYERS = 10
+# layers would (2 x 16.6 GB); 4 keep the script within its time once phase
+# 8 trains (the ranks' transfers cross host memory over gloo: a 20-layer
+# forward took 15 s under ring and 20 s under Ulysses on an H100; this part
+# took 93.1 s at 10 layers, 66.6 s at 6)
+MDS_I2V_LAYERS = 4
 # one CFG Euler step a kind (the ranks' transfers go through host memory over
 # gloo and dominate the time); two adaptive TeaCache steps, the second one
 # decided by rank 0
@@ -4318,9 +4646,9 @@ MDS_I2V_STEPS, MDS_TEACACHE_STEPS = 1, 2
 # which this phase checks, and a CFG step's guided velocity v_u + 5·(v_c −
 # v_u) carries the two forwards' differences up to 1 + 2·5 = 11 times
 # further. On an H100 the 2-step ring adaptive TeaCache segment read 4.421e-2
-# at this depth, and a 1-step ring CFG Euler segment 5.486e-2 and 5.704e-2 at
-# 20 layers: the bound is about 35% above the reading at this depth, and
-# above those at twice it
+# at 10 layers and 3.381e-2 at 6, and a 1-step ring CFG Euler segment
+# 5.486e-2 and 5.704e-2 at 20 layers: the bound is about 35% above the
+# reading at 10 layers, and above those at twice it
 MDS_RING_CFG_REL_TOL = 6e-2
 MDS_TIMEOUT_S = 600
 MDS_K1_PER_LAYER = {"ti2v-5B": 2, "i2v-14B": 3}   # self, cross (text, CLIP)
@@ -4594,7 +4922,7 @@ def multi_device_phase(jpg_5b: str, image_14b: dict) -> dict:
     spawned by the command itself; random bf16 weights from seed 0, as in
     the one-rank runs they are held to:
     a. ``python -m yume_tpu_torch.sample`` in image mode (phase 6d b's image
-       at ``MDS_SIZE``, 4 Euler steps, one continuation) at ``--sp 4
+       at ``MDS_SIZE``, ``MDS_STEPS`` Euler steps, one continuation) at ``--sp 4
        --sp_kind ulysses``: both segments' latents within
        ``MDS_SP_REL_TOL`` of the same command's one-rank run (in this
        process), K1 launched alike on every rank, no K7;
@@ -4644,7 +4972,7 @@ def multi_device_phase(jpg_5b: str, image_14b: dict) -> dict:
 
     cfg5 = ti2v_5b()
     argv5 = ["--jpg_dir", jpg_5b, "--width", str(MDS_SIZE[0]), "--height", str(MDS_SIZE[1]),
-             "--steps", str(SERVING_STEPS), "--sample_num", "2", "--save_latents"]
+             "--steps", str(MDS_STEPS), "--sample_num", "2", "--save_latents"]
     t0 = time.perf_counter()
     require(sample.main(argv5 + ["--output_dir", os.path.join(root, "one")]) == 0,
             "the one-rank 5B run")
@@ -4675,7 +5003,7 @@ def multi_device_phase(jpg_5b: str, image_14b: dict) -> dict:
             equal = [torch.equal(g, w) for g, w in zip(got, one)]
             log(f"  {what}: latents bit-equal to the one-rank run per segment {equal}")
             require(all(equal), f"{what}: latents differ from one rank's: {equal}")
-            _check_pp_ranks(what, run, cfg5, 2, 2 * SERVING_STEPS)
+            _check_pp_ranks(what, run, cfg5, 2, 2 * MDS_STEPS)
         out[what] = run
 
     # c: the 14B CLI at --pp 2, full depth, against phase 6e's first segment
@@ -4827,6 +5155,7 @@ def main() -> int:
     flash_backward_kernels(results, gen)
     partial_attention_kernel(results, gen)
     sp_attention_kernels(results, gen)
+    sp_backward_kernels(results, gen)
     bias_act_kernel(results, gen)
     done("phase 3")
     torch.cuda.empty_cache()
@@ -4858,6 +5187,8 @@ def main() -> int:
     done("phase 7e")
     sp = sp_phase()
     done("phase 8")
+    sp_cli = sp_train_cli()
+    done("phase 8c")
     multi = multi_device_phase(serving["jpg"], i2v["image_run"])
     done("phase 8b")
     sp_launches = sp["ranks"][0]["launches"]
@@ -4878,6 +5209,13 @@ def main() -> int:
                  "library_ms": head["library_ms"], "cases": r["cases"],
                  "launches_train_distill": train_runs["distill"]["launches"][key],
                  "launches_multi_device_per_rank": _multi_launches(multi, key),
+                 # phase 8's SP training (a rank's counts a path; the dense
+                 # loss and gradients on rank 0 alone) and phase 8c's CLI
+                 "launches_sp_train_per_rank": {
+                     p: [r["launches"][p][key] for r in sp["ranks"] if p in r["launches"]]
+                     for p in ("train dense", "train ulysses", "train ring", "train usp",
+                               "train ulysses step")},
+                 "launches_sp_train_cli_per_rank": [n[key] for n in sp_cli["launches"]],
                  # phase 6c: the t2v first segment (4 Euler steps at 27,280
                  # tokens), its rollout, UniPC with CFG, one W8A8 forward
                  "launches_t2v_path": t2v_launches["t2v euler"][key],
@@ -4909,7 +5247,7 @@ def main() -> int:
                             for p in sp_launches if p != "unsharded forward"},
                          ring_invariant_max_abs_err=r["ring_invariant_max_abs_err"],
                          ring_invariant_lse_max_abs_err=r["ring_invariant_lse_max_abs_err"],
-                         vjp=r["vjp"],
+                         vjp=r["vjp"], vjp_usp=r["vjp_usp"],
                          library="aten._scaled_dot_product_flash_attention, [B, N, L, D]")
             kernels.append(entry)
             continue
@@ -4962,6 +5300,7 @@ def main() -> int:
     log("train: " + json.dumps(train))
     log("train 14B: " + json.dumps({k: v for k, v in train_14b.items() if k != "launches"}))
     log("sp: " + json.dumps(sp))
+    log("sp train cli: " + json.dumps(sp_cli))
     log("multi-device: " + json.dumps(multi))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)

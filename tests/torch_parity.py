@@ -148,8 +148,17 @@ class RankPool:
             p.start()
 
     def run(self, fn: str, *args):
+        self.start(fn, *args)
+        return self.results()
+
+    def start(self, fn: str, *args):
+        """Hand every rank ``fn(*args)`` and return at once: the caller
+        computes its reference meanwhile and then collects
+        :meth:`results`."""
         for box in self.inboxes:
             box.put((fn, args))
+
+    def results(self):
         results = dict(self.outbox.get(timeout=RANK_TIMEOUT_S) for _ in self.procs)
         errors = [f"rank {r}:\n{v}" for r, (status, v) in sorted(results.items())
                   if status == "error"]
@@ -253,11 +262,12 @@ def rank_sp_dit(state, key, kind, x, t, ctx, lfz, cache_list=(), block_cache=Non
 
     if block_cache is not None:
         block_cache = [_chunk(c, state) for c in block_cache]
-    out = sp_dit_forward(state["models"][key], state["groups"][kind], torch.from_numpy(x),
-                         torch.from_numpy(t), torch.from_numpy(ctx), latent_frame_zero=lfz,
-                         clip_context=None if clip is None else torch.from_numpy(clip),
-                         kind=kind, cache_list=tuple(cache_list), block_cache=block_cache,
-                         return_cache=return_cache)
+    with torch.no_grad():
+        out = sp_dit_forward(state["models"][key], state["groups"][kind], torch.from_numpy(x),
+                             torch.from_numpy(t), torch.from_numpy(ctx), latent_frame_zero=lfz,
+                             clip_context=None if clip is None else torch.from_numpy(clip),
+                             kind=kind, cache_list=tuple(cache_list), block_cache=block_cache,
+                             return_cache=return_cache)
     if return_cache:
         return out[0].numpy(), [c.float().numpy() for c in out[1]]
     return out.numpy()
@@ -275,6 +285,102 @@ def rank_sp_segment(state, key, pipe_cfg, kind, w8a8, history, ctx, noise, kw):
     out = pipe.generate_segment(torch.from_numpy(history), torch.from_numpy(ctx),
                                 noise=torch.from_numpy(noise), **kw)
     return out.numpy(), pipe.last_teacache_n_full
+
+
+# -- sequence-parallel training (tests/test_torch_sp_train.py) ---------------
+
+
+def rank_sp_attention_grads(state, kind, q, k, v, dout, l_true):
+    """This rank's (dq, dk, dv) chunks of Σ out·dout for SP attention over
+    padded [B, L, N, D] inputs with ``kv_len = l_true``."""
+    from yume_tpu_torch.parallel.ulysses import sp_attention
+
+    groups = state["groups"][kind]
+    kv_len = torch.full((q.shape[0],), l_true, dtype=torch.int32)
+    q, k, v = (_chunk(t, state).requires_grad_() for t in (q, k, v))
+    out = sp_attention(groups, kind)(q, k, v, kv_len=kv_len)
+    (out * _chunk(dout, state)).sum().backward()
+    return [t.grad.numpy() for t in (q, k, v)]
+
+
+def tree_map(fn, tree):
+    """``fn`` of every leaf of nested dicts, tuples and lists (the draws of
+    ``jax_draws`` cross to the ranks as numpy and back)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def torch_tree(tree):
+    """``tree`` with its numpy leaves as tensors."""
+    return tree_map(lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a, tree)
+
+
+def _sp_model(cfg, sd, remat=False):
+    from yume_tpu_torch.models.dit import WanDiT
+    from yume_tpu_torch.utils.convert import load_state_dict
+
+    model = WanDiT(cfg, torch.float32, device="meta", remat=remat).to_empty(device="cpu")
+    load_state_dict(model, sd)
+    return model
+
+
+def _sp_step_kw(state, kind, model, grads_out):
+    """The sequence-parallel ``forward`` and ``reduce_grads`` of the train
+    step over this rank's ``kind`` groups; the reduced gradients are also
+    copied into ``grads_out``."""
+    import functools
+
+    from yume_tpu_torch.parallel.mesh import all_reduce_sum_
+    from yume_tpu_torch.parallel.sp_forward import sp_dit_forward
+
+    groups = state["groups"][kind]
+
+    def reduce_grads(grads):
+        all_reduce_sum_(grads.values(), groups.group)
+        grads_out.update({n: g.numpy().copy() for n, g in grads.items()})
+
+    return dict(forward=functools.partial(sp_dit_forward, model, groups, kind=kind),
+                reduce_grads=reduce_grads)
+
+
+def rank_sp_train_step(state, kind, cfg, sd, tc, batch, draws, remat=False):
+    """One SP train step of a DiT built from ``sd``: (metrics, the reduced
+    gradients, the parameters after the step)."""
+    from yume_tpu_torch.training.train_step import (init_train_state, make_train_step,
+                                                    trainable_params)
+
+    model = _sp_model(cfg, sd, remat)
+    grads = {}
+    st = init_train_state(trainable_params(model), tc)
+    step = make_train_step(model, tc, **_sp_step_kw(state, kind, model, grads))
+    st, m = step(st, torch_tree(batch), torch_tree(draws))
+    return ({k: float(v) for k, v in m.items()}, grads,
+            {n: p.detach().numpy().copy() for n, p in st.params.items()})
+
+
+def rank_sp_distill_step(state, kind, cfg, sd, tc, batch, draws, seed):
+    """One SP distillation step (the discriminator from ``seed``):
+    (metrics, the reduced generator gradients, the generator's and the
+    discriminator's parameters after the step)."""
+    from yume_tpu_torch.training.distill import (disc_optimizer, init_disc_state,
+                                                 make_distill_train_step)
+    from yume_tpu_torch.training.train_step import init_train_state, trainable_params
+
+    model = _sp_model(cfg, sd)
+    d_opt = disc_optimizer()
+    disc, disc_state = init_disc_state(d_opt, z_dim=cfg.out_dim, device="cpu",
+                                       generator=torch.Generator().manual_seed(seed))
+    grads = {}
+    st = init_train_state(trainable_params(model), tc)
+    step = make_distill_train_step(model, tc, disc, d_opt,
+                                   **_sp_step_kw(state, kind, model, grads))
+    st, disc_state, m = step(st, disc_state, torch_tree(batch), torch_tree(draws))
+    return ({k: float(v) for k, v in m.items()}, grads,
+            {n: p.detach().numpy().copy() for n, p in st.params.items()},
+            {n: p.detach().numpy().copy() for n, p in disc_state.params.items()})
 
 
 # -- pipeline parallelism and the 14B pipeline (tests/test_torch_pp.py,

@@ -217,12 +217,49 @@ def staged(t: torch.Tensor, group) -> bool:
 
 
 def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
-    """``t`` overwritten with global rank ``src``'s, in place; returns it."""
-    buf = t.cpu() if staged(t, group) else t
+    """``t`` overwritten with global rank ``src``'s, in place; returns it.
+    A strided ``t`` (a permuted view) crosses as a contiguous copy: the
+    collective sends a tensor's storage in memory order."""
+    buf = t.contiguous()
+    if staged(buf, group):
+        buf = buf.cpu()
     dist.broadcast(buf, src=src, group=group)
     if buf is not t:
         t.copy_(buf)
     return t
+
+
+# the bytes of one flat bucket of :func:`all_reduce_sum_`
+BUCKET_BYTES = 256 << 20
+
+
+def all_reduce_sum_(tensors, group):
+    """Every tensor of ``tensors`` replaced, in place, by its sum over the
+    ranks of ``group``: the gradient reduction of sequence-parallel
+    training. The tensors go in flat buckets of one dtype of up to
+    :data:`BUCKET_BYTES` (a tensor larger than that is a bucket of its own),
+    one all-reduce a bucket in the same order on every rank, rather than a
+    collective a tensor; under gloo each bucket crosses through host
+    memory (:func:`staged`). Every rank ends with the same bits."""
+    buckets, filling = [], {}  # dtype -> (its open bucket, the bucket's bytes)
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        bucket, size = filling.get(t.dtype, (None, 0))
+        if bucket is None or (size and size + n > BUCKET_BYTES):
+            bucket, size = [], 0
+            buckets.append(bucket)
+        bucket.append(t)
+        filling[t.dtype] = (bucket, size + n)
+    for bucket in buckets:
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        buf = flat.cpu() if staged(flat, group) else flat
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        if buf is not flat:
+            flat.copy_(buf)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def _spec(out):

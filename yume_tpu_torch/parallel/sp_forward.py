@@ -12,6 +12,13 @@ RoPE). Self-attention goes through Ulysses, ring or USP attention with
 two (batched CFG) passes through as it is. The head's output is gathered
 from every rank, cut to the true length and unpatchified, so every rank
 returns the same velocity.
+
+The forward is differentiable (the collectives of :mod:`.ulysses` carry
+gradients): sequence-parallel training calls it in place of the model,
+and each rank's parameter gradients then hold its own tokens' share,
+which the train step sums over the group. Pad query rows are cut before
+the loss, so their gradient is zero; pad keys stay masked by ``kv_len``.
+Serving calls it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,6 @@ def _pad_to(x: torch.Tensor, mult: int, dim: int):
     return F.pad(x, widths), pad
 
 
-@torch.no_grad()
 def sp_dit_forward(
     dit: WanDiT,
     groups: SPGroups,
@@ -47,6 +53,7 @@ def sp_dit_forward(
     latent_frame_zero: int = 8,
     clip_context: Optional[torch.Tensor] = None,
     kind: str = "ulysses",
+    packed: bool = True,
     cache_list: tuple = (),
     block_cache: Optional[list] = None,
     return_cache: bool = False,
@@ -56,13 +63,17 @@ def sp_dit_forward(
     (kind ``"ulysses"``, ``"ring"`` or ``"usp"``; USP needs
     :func:`make_usp_groups`). Every rank
     of the group calls it with the same inputs and gets the whole tail
-    velocity [B, latent_frame_zero, H, W, C_out].
+    velocity [B, latent_frame_zero, H, W, C_out]. ``packed`` is there for
+    the model's call signature (the train step's ``forward``): only the
+    packed forward is sequence-parallel.
 
     TeaCache (the reference's cached model under FSDP,
     fastvideo/sample/sample.py:979-985): ``return_cache=True`` also returns
     the ``cache_list`` blocks' residuals of this rank's tokens [B, L_pad/sp,
     dim], which stay on the rank; ``block_cache`` feeds them back on a
     cached step."""
+    if not packed:
+        raise ValueError("sp_dit_forward runs the packed forward only")
     emb = dit.embed_packed(x, t_frame, context, latent_frame_zero, clip_context)
     tokens = emb["tokens"]
     b, l_true, _ = tokens.shape

@@ -7,8 +7,14 @@ group calls it with the same shapes. Where the JAX package calls
 ``all_to_all`` and ``ppermute`` inside ``shard_map``, these call
 :func:`_all_to_all` and :func:`_ring_shift`. Ring attention's blocks run on
 the partial flash attention K7 (:func:`flash_attention_partial`) on the
-card, its plain version on the CPU. Serving only: the collectives carry no
-gradient.
+card, its plain version on the CPU. The collectives are differentiable
+(``torch.autograd.Function``s, the transposes JAX takes of ``all_to_all``
+and ``ppermute``): the all-to-all's backward is the all-to-all with its
+dims swapped, the ring shift's sends each gradient to the previous rank,
+and the gather's returns this rank's slice of the incoming gradient, so
+sequence-parallel training differentiates through Ulysses, ring and USP
+attention and K7's VJP. Under ``torch.no_grad()`` (the samplers) they
+build no graph.
 """
 
 from __future__ import annotations
@@ -27,11 +33,7 @@ from .mesh import SPGroups, staged
 _INITIAL_LSE = -1e30
 
 
-def _all_to_all(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
-    """Tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``): cut
-    ``x`` into ``sp`` chunks along ``scatter_dim``, send chunk j to rank j
-    of ``group``, and concatenate the chunks received along ``gather_dim``
-    in rank order."""
+def _all_to_all_raw(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
     sp = dist.get_world_size(group)
     if x.shape[scatter_dim] % sp:
         raise ValueError(f"all_to_all: dim {scatter_dim} of {tuple(x.shape)} "
@@ -47,13 +49,32 @@ def _all_to_all(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> to
     return torch.cat(recv.unbind(0), dim=gather_dim)
 
 
-def _ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
-    """Send each tensor to the next rank of ``group`` and receive the
-    previous rank's (``ppermute`` with ``perm = [(i, i + 1 mod sp)]``)."""
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, scatter_dim, gather_dim):
+        ctx.group, ctx.dims = group, (scatter_dim, gather_dim)
+        return _all_to_all_raw(x, group, scatter_dim, gather_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        scatter_dim, gather_dim = ctx.dims
+        return _all_to_all_raw(grad, ctx.group, gather_dim, scatter_dim), None, None, None
+
+
+def _all_to_all(x: torch.Tensor, group, scatter_dim: int, gather_dim: int) -> torch.Tensor:
+    """Tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``): cut
+    ``x`` into ``sp`` chunks along ``scatter_dim``, send chunk j to rank j
+    of ``group``, and concatenate the chunks received along ``gather_dim``
+    in rank order. Its gradient is the same all-to-all with the two dims
+    swapped."""
+    return _AllToAll.apply(x, group, scatter_dim, gather_dim)
+
+
+def _shift_raw(tensors: List[torch.Tensor], group, step: int) -> List[torch.Tensor]:
     sp = dist.get_world_size(group)
     i = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (i + 1) % sp)
-    src = dist.get_global_rank(group, (i - 1) % sp)
+    dst = dist.get_global_rank(group, (i + step) % sp)
+    src = dist.get_global_rank(group, (i - step) % sp)
     sends = [t.cpu() if staged(t, group) else t.contiguous() for t in tensors]
     recvs = [torch.empty_like(s) for s in sends]
     ops = ([dist.P2POp(dist.isend, s, dst, group) for s in sends]
@@ -63,14 +84,59 @@ def _ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        out = _shift_raw(list(tensors), group, 1)
+        ctx.mark_non_differentiable(*(o for o in out if not o.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # every rank needs the same inputs' gradients, so every rank sends
+        # and receives the same tensors
+        need = [i for i, g in enumerate(ctx.needs_input_grad[1:]) if g]
+        back = _shift_raw([grads[i] for i in need], ctx.group, -1) if need else []
+        out = [None] * len(grads)
+        for i, g in zip(need, back):
+            out[i] = g
+        return (None, *out)
+
+
+def _ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Send each tensor to the next rank of ``group`` and receive the
+    previous rank's (``ppermute`` with ``perm = [(i, i + 1 mod sp)]``).
+    Its gradient goes the other way round the ring: each rank sends the
+    gradients of what it received to the previous rank (the ring backward
+    that carries dK and dV home). Integer tensors carry no gradient."""
+    return list(_RingShift.apply(group, *tensors))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.rank, ctx.size = dim, dist.get_rank(group), x.shape[dim]
+        send = x.contiguous()
+        if staged(x, group):
+            send = send.cpu()
+        parts = [torch.empty_like(send) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, send, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank computes the same loss from the same gathered tensor,
+        # so each rank's incoming gradient is already the whole gradient:
+        # its slice, not a sum over ranks (which would scale it by sp)
+        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
-    send = x.contiguous()
-    if staged(x, group):
-        send = send.cpu()
-    parts = [torch.empty_like(send) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, send, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    """Every rank's ``x`` concatenated along ``dim`` in rank order. Its
+    gradient is this rank's slice of the gradient of the result: every
+    rank must use the result alike (as the SP forward's loss does)."""
+    return _AllGather.apply(x, group, dim)
 
 
 def agree(flag: bool, group) -> bool:

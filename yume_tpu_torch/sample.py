@@ -480,21 +480,10 @@ def _first_image(jpg_dir: str) -> str:
     return images[0]
 
 
-def kernel_launches() -> dict:
-    """The launch counts of the DiT's kernels (0 on the CPU, where their
-    plain versions run)."""
-    from .ops import flash_attention as fl
-    from .ops import fused_adaln as fa
-    from .ops import quant_matmul as qm
-
-    return {f.__name__: f.launches for f in (
-        fl.flash_attention, fl.flash_attention_partial, fa.adaln_norm, fa.adaln_residual,
-        fa.qk_norm_rope, fa.rms_norm, qm.q8_dot)}
-
-
 def rank_stats(rank, pipe) -> dict:
     """What a rank of a ``--sp``/``--pp`` run reports: the DiT bytes it
     holds, its peak device memory and its kernel launches."""
+    from .ops import kernel_launches
     from .parallel.pipeline import held_bytes
 
     cuda = rank.device.type == "cuda"

@@ -1,6 +1,7 @@
 """Training entry point: flow-matching (+ MVDT, + ADD distillation, + LoRA)
-fine-tuning of the 5B DiT or the Yume-1.0 i2v-14B DiT on one GPU
-(counterpart of yume_tpu/train.py).
+fine-tuning of the 5B DiT or the Yume-1.0 i2v-14B DiT on one GPU, or
+sequence-parallel over N ranks with ``--sp N`` (counterpart of
+yume_tpu/train.py).
 
     python -m yume_tpu_torch.train --smoke --device cpu            # tiny synthetic run
     python -m yume_tpu_torch.train --smoke --Distil --device cpu   # with the ADD discriminator
@@ -10,6 +11,7 @@ fine-tuning of the 5B DiT or the Yume-1.0 i2v-14B DiT on one GPU
     python -m yume_tpu_torch.train --smoke --device cpu --data_dir ./mp4_frame
     python -m yume_tpu_torch.train --data_dir ./mp4_frame --ckpt_dir ./Yume-5B-720P \
         --lora_rank 16 --remat --export_torch_dir ./exported
+    python -m yume_tpu_torch.train --smoke --device cpu --sp 2 --sp_kind ring --Distil
 
 Same flags and smoke configs as the reference's train.py, plus ``--device``
 (default ``cuda``). Without ``--data_dir`` the batches are synthetic latents
@@ -53,8 +55,25 @@ yume_tpu_torch.sample --ckpt_dir`` loads beside the VAE and umT5 files.
 reference, ``--resume`` restores the generator and starts a fresh
 discriminator.
 
-Not ported, and refused with the ROADMAP item that brings it: ``--sp > 1``
-(sequence-parallel training, queue 1 item 8; SP serving is ported).
+``--sp N`` (N > 1) trains with sequence parallelism (the reference's
+``sp_dit_apply`` inside the train step): the command spawns N processes, a
+rank each, through :func:`.parallel.mesh.launch` (NCCL when every rank has
+a card of its own, else gloo, the ranks sharing the card or the CPU's
+cores). Every rank builds the same model from the same seed (or
+``--ckpt_dir``) and draws the same batches and draws; the train step's
+forward is :func:`.parallel.sp_forward.sp_dit_forward` over
+``make_sp_groups(N)`` (``--sp_kind ulysses`` or ``ring``) or
+``make_usp_groups(2, N // 2)`` (``usp``), differentiable through its
+collectives, and each rank's gradients, which hold its own tokens' share,
+are summed over the group (:func:`.parallel.mesh.all_reduce_sum_`) before
+the clipping, so every rank takes the same update. A ``--data_parallel``
+batch is every rank's batch. Rank 0 alone prints, saves, validates (the
+dense forward of its EMA), exports, and under ``--data_dir`` reads and
+encodes each batch and hands it to the others; the others wait at the next
+collective, and a failure there is raised on every rank. ``--resume``
+restores the same file on every rank. ``main.last_run`` holds rank 0's
+record with every rank's parameter checksum and launch counts. ``--sp``
+refuses ``--MVDT`` and ``--lora_rank``, as the reference's asserts.
 """
 
 from __future__ import annotations
@@ -62,6 +81,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import os
 import random
 import time
@@ -123,13 +143,18 @@ def build_argparser():
     return p
 
 
-def _refuse_unported(args, device: torch.device):
+def _refuse(args, device: torch.device):
+    """What the reference refuses with ``--sp`` (its asserts, as
+    ValueErrors), and what the port does not do yet."""
     if args.sp > 1:
-        raise NotImplementedError(
-            "not ported yet: --sp > 1 is sequence-parallel training, which needs a "
-            "differentiable all-to-all and a ring backward that sends dK/dV round the ring "
-            "(ROADMAP queue 1, item 8); sequence-parallel serving is "
-            "python -m yume_tpu_torch.sample --sp N")
+        if args.MVDT:
+            raise ValueError("--sp composes with the plain/Distil flow step; MVDT token "
+                             "masking is dense-only")
+        if args.lora_rank:
+            raise ValueError("--sp with --lora_rank is not supported")
+        if args.sp_kind == "usp" and args.sp % 2:
+            raise ValueError(f"--sp_kind usp runs Ulysses over 2 ranks and ring over "
+                             f"sp / 2: --sp {args.sp} is odd")
     if (args.config == "i2v-14B" and device.type == "cuda" and not args.smoke
             and not args.lora_rank):
         raise NotImplementedError(
@@ -222,14 +247,60 @@ def _generator(device, seed: int) -> torch.Generator:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     device = torch.device(args.device)
-    _refuse_unported(args, device)
+    _refuse(args, device)
     os.makedirs(args.output_dir, exist_ok=True)
+    if args.sp > 1:
+        from .parallel.mesh import launch
 
+        runs = launch(args.sp, _train_rank, args, device=args.device)
+        main.last_run = dict(runs[0], param_checksums=[r["param_checksum"] for r in runs],
+                             launches_per_rank=[r["launches"] for r in runs])
+    else:
+        main.last_run = _train(args, device)
+    return 0
+
+
+def _train_rank(rank, args) -> dict:
+    """One rank of a ``--sp`` run (:func:`.parallel.mesh.launch`): the ranks
+    share the CPU's cores, or each takes its card."""
+    if rank.device.type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // rank.world))
+    args = argparse.Namespace(**{**vars(args), "device": str(rank.device)})
+    return _train(args, rank.device, rank)
+
+
+def param_checksum(params) -> str:
+    """sha256 of the parameters' bytes in name order: ranks that hold the
+    same bits hold the same digest."""
+    h = hashlib.sha256()
+    for name in sorted(params):
+        t = params[name].detach().reshape(-1).cpu()
+        h.update(name.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train(args, device: torch.device, rank=None) -> dict:
+    """The run of :func:`main`, alone or as ``rank`` of a ``--sp`` run;
+    returns its record (``main.last_run``). Every rank builds the same
+    model from the same seed (or ``--ckpt_dir``), draws the same batches
+    and the same draws, and steps through the sequence-parallel forward
+    with its gradients summed over the group. Rank 0 alone prints, reads
+    and encodes ``--data_dir``'s batches (handed to the others), saves,
+    validates and exports; the others wait for it at the next collective,
+    and a failure there is raised on every rank."""
     from .configs import CONFIGS
     from .models.dit import WanDiT, packed_token_count
+    from .ops import kernel_launches
+    from .parallel.mesh import on_rank0_only
     from .training.train_step import (TrainConfig, draw_step, init_train_state,
                                       make_train_step, trainable_params)
     from .utils.checkpoint import Checkpointer, restore_checkpoint
+
+    group, lead = None, True
+    if rank is not None:
+        group, lead = torch.distributed.group.WORLD, rank.rank == 0
+    say = print if lead else (lambda *a, **k: None)
 
     cfg = CONFIGS[args.config]()
     is_i2v = cfg.dit.model_type == "i2v"
@@ -252,9 +323,22 @@ def main(argv=None):
     model = model.to_empty(device=device)
     if args.ckpt_dir:
         load_dit_checkpoint(model, args.ckpt_dir)
-        print(f"DiT loaded from {args.ckpt_dir}", flush=True)
+        say(f"DiT loaded from {args.ckpt_dir}", flush=True)
     else:
         init_params_(model, _generator(device, args.seed))
+
+    # the sequence-parallel forward and the gradient sum over its group
+    sp_kw = {}
+    if rank is not None:
+        from .parallel.mesh import all_reduce_sum_, make_sp_groups, make_usp_groups
+        from .parallel.sp_forward import sp_dit_forward
+
+        groups = (make_usp_groups(2, args.sp // 2) if args.sp_kind == "usp"
+                  else make_sp_groups(args.sp))
+        sp_kw = dict(forward=functools.partial(sp_dit_forward, model, groups,
+                                               kind=args.sp_kind),
+                     reduce_grads=lambda grads: all_reduce_sum_(grads.values(), groups.group))
+        say(f"sequence-parallel training: {args.sp} ranks, {args.sp_kind}", flush=True)
 
     # latent geometry
     if args.smoke:
@@ -309,10 +393,10 @@ def main(argv=None):
 
             def make_step(keep):
                 return functools.partial(_distill_step, make_distill_train_step(
-                    model, tc, disc, d_opt, mvdt_keep=keep), disc_state)
+                    model, tc, disc, d_opt, mvdt_keep=keep, **sp_kw), disc_state)
         else:
             def make_step(keep):
-                return make_train_step(model, tc, mvdt_keep=keep)
+                return make_train_step(model, tc, mvdt_keep=keep, **sp_kw)
         step_fns = {}
 
         def step_fn(state, batch, draws, step):
@@ -338,18 +422,22 @@ def main(argv=None):
                 "context": torch.randn((b, text_len, text_dim), generator=gen,
                                        device=device) * 0.02}
 
-    get_batch, loader, pipe = synthetic_batch, None, None
+    get_batch, loader, pipe, timing = synthetic_batch, None, None, None
     if args.data_dir:
-        get_batch, loader, pipe = data_batches(args, cfg, device, b)
+        if lead:
+            get_batch, loader, pipe = data_batches(args, cfg, device, b)
+            timing = get_batch.timing
+        if group is not None:
+            get_batch = _batches_from_rank0(get_batch if lead else None, group, device)
 
     start_step = 0
     if args.resume and os.path.isdir(args.output_dir):
         try:
             state = restore_checkpoint(args.output_dir, state)
             start_step = state.step
-            print(f"resumed at step {start_step}", flush=True)
+            say(f"resumed at step {start_step}", flush=True)
         except FileNotFoundError as e:
-            print(f"resume failed: {e}", flush=True)
+            say(f"resume failed: {e}", flush=True)
 
     prof_lo, prof_hi = (int(s) for s in args.profile_steps.split(","))
     profiler = None
@@ -357,7 +445,7 @@ def main(argv=None):
     times, losses, grad_norms, gan_losses, d_losses = [], [], [], [], []
     try:
         for step in range(start_step, args.max_train_steps):
-            if args.profile_dir and step == prof_lo:
+            if args.profile_dir and lead and step == prof_lo:
                 profiler = torch.profiler.profile()
                 profiler.__enter__()
             t_start = time.time()
@@ -377,17 +465,17 @@ def main(argv=None):
             if profiler is not None and step == prof_hi:
                 _stop_profile(profiler, args.profile_dir)
                 profiler = None
-            print(f"step {step + 1}/{args.max_train_steps} {loss_str} "
-                  f"grad_norm={grad_norm:.3f} step_time={np.mean(times[-100:]):.2f}s",
-                  flush=True)
+            say(f"step {step + 1}/{args.max_train_steps} {loss_str} "
+                f"grad_norm={grad_norm:.3f} step_time={np.mean(times[-100:]):.2f}s",
+                flush=True)
             if args.checkpointing_steps and (step + 1) % args.checkpointing_steps == 0:
-                if ckpter is None:
+                if ckpter is None and lead:
                     ckpter = Checkpointer(args.output_dir)
-                ckpter.save(state)
-                print(f"checkpoint save started at step {step + 1} (async)", flush=True)
+                on_rank0_only(lambda: ckpter.save(state), group)
+                say(f"checkpoint save started at step {step + 1} (async)", flush=True)
             if args.validation_steps and (step + 1) % args.validation_steps == 0:
-                _validation_rollout(args, model, state, batch, lfz, step + 1, lora_model,
-                                    pipe)
+                on_rank0_only(functools.partial(_validation_rollout, args, model, state, batch,
+                                                lfz, step + 1, lora_model, pipe), group)
     finally:
         if ckpter is not None:
             ckpter.close()  # drain the save in flight
@@ -395,16 +483,39 @@ def main(argv=None):
             loader.close()
     if profiler is not None:
         _stop_profile(profiler, args.profile_dir)
-    main.last_run = {"losses": losses, "grad_norms": grad_norms, "step_times": times,
-                     "trainable": sum(p.numel() for p in state.params.values()),
-                     "save_hold_s": [] if ckpter is None else ckpter.hold_s}
+    run = {"losses": losses, "grad_norms": grad_norms, "step_times": times,
+           "trainable": sum(p.numel() for p in state.params.values()),
+           "save_hold_s": [] if ckpter is None else ckpter.hold_s}
     if args.Distil:
-        main.last_run.update(gan_losses=gan_losses, d_losses=d_losses)
-    if loader is not None:
-        main.last_run.update(get_batch.timing)
+        run.update(gan_losses=gan_losses, d_losses=d_losses)
+    if timing is not None:
+        run.update(timing)
     if args.export_torch_dir:
-        main.last_run["export"] = export_ema(args.export_torch_dir, model, state, lora_model)
-    return 0
+        run["export"] = on_rank0_only(
+            lambda: export_ema(args.export_torch_dir, model, state, lora_model), group)
+    if rank is not None:
+        run.update(rank=rank.rank, param_checksum=param_checksum(state.params),
+                   launches=kernel_launches())
+    return run
+
+
+def _batches_from_rank0(get_batch, group, device):
+    """``get_batch`` of rank 0 on every rank of ``group``: rank 0 reads and
+    encodes the batch (``get_batch`` is None elsewhere) and hands it to the
+    others (:func:`.parallel.mesh.from_rank0`)."""
+    from .parallel.mesh import from_rank0
+
+    keys = ("latents", "context", "y", "clip_context")
+
+    def rank0_batch(step):
+        batch = get_batch(step)
+        return tuple(batch.get(k) for k in keys)
+
+    def batch_from_rank0(step):
+        vals = from_rank0(lambda: rank0_batch(step), group, device)
+        return {k: v for k, v in zip(keys, vals) if v is not None}
+
+    return batch_from_rank0
 
 
 def export_ema(out_dir: str, model: nn.Module, state, lora_model=None) -> dict:

@@ -118,7 +118,8 @@ def _frames(x: torch.Tensor) -> torch.Tensor:
 def make_distill_train_step(model: torch.nn.Module, cfg: TrainConfig,
                             disc: ProjectedDiscriminator, disc_opt: AdamChain, *,
                             packed: bool = True, mvdt_keep: Optional[int] = None,
-                            gan_weight: float = 0.01) -> Callable:
+                            gan_weight: float = 0.01, forward: Optional[Callable] = None,
+                            reduce_grads: Optional[Callable] = None) -> Callable:
     """The ADD distillation step, ``step(state, disc_state, batch, draws) ->
     (state, disc_state, metrics)``:
 
@@ -130,10 +131,15 @@ def make_distill_train_step(model: torch.nn.Module, cfg: TrainConfig,
     4. one backward through the DiT with cotangents (1, that gradient);
     5. clipped AdamW and EMA on the generator, as ``make_train_step``.
 
+    ``forward`` and ``reduce_grads`` as :func:`.train_step.make_train_step`'s:
+    the reduction takes the generator's gradients after step 4; the
+    discriminator's are not reduced, as its inputs (the real and the
+    gathered denoised tails) are the same on every rank.
+
     Metrics: ``loss`` (flow + GAN), ``flow_loss``, ``gan_loss``, ``d_loss``,
     ``grad_norm``. Each part is a named range for torch.profiler."""
     optimizer = make_optimizer(cfg)
-    loss_fn = make_loss_fn(model, cfg, packed=packed, mvdt_keep=mvdt_keep)
+    loss_fn = make_loss_fn(model, cfg, packed=packed, mvdt_keep=mvdt_keep, forward=forward)
     lfz = cfg.latent_frame_zero
 
     def step(state, disc_state: DiscState, batch, draws):
@@ -152,6 +158,8 @@ def make_distill_train_step(model: torch.nn.Module, cfg: TrainConfig,
             grads = dict(zip(names, torch.autograd.grad(
                 [loss, denoised], [state.params[n] for n in names],
                 [torch.ones_like(loss), g_dt], allow_unused=True, materialize_grads=True)))
+            if reduce_grads is not None:
+                reduce_grads(grads)
         with record_function("optimizer"):
             grad_norm = optimizer.update_(state.params, grads, state.opt_state)
         d = cfg.ema_decay

@@ -186,13 +186,18 @@ def draw_step(batch, cfg: TrainConfig, generator: torch.Generator, *,
 
 
 def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
-                 mvdt_keep: Optional[int] = None) -> Callable:
+                 mvdt_keep: Optional[int] = None,
+                 forward: Optional[Callable] = None) -> Callable:
     """``loss_fn(batch, draws) -> (loss, denoised_tail)`` over ``model``'s
     current parameters. The MVDT masked pass (``cfg.mvdt`` and
     ``mvdt_keep``) is a second forward whose loss adds to the total, as the
-    reference's two sequential backwards (distill_model.py:289-318)."""
+    reference's two sequential backwards (distill_model.py:289-318).
+    ``forward``: what runs the DiT, with ``model.__call__``'s signature
+    (the reference's ``fwd_apply``; the sequence-parallel forward under
+    ``--sp``); ``model`` by default."""
     transport = Transport(shift=cfg.shift)
     lfz = cfg.latent_frame_zero
+    fwd = model if forward is None else forward
 
     def flow_pass_i2v(batch, d, *, masked: bool):
         """The 14B i2v pass (reference Transport.training_losses with
@@ -209,8 +214,8 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
         kw = dict(mvdt_noise=d["mvdt"], mvdt_keep=mvdt_keep) if masked else {}
         if batch.get("clip_context") is not None:
             kw["clip_context"] = batch["clip_context"]
-        v = model(torch.cat([xt, y.to(xt.dtype)], dim=-1), t_frame, ctx, packed=packed,
-                  latent_frame_zero=lfz, **kw)
+        v = fwd(torch.cat([xt, y.to(xt.dtype)], dim=-1), t_frame, ctx, packed=packed,
+                latent_frame_zero=lfz, **kw)
         return _tail_loss(v, xt, ut, t)
 
     def flow_pass(batch, d, *, masked: bool):
@@ -231,7 +236,7 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
         hist_t = mask1[:, : f - lfz, 0, 0, 0]
         t_frame = torch.cat([hist_t, t[:, None].expand(b, lfz)], dim=1) * 1000.0
         kw = dict(mvdt_noise=d["mvdt"], mvdt_keep=mvdt_keep) if masked else {}
-        v = model(xt, t_frame, ctx, packed=packed, latent_frame_zero=lfz, **kw)
+        v = fwd(xt, t_frame, ctx, packed=packed, latent_frame_zero=lfz, **kw)
         return _tail_loss(v, xt, ut, t)
 
     def _tail_loss(v, xt, ut, t):
@@ -251,15 +256,21 @@ def make_loss_fn(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
 
 
 def make_train_step(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
-                    mvdt_keep: Optional[int] = None) -> Callable:
+                    mvdt_keep: Optional[int] = None, forward: Optional[Callable] = None,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """``step(state, batch, draws) -> (state, metrics)``: loss and gradients
     of ``state.params``, the optimizer update and the EMA
     ``e·d + p·(1 − d)`` (in the parameter dtype), all in place. Batch:
     ``latents`` [B, F, H, W, C] clean latents (history + tail), ``context``
     [B, text_len, text_dim]; an i2v batch (the 14B) adds ``y`` [B, F, H, W,
-    s0 + z] and ``clip_context`` (see :mod:`.i2v_batch`)."""
+    s0 + z] and ``clip_context`` (see :mod:`.i2v_batch`).
+
+    ``forward``: see :func:`make_loss_fn`. ``reduce_grads(grads)``, given
+    the gradients by name, reduces them in place before the global-norm
+    clipping: under sequence parallelism each rank's gradients hold its own
+    tokens' share and the reduction sums them over the group."""
     optimizer = make_optimizer(cfg)
-    loss_fn = make_loss_fn(model, cfg, packed=packed, mvdt_keep=mvdt_keep)
+    loss_fn = make_loss_fn(model, cfg, packed=packed, mvdt_keep=mvdt_keep, forward=forward)
 
     def train_step(state: TrainState, batch, draws) -> Tuple[TrainState, dict]:
         names = list(state.params)
@@ -271,6 +282,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, *, packed: bool = True,
             grads = dict(zip(names, torch.autograd.grad(
                 loss, [state.params[n] for n in names], allow_unused=True,
                 materialize_grads=True)))
+            if reduce_grads is not None:
+                reduce_grads(grads)
         with record_function("optimizer"):
             grad_norm = optimizer.update_(state.params, grads, state.opt_state)
         d = cfg.ema_decay
